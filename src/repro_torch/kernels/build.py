@@ -1,0 +1,162 @@
+"""Build and bind the CUDA kernels of `kernels/csrc/`.
+
+Each `.cu` source is compiled by its own `nvcc` process for `sm_90a` (all
+started together), then linked into one shared library with a plain C
+interface, loaded with `ctypes`. Nothing is built at import: the first
+kernel launch builds, into `build/repro_torch_kernels/` at the root of the
+checkout. The library's name carries a hash of the sources and flags, so a
+changed source never loads a stale build. Every C entry point returns
+`cudaGetLastError()` after its launch; `check` raises when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argument types (pointers and the stream as
+# c_void_p, ints as c_int, floats as c_float). All return an int error code.
+SIGNATURES = {
+    "rt_histogram_packed": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "rt_split_scan": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
+    "rt_ensemble_margins": [_P] * 7 + [_I] * 8 + [_P],
+    "rt_smem_optin": [_I, _P],
+}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # wall time of this process's build, 0.0 when cached
+    ptxas: str  # nvcc's -Xptxas -v report: registers, shared memory, spills
+
+
+_loaded: tuple[ctypes.CDLL, BuildInfo] | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile and link the kernels unless this exact build exists."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    key = _digest()
+    lib = BUILD_DIR / f"librepro_torch_kernels_{key}.so"
+    log = lib.with_suffix(".ptxas.txt")
+    if lib.exists() and log.exists():
+        return BuildInfo(lib, 0.0, log.read_text())
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{key}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    reports = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        reports.append(f"== {src.name}\n{out}")
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    report = "\n".join(reports)
+    log.write_text(report)
+    return BuildInfo(lib, time.perf_counter() - t0, report)
+
+
+def library() -> tuple[ctypes.CDLL, BuildInfo]:
+    """The loaded kernel library (built on first use) and its build info."""
+    global _loaded
+    if _loaded is None:
+        info = build()
+        lib = ctypes.CDLL(str(info.path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded = (lib, info)
+    return _loaded
+
+
+def lib() -> ctypes.CDLL:
+    return library()[0]
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """A kernel argument must be a contiguous CUDA tensor of this dtype and
+    rank; anything else raises (the kernels take no other layout)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the pointer the C side takes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(streaming multiprocessors, opt-in shared memory bytes per block)."""
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    smem = ctypes.c_int(0)
+    check(lib().rt_smem_optin(index, ctypes.addressof(smem)), "rt_smem_optin")
+    return n_sm, smem.value

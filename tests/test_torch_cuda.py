@@ -1,0 +1,140 @@
+"""Each CUDA kernel against its plain PyTorch version on the card, and the
+CUDA path end to end at a small size. Every test is marked `cuda`, decides
+inside itself whether there is a card and skips without one. This file
+imports no JAX, so it runs where the card is:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: split scan, cut selection and traversal do the same float
+operations in the same order as their plain versions, so they must agree
+bit for bit; the histogram kernel adds with atomics in no fixed order
+(rtol 1e-5, atol 2e-5).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import compress as TC
+from repro_torch.core import quantile as TQ
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
+from repro_torch.kernels.histogram import build_histograms_packed_kernel
+from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
+from repro_torch.kernels.split_scan import split_scan
+
+
+@pytest.fixture
+def rng():
+    """A fresh generator per test: the session-wide `rng` of conftest.py is
+    left untouched, so the reference's tests draw what they drew before."""
+    return np.random.default_rng(1234)
+
+
+def _hist_inputs(rng, n, f, max_bins, n_nodes):
+    bits = TC.bits_needed(max_bins - 1)
+    bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    gh = np.stack([rng.normal(size=n), rng.random(n)], axis=1).astype(np.float32)
+    pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)  # n_nodes = inactive
+    return TC.pack(torch.from_numpy(bins), bits), gh, pos, bits
+
+
+def _split_inputs(rng, n_nodes, f, b):
+    hist = np.stack([rng.normal(size=(n_nodes, f, b)), rng.random((n_nodes, f, b)) * 2],
+                    axis=-1).astype(np.float32)
+    hist[..., 5:9, :] = 0.0  # empty bins: thresholds that tie exactly
+    return hist, hist[:, 0].sum(axis=1)
+
+
+def _random_ensemble(rng, n_trees, depth, n_features):
+    a = 2 ** (depth + 1) - 1
+    is_leaf = rng.random((n_trees, a)) < 0.2
+    is_leaf[:, 2**depth - 1:] = True  # the last level is all leaves
+    threshold = rng.normal(size=(n_trees, a)).astype(np.float32)
+    threshold[is_leaf] = np.inf
+    return (rng.integers(0, n_features, (n_trees, a)).astype(np.int32), threshold,
+            rng.random((n_trees, a)) < 0.5,
+            rng.normal(size=(n_trees, a)).astype(np.float32), is_leaf)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, max_bins, n_nodes in [(1001, 5, 256, 1), (4096, 28, 256, 32),
+                                    (777, 3, 16, 3), (300, 2, 1024, 130)]:
+        packed, gh, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+        args = (packed.to(dev), torch.from_numpy(gh).to(dev),
+                torch.from_numpy(pos).to(dev), n_nodes, max_bins, bits)
+        got = build_histograms_packed_kernel(*args)
+        want = ref.histogram_ref(*args)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_split_scan_kernel_on_card(rng):
+    dev = _cuda()
+    for shape in [(1, 3, 8), (32, 28, 256), (3, 5, 1024), (2, 4, 33)]:
+        hist, parent = _split_inputs(rng, *shape)
+        hist_t, parent_t = torch.from_numpy(hist).to(dev), torch.from_numpy(parent).to(dev)
+        got = split_scan(hist_t, parent_t, 1.0, 1.0).cpu().numpy()
+        want = ref.split_scan_ref(hist_t, parent_t, 1.0, 1.0).cpu().numpy()
+        np.testing.assert_array_equal(got, want)  # same operations, same order
+
+
+@pytest.mark.cuda
+def test_cut_selection_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, max_bins in [(1000, 7, 16), (5000, 28, 256), (3, 2, 256)]:
+        x = rng.normal(size=(n, f)).astype(np.float32)
+        x[rng.random((n, f)) < 0.1] = np.nan
+        x[:, 0] = np.round(x[:, 0])
+        srt = np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
+        srt_t = torch.from_numpy(srt).to(dev)
+        nv = torch.from_numpy(np.isfinite(srt).sum(axis=0).astype(np.int32)).to(dev)
+        got = quantile_cuts_from_sorted(srt_t, nv, max_bins).cpu().numpy()
+        want = ref.quantile_cuts_ref(srt_t, nv, max_bins).cpu().numpy()
+        np.testing.assert_array_equal(got, want)  # same operations, same order
+
+
+@pytest.mark.cuda
+def test_traversal_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, n_trees, depth, k in [(1000, 5, 6, 3, 1), (333, 4, 30, 6, 3),
+                                    (70, 28, 500, 6, 1)]:
+        arena = [torch.from_numpy(a).to(dev) for a in _random_ensemble(rng, n_trees, depth, f)]
+        x = rng.normal(size=(n, f)).astype(np.float32)
+        x[rng.random((n, f)) < 0.2] = np.nan
+        xt = torch.from_numpy(x).to(dev)
+        got = ensemble_margins_kernel(*arena, xt, k, depth).cpu().numpy()
+        want = ref.ensemble_margins_ref(*arena, xt, k, depth).cpu().numpy()
+        np.testing.assert_array_equal(got, want)  # each class summed in tree order
+
+
+@pytest.mark.cuda
+def test_compute_cuts_and_fit_on_card(rng):
+    """The CUDA path end to end at a small size: same cuts as the CPU path,
+    and a fit whose raw-row margins agree with its bin-space margins."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x = rng.normal(size=(3000, 6)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + np.nan_to_num(x[:, 1]) > 0).astype(np.float32)
+    ops.reset_launches()
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    np.testing.assert_array_equal(d.cuts.cpu().numpy(),
+                                  TQ.compute_cuts(torch.from_numpy(x), 64).numpy())
+    np.testing.assert_array_equal(d.matrix.packed.cpu().numpy(),
+                                  TC.pack(TQ.quantize(torch.from_numpy(x), d.cuts.cpu()),
+                                          d.bits).numpy())
+    bst = Booster(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic").fit(d)
+    raw = bst.predict_margins(x)
+    assert all(v > 0 for v in ops.launches().values())
+    binned = bst.predict_margins(DeviceDMatrix(x, ref=d))
+    np.testing.assert_allclose(raw.cpu().numpy(), binned.cpu().numpy(), atol=1e-5)

@@ -1,0 +1,193 @@
+"""The plain PyTorch versions of the four CUDA kernels (`repro_torch.kernels.ref`,
+reached through `kernels.ops` on CPU tensors) against the JAX package's
+functions as its own tests run them on the CPU (Pallas in interpret mode).
+
+Tolerances and their reasons:
+  * histogram: rtol 1e-5, atol 2e-5 — float sums in another order.
+  * split scan: bin and direction exact; hl 1e-6. The gain to
+    5·B·2⁻²⁴ of max(|gain|, 1) for B bins, not 1e-6: the prefix sums are
+    taken in another order (strictly left to right here, a log-depth scan in
+    the reference), their rounding grows with B, and HR = H − HL cancels
+    when the right child is light, which the gain's terms amplify. Worst
+    readings over 60 seeds: 6.8e-5 at B=256, 1.0e-5 at 64, 2.7e-6 at 33,
+    0 at 8; the limit is 7.6e-5 at 256.
+  * cut selection: +inf pattern exact, values by the rank-flip model (the
+    reference's jitted rank fractions are not true division).
+  * traversal: 1e-5 — leaves summed per class in another order.
+
+The kernels themselves are held against these plain versions on the card
+by tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compress as JC
+from repro.kernels import ops as JO
+from repro.kernels.quantile_cuts import quantile_cuts_from_sorted as j_cuts_from_sorted
+from repro_torch.core import quantile as TQ
+from repro_torch.kernels import ops
+from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, trees_per_block
+from repro_torch.kernels.histogram import build_histograms_packed_kernel, launch_plan
+from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
+from repro_torch.kernels.split_scan import split_scan
+
+from _torch_parity import assert_cuts_close
+
+
+@pytest.fixture
+def rng():
+    """A fresh generator per test: the session-wide `rng` of conftest.py is
+    left untouched, so the reference's tests draw what they drew before."""
+    return np.random.default_rng(1234)
+
+H100_SMEM = 232448  # opt-in shared memory per block on an H100
+
+
+def _hist_inputs(rng, n, f, max_bins, n_nodes):
+    bits = JC.bits_needed(max_bins - 1)
+    bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    gh = np.stack([rng.normal(size=n), rng.random(n)], axis=1).astype(np.float32)
+    pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)  # n_nodes = inactive
+    packed = np.asarray(JC.pack(jnp.asarray(bins), bits))
+    return packed, gh, pos, bits
+
+
+@pytest.mark.parametrize("n,f,max_bins,n_nodes", [
+    (257, 4, 16, 1),    # ragged last word
+    (1000, 7, 64, 3),
+    (513, 3, 256, 8),
+    (64, 1, 8, 2),
+    (301, 5, 32, 8),
+])
+def test_histogram_plain_vs_reference(rng, n, f, max_bins, n_nodes):
+    packed, gh, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+    want = np.asarray(JO.histogram_private_op(
+        jnp.asarray(packed), jnp.asarray(gh), jnp.asarray(pos), n_nodes, max_bins, bits))
+    got = ops.histogram(torch.from_numpy(packed.copy().view(np.int32)), torch.from_numpy(gh),
+                        torch.from_numpy(pos), n_nodes, max_bins, bits)
+    assert got.shape == (n_nodes, f, max_bins, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-5)
+
+
+def _split_inputs(rng, n_nodes, f, b, with_missing=True):
+    g = rng.normal(size=(n_nodes, f, b))
+    h = rng.random((n_nodes, f, b)) * 2
+    if not with_missing:
+        g[..., -1] = h[..., -1] = 0
+    hist = np.stack([g, h], axis=-1).astype(np.float32)
+    parent = hist[:, 0].sum(axis=1)  # every feature sees every row
+    return hist, parent
+
+
+@pytest.mark.parametrize("shape,lam,mcw", [
+    ((1, 3, 8), 1.0, 0.5), ((3, 17, 64), 1.0, 1.0), ((8, 5, 256), 0.5, 2.0),
+    ((2, 4, 33), 2.0, 0.0),
+])
+def test_split_scan_plain_vs_reference(rng, shape, lam, mcw):
+    hist, parent = _split_inputs(rng, *shape)
+    want = np.asarray(JO.split_scan_op(jnp.asarray(hist), jnp.asarray(parent), lam, mcw))
+    got = ops.split_scan(torch.from_numpy(hist), torch.from_numpy(parent), lam, mcw).numpy()
+    assert got.shape == shape[:2] + (5,)
+    mine = got[..., [0, 1, 2, 4]]  # the reference has no gl field
+    np.testing.assert_array_equal(mine[..., 1:3], want[..., 1:3])
+    np.testing.assert_array_equal(np.isfinite(mine[..., 0]), np.isfinite(want[..., 0]))
+    fin = np.isfinite(want[..., 0])
+    gain_err = np.abs(mine[..., 0] - want[..., 0])[fin]
+    limit = 5 * shape[2] * 2.0**-24 * np.maximum(np.abs(want[..., 0][fin]), 1.0)
+    assert np.all(gain_err <= limit)
+    np.testing.assert_allclose(mine[..., 3], want[..., 3], rtol=1e-6, atol=1e-6)
+    # gl is the left prefix sum at the winner, missing mass added when it goes left
+    b = got[..., 1].astype(int)
+    gl = np.cumsum(hist[..., :-1, 0], axis=-1, dtype=np.float64)
+    gl = np.take_along_axis(gl, b[..., None], -1)[..., 0] + got[..., 2] * hist[..., -1, 0]
+    np.testing.assert_allclose(got[..., 3], gl, rtol=1e-5, atol=1e-5)
+
+
+def test_split_scan_ties_go_to_the_lowest_bin():
+    hist = np.zeros((1, 1, 10, 2), np.float32)
+    hist[0, 0, [2, 5], 0] = [-1.0, 1.0]  # thresholds 2, 3, 4 score the same
+    hist[0, 0, :9, 1] = 1.0
+    hist[0, 0, 3:5, 1] = 0.0  # ... because bins 3 and 4 hold nothing
+    parent = hist[:, 0].sum(axis=1)
+    got = ops.split_scan(torch.from_numpy(hist), torch.from_numpy(parent), 1.0, 0.0).numpy()
+    assert got[0, 0, 1] == 2.0
+    none = ops.split_scan(torch.zeros(1, 1, 10, 2), torch.zeros(1, 2), 1.0, 1.0).numpy()
+    assert none[0, 0, 0] == -np.inf and none[0, 0, 1] == 0.0
+
+
+@pytest.mark.parametrize("n,f,max_bins", [(1000, 7, 16), (513, 3, 256), (64, 1, 256),
+                                          (333, 11, 64)])
+def test_cut_selection_plain_vs_reference(rng, n, f, max_bins):
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.1] = np.nan
+    srt = np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
+    n_valid = np.isfinite(srt).sum(axis=0).astype(np.int32)
+    want = np.asarray(j_cuts_from_sorted(jnp.asarray(srt), jnp.asarray(n_valid), max_bins))
+    got = TQ.select_cuts_from_sorted(torch.from_numpy(srt), torch.from_numpy(n_valid),
+                                     max_bins).numpy()
+    assert got.shape == (f, max_bins - 2)
+    assert_cuts_close(got, want, x)
+
+
+def _random_ensemble(rng, n_trees, depth, n_features):
+    a = 2 ** (depth + 1) - 1
+    is_leaf = rng.random((n_trees, a)) < 0.2
+    is_leaf[:, 2**depth - 1:] = True  # the last level is all leaves
+    threshold = rng.normal(size=(n_trees, a)).astype(np.float32)
+    threshold[is_leaf] = np.inf
+    return (rng.integers(0, n_features, (n_trees, a)).astype(np.int32), threshold,
+            rng.random((n_trees, a)) < 0.5,
+            rng.normal(size=(n_trees, a)).astype(np.float32), is_leaf)
+
+
+@pytest.mark.parametrize("n,f,n_trees,depth,k", [
+    (300, 5, 6, 3, 1), (129, 4, 9, 4, 3), (50, 2, 1, 1, 1), (257, 7, 40, 6, 2),
+])
+def test_traversal_plain_vs_reference(rng, n, f, n_trees, depth, k):
+    arena = _random_ensemble(rng, n_trees, depth, f)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.2] = np.nan
+    want = np.asarray(JO.ensemble_margins_op(*map(jnp.asarray, arena), jnp.asarray(x),
+                                             k, depth))
+    got = ops.ensemble_margins(*map(torch.from_numpy, arena), torch.from_numpy(x), k,
+                               depth).numpy()
+    assert got.shape == (n, k)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_take_only_cuda_tensors():
+    """On a CPU tensor a wrapper raises; only ops picks the plain version."""
+    cpu = torch.zeros(4, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        build_histograms_packed_kernel(torch.zeros(1, 1, dtype=torch.int32), cpu,
+                                       torch.zeros(4, dtype=torch.int32), 1, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        split_scan(torch.zeros(1, 1, 8, 2), torch.zeros(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        quantile_cuts_from_sorted(cpu, torch.zeros(2, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ensemble_margins_kernel(torch.zeros(1, 3, dtype=torch.int32), torch.zeros(1, 3),
+                                torch.zeros(1, 3, dtype=torch.bool), torch.zeros(1, 3),
+                                torch.ones(1, 3, dtype=torch.bool), cpu, 1, 1)
+
+
+@pytest.mark.parametrize("n_nodes,max_bins", [(1, 256), (8, 256), (32, 256), (200, 256),
+                                              (5, 16), (64, 1024)])
+def test_histogram_launch_plan_fits_shared_memory(n_nodes, max_bins):
+    plan = launch_plan(250_000, 28, n_nodes, max_bins, 132, H100_SMEM)
+    assert plan.feat_group * plan.node_tile * max_bins * 8 <= H100_SMEM  # (g, h) f32 per bin
+    assert 1 <= plan.node_tile <= n_nodes and 1 <= plan.feat_group <= 28
+    if n_nodes * max_bins * 8 <= H100_SMEM:  # one feature at every node fits
+        assert plan.node_tile == n_nodes
+    assert plan.words_per_block * -(-250_000 // plan.words_per_block) >= 250_000
+    if (n_nodes, max_bins) == (32, 256):
+        assert (plan.node_tile, plan.feat_group) == (32, 3)  # 192 KB
+
+
+def test_traversal_trees_per_block():
+    assert trees_per_block(10, 127, 1, H100_SMEM) == 10
+    assert trees_per_block(1000, 127, 1, H100_SMEM) == (48 * 1024 - 1024) // (127 * 14)
+    with pytest.raises(ValueError):
+        trees_per_block(10, 127, 300, H100_SMEM)
