@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) end to end on one card.
 
-    python3 chip_smoke.py [--rows 1000000] [--seed 0]
+    python3 chip_smoke.py [--rows 1000000] [--seed 0] [--profile]
 
 Phases, each printing one JSON line:
   1. device   — card name and count, `nvidia-smi` name and power limit.
-  2. build    — nvcc build of the four kernels from `src/repro_torch/kernels/csrc`
+  2. build    — nvcc build of the kernels from `src/repro_torch/kernels/csrc`
                 for sm_90a, its time and the ptxas register/smem/spill report.
   3. main     — the main path through the user entry points: Higgs-shaped
                 data (28 features, generated from --seed) -> DeviceDMatrix on
                 cuda -> Booster(10 rounds, depth 6, 256 bins, binary:logistic).fit
-                -> predict on 100k held-out rows. Held-out accuracy must beat
+                with the reference's default growth (subtraction trick) ->
+                predict on 100k held-out rows. Held-out accuracy must beat
                 0.7, the raw-row predictions must agree with the bin-space
-                traversal of a ref= matrix, and every kernel's launch count
-                (reset just before, read just after) must be > 0.
-  4. check    — each kernel against its plain PyTorch version on the same
-                CUDA inputs, at the main path's shapes.
-  5. time     — CUDA-event ms of each kernel, its plain version and, where one
+                traversal of a ref= matrix, and each kernel of the path must
+                launch as often as the path says (counts reset just before,
+                read just after): privatised histogram 10, row-id histogram
+                50, split scan 60, cut selection 1, traversal 1.
+  4. fit      — two further fits on the same matrix, each with its own
+                counts: `use_kernel_histograms=True` (privatised histogram
+                60, row-id 0) and `growth="lossguide", max_leaves=32`. Each
+                must beat 0.7; the share of trees whose structure matches
+                between the main and the kernel-path fit is a reading, not a
+                gate. Then FIT_PAIRS warm, untraced pairs of the default and
+                the kernel-path fit, alternating which runs first: the two
+                growths end to end, like for like.
+  5. ops      — the path the reference gives `histogram_packed` and
+                `decompress`: `ops.histogram_packed_op` and `ops.decompress_op`
+                on the training matrix's words, counts reset just before.
+  6. check    — each kernel against its plain PyTorch version on the same
+                CUDA inputs, at the main path's shapes; and the subtraction
+                trick's device path at level 5 against a full build.
+  7. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak).
 Then the kernels line, the `nvidia-smi` line and, last,
@@ -37,17 +52,32 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 HELD_OUT = 100_000
-HIST_NODES = (1, 8, 32)  # histogram shapes checked: levels 0, 3 and 5 at depth 6
+ROUNDS, DEPTH, MAX_BINS = 10, 6, 256
+HIST_NODES = (1, 8, 32)  # full-level histograms checked: levels 0, 3 and 5
+ROW_PARENTS = (1, 4, 16)  # row-id histograms checked: parents of levels 1, 3, 5
+FIT_PAIRS = 5  # host times vary between fits: the median of five pairs
 L2_FLUSH_BYTES = 128 << 20  # more than the 50 MB L2, written between timed launches
 
-# Where each kernel's TPU original lives (file:line of its pallas_call).
+# Where each kernel's TPU original lives (file:line of its pallas_call). The
+# row-id histogram extends the privatised kernel to the function the
+# reference computes in XLA for the subtraction trick.
 REPLACES = {
-    "histogram": "src/repro/kernels/histogram.py:332",
+    "histogram_private": "src/repro/kernels/histogram.py:332",
+    "histogram_rows": "src/repro/core/histogram.py:369",
+    "histogram_packed": "src/repro/kernels/histogram.py:131",
     "split_scan": "src/repro/kernels/split_scan.py:81",
     "quantile_cuts": "src/repro/kernels/quantile_cuts.py:100",
     "ensemble_traversal": "src/repro/kernels/ensemble_traversal.py:175",
+    "decompress": "src/repro/kernels/decompress.py:45",
 }
-SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
+SOURCES = {name: "src/repro_torch/kernels/csrc/"
+           + ("histogram" if name.startswith("histogram") else name) + ".cu"
+           for name in REPLACES}
+# Further fits on the main matrix: Booster knobs beside the main path's.
+FITS = {
+    "kernel": {"use_kernel_histograms": True},
+    "lossguide": {"growth": "lossguide", "max_leaves": 32},
+}
 
 
 def emit(obj: dict) -> None:
@@ -80,6 +110,22 @@ def ptxas_summary(report: str) -> list[dict]:
     return rows
 
 
+def path_launches(use_kernel_histograms: bool = False) -> dict[str, int]:
+    """Launches of the growth kernels in one fit of ROUNDS trees, DEPTH levels
+    each: every level scans its splits; the default growth histograms the
+    root in full and every level below by the row-id kernel, the kernel path
+    every level in full."""
+    full = ROUNDS * (DEPTH if use_kernel_histograms else 1)
+    return {"histogram_private": full, "histogram_rows": ROUNDS * DEPTH - full,
+            "split_scan": ROUNDS * DEPTH}
+
+
+def expect_launches(where: str, got: dict[str, int], want: dict[str, int]) -> None:
+    wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if wrong:
+        raise SystemExit(f"{where}: launches (got, expected) {wrong}")
+
+
 def profile_fit(dtrain) -> None:
     """A second fit, traced: device time by kernel, device busy time against
     the fit's wall time."""
@@ -90,7 +136,7 @@ def profile_fit(dtrain) -> None:
     from repro_torch.core import Booster
 
     def fit():
-        Booster(n_rounds=10, max_depth=6, max_bins=256,
+        Booster(n_rounds=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS,
                 objective="binary:logistic").fit(dtrain)
         torch.cuda.synchronize()
 
@@ -120,6 +166,7 @@ def profile_fit(dtrain) -> None:
         events.table(sort_by="self_cuda_time_total", row_limit=60))
     emit({"phase": "profile", "fit_s_untraced": untraced, "fit_s_traced": traced,
           "device_busy_s": busy, "idle_share_untraced": 1 - busy / untraced,
+          "device_kernel_launches": sum(e.count for e in kernels),
           "top": [{"name": e.key[:90], "device_ms": device_us(e) / 1e3,
                    "calls": e.count} for e in top]})
 
@@ -146,10 +193,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Booster, DeviceDMatrix
-    from repro_torch.core.compress import unpack
+    from repro_torch.core.compress import pack, unpack
+    from repro_torch.core.tree import _histograms_by_subtraction
+    from repro_torch.core.histogram import node_sums
     from repro_torch.data import make_dataset
     from repro_torch.kernels import build as KB
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decompress import decompress
+    from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
+    from repro_torch.kernels.histogram import (
+        build_histograms_packed_kernel,
+        build_histograms_rows_kernel,
+        histogram_packed,
+    )
+    from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
+    from repro_torch.kernels.split_scan import split_scan
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,6 +229,14 @@ def main() -> int:
     # --- 3. main path --------------------------------------------------------
     x, y, _ = make_dataset("higgs", args.rows + HELD_OUT, seed=args.seed)
     x_tr, y_tr, x_te, y_te = x[:args.rows], y[:args.rows], x[args.rows:], y[args.rows:]
+    booster_kw = dict(n_rounds=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS,
+                      objective="binary:logistic")
+
+    def accuracy(prob) -> float:
+        if prob.shape != (HELD_OUT,) or not bool(torch.isfinite(prob).all()):
+            raise SystemExit(f"predictions are not {HELD_OUT} finite values")
+        return float(((prob.cpu().numpy() > 0.5) == y_te).mean())
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -178,8 +244,7 @@ def main() -> int:
     dtrain = DeviceDMatrix(x_tr, label=y_tr)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    bst = Booster(n_rounds=10, max_depth=6, max_bins=256,
-                  objective="binary:logistic").fit(dtrain)
+    bst = Booster(**booster_kw).fit(dtrain)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     prob = bst.predict(x_te)
@@ -187,52 +252,79 @@ def main() -> int:
     t3 = time.perf_counter()
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated()
-    if prob.shape != (HELD_OUT,) or not bool(torch.isfinite(prob).all()):
-        raise SystemExit(f"predictions are not {HELD_OUT} finite values")
-    acc = float(((prob.cpu().numpy() > 0.5) == y_te).mean())
+    acc = accuracy(prob)
     # The same model in bin space on a ref= matrix: x <= threshold exactly
     # when bin <= split_bin, so both traversals reach the same leaves.
     binned = bst.predict_margins(DeviceDMatrix(x_te, ref=dtrain))
     raw = bst.predict_margins(x_te)
     bin_err = float((binned - raw).abs().max())
     emit({"phase": "main", "rows": args.rows, "features": int(x.shape[1]),
-          "bits": dtrain.bits, "rounds": 10, "max_depth": 6, "max_bins": 256,
-          "build_s": t1 - t0, "fit_s": t2 - t1, "predict_s": t3 - t2,
-          "held_out_accuracy": acc, "binned_vs_raw_max_err": bin_err,
-          "max_memory_allocated": peak, "launches": launches})
+          "bits": dtrain.bits, "rounds": ROUNDS, "max_depth": DEPTH,
+          "max_bins": MAX_BINS, "build_s": t1 - t0, "fit_s": t2 - t1,
+          "predict_s": t3 - t2, "held_out_accuracy": acc,
+          "binned_vs_raw_max_err": bin_err, "max_memory_allocated": peak,
+          "launches": launches})
     if acc <= 0.7:
         raise SystemExit(f"held-out accuracy {acc} does not beat 0.7")
     if bin_err > 1e-5:  # leaves summed in another order: float32 rounding
         raise SystemExit(f"raw and bin-space margins differ by {bin_err}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SystemExit(f"the main path never launched {missing}")
+    expect_launches("main path", launches, {**path_launches(), "quantile_cuts": 1,
+                                            "ensemble_traversal": 1})
+
+    # --- 4. further fits on the same matrix -----------------------------------
+    ens = bst.ensemble
+    for name, knobs in FITS.items():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        other = Booster(**booster_kw, **knobs).fit(dtrain)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = ops.launches()
+        line = {"phase": "fit", "fit": name, **knobs, "fit_s": fit_s,
+                "held_out_accuracy": accuracy(other.predict(x_te)),
+                "launches": fit_launches}
+        if name == "kernel":
+            # Subtraction rounds differently from a full build, so a near-tied
+            # split may flip and the trees after it follow other gradients.
+            same = torch.ones(ens.n_trees, dtype=torch.bool, device=dev)
+            for f in ("feature", "split_bin", "default_left", "is_leaf"):
+                same &= (getattr(ens, f) == getattr(other.ensemble, f)).all(dim=1)
+            line["trees_same_structure_as_main"] = float(same.float().mean())
+        elif name == "lossguide":
+            leaves = other.ensemble.is_leaf.sum(dim=1)
+            line["leaves_per_tree_max"] = int(leaves.max())
+            if int(leaves.max()) > knobs["max_leaves"]:
+                raise SystemExit(f"lossguide grew {int(leaves.max())} leaves")
+        emit(line)
+        if line["held_out_accuracy"] <= 0.7:
+            raise SystemExit(f"{name} fit: held-out accuracy does not beat 0.7")
+        expect_launches(f"{name} fit", fit_launches,
+                        path_launches(knobs.get("use_kernel_histograms", False)))
+
+    pair_s: dict[str, list[float]] = {"default": [], "kernel": []}
+    for i in range(FIT_PAIRS):
+        for name in ("default", "kernel") if i % 2 == 0 else ("kernel", "default"):
+            t0 = time.perf_counter()
+            Booster(**booster_kw, **FITS.get(name, {})).fit(dtrain)
+            torch.cuda.synchronize()
+            pair_s[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[FIT_PAIRS // 2] for k, v in pair_s.items()}
+    emit({"phase": "fit_pairs", "fit_s": pair_s, "median_default_s": med["default"],
+          "median_kernel_s": med["kernel"],
+          "default_over_kernel": med["default"] / med["kernel"],
+          "default_slower_in_pairs": sum(d > k for d, k in zip(pair_s["default"],
+                                                               pair_s["kernel"]))})
 
     if args.profile:
         profile_fit(dtrain)
 
-    # --- 4. kernels against their plain versions ---------------------------
-    from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
-    from repro_torch.kernels.histogram import build_histograms_packed_kernel
-    from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
-    from repro_torch.kernels.split_scan import split_scan
-
+    # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n, f = dtrain.n_rows, dtrain.n_features
     packed, bits = dtrain.matrix.packed, dtrain.bits
     p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
     yy = torch.as_tensor(y_tr, device=dev)
     gh = torch.stack([p - yy, p * (1 - p)], dim=1).contiguous()
-    results: dict[str, dict] = {}
-    levels = []
-
-    def check(got, want, tol):
-        err = float((got - want).abs().max())
-        ok = bool(((got - want).abs() <= tol).all())
-        return err, ok
-
-    hist32 = None
-    ones = torch.ones_like(gh)
     # Dyadic (g, h) with few significant bits: every partial sum is exact in
     # float32, in any order, so there kernel and plain version must agree
     # exactly — every row must land in its (node, feature, bin).
@@ -240,32 +332,128 @@ def main() -> int:
         torch.randint(-8, 9, (n,), device=dev, generator=gen) / 4,
         torch.randint(0, 5, (n,), device=dev, generator=gen) / 4,
     ], dim=1).contiguous()
-    for n_nodes in HIST_NODES:
+    ones = torch.ones_like(gh)
+
+    def level_positions(n_nodes: int) -> torch.Tensor:
+        """Rows spread over the level's nodes; inactive rows carry n_nodes
+        or, as the reference pads them for histogram_packed, -1."""
         pos = torch.randint(0, n_nodes + 1, (n,), device=dev, generator=gen,
                             dtype=torch.int32)
-        args = (packed, gh_exact, pos, n_nodes, 256, bits)
-        count = ref.histogram_ref(packed, ones, pos, n_nodes, 256, bits)[..., :1]
+        gone = torch.rand(n, device=dev, generator=gen) < 0.05
+        return torch.where(gone, -1, pos).to(torch.int32)
+
+    def row_buffer(n_par: int):
+        """A compacted buffer as the subtraction trick makes it: n // 2 slots,
+        the selected rows (45% of all) in row order, 5% of them at the dump
+        position, then padding slots with id n at the dump position."""
+        m = n // 2
+        rid = torch.nonzero(torch.rand(n, device=dev, generator=gen) < 0.45)[:m, 0]
+        k = rid.shape[0]
+        rid = torch.cat([rid, torch.full((m - k,), n, device=dev, dtype=rid.dtype)])
+        pos = torch.randint(0, n_par, (m,), device=dev, generator=gen, dtype=torch.int32)
+        dump = torch.rand(m, device=dev, generator=gen) < 0.05
+        pos = torch.where(dump | (torch.arange(m, device=dev) >= k), n_par, pos)
+        return rid.to(torch.int32), pos.to(torch.int32)
+
+    levels = {nn: level_positions(nn) for nn in HIST_NODES}
+    buffers = {npar: row_buffer(npar) for npar in ROW_PARENTS}
+
+    def counts_and_tolerance(plain, *args):
+        """Rows per bin, and the tolerance for real-valued (g, h): atomics add
+        in no fixed order, and summing k terms in two arbitrary orders
+        differs by about sqrt(k) * 2^-24 * sum|x|; four times that, per bin."""
+        count = plain(*args[:1], ones[:args[1].shape[0]], *args[2:])[..., :1]
         if float(count.max()) * 2 * 4 >= 2**24:
             raise SystemExit("rows per bin too many for the exact histogram check")
-        exact_err = float((build_histograms_packed_kernel(*args)
-                           - ref.histogram_ref(*args)).abs().max())
-        if exact_err != 0.0:
-            raise SystemExit(f"histogram kernel misplaces rows at n_nodes={n_nodes}: "
-                             f"{exact_err}")
-        # Real-valued (g, h): atomics add in no fixed order. Summing k terms
-        # in two arbitrary orders differs by about sqrt(k) * 2^-24 * sum|x|;
-        # the tolerance is four times that, per bin.
-        got = build_histograms_packed_kernel(packed, gh, pos, n_nodes, 256, bits)
-        want = ref.histogram_ref(packed, gh, pos, n_nodes, 256, bits)
-        mag = ref.histogram_ref(packed, gh.abs(), pos, n_nodes, 256, bits)
-        err, ok = check(got, want, 2e-5 + 4 * count.sqrt() * 2**-24 * mag)
-        levels.append({"n_nodes": n_nodes, "exact_max_abs_err": exact_err,
-                       "max_abs_err": err, "ok": ok, "pos": pos})
-        if not ok:
-            raise SystemExit(f"histogram kernel disagrees at n_nodes={n_nodes}: {err}")
-        hist32 = got
+        mag = plain(*args[:1], args[1].abs(), *args[2:])
+        return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    parent = hist32[:, 0].sum(dim=1)  # (32, 2) node sums over feature 0's bins
+    # --- 5. the ops path of histogram_packed and decompress -----------------
+    ops.reset_launches()
+    hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
+    bins = ops.decompress_op(packed, bits, n)
+    torch.cuda.synchronize()
+    ops_launches = ops.launches()
+    want_hp = ref.histogram_packed_ref(packed, gh, levels[32], 32, MAX_BINS, bits)
+    hp_ok = bool(((hp - want_hp).abs() <= counts_and_tolerance(
+        ref.histogram_packed_ref, packed, gh, levels[32], 32, MAX_BINS, bits)).all())
+    bins_exact = bool(torch.equal(bins, ref.decompress_ref(packed, bits, n)))
+    emit({"phase": "ops", "launches": ops_launches, "histogram_packed_op_ok": hp_ok,
+          "decompress_op_exact": bins_exact, "bins_shape": list(bins.shape)})
+    expect_launches("ops path", ops_launches, {"histogram_packed": 1, "decompress": 1})
+    if not hp_ok or not bins_exact or bins.shape != (n, f):
+        raise SystemExit("the ops path's histogram or bins disagree with the plain versions")
+    del bins
+
+    # --- 6. kernels against their plain versions ---------------------------
+    results: dict[str, dict] = {}
+    checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
+                                "histogram_rows": []}
+
+    def check(got, want, tol):
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= tol).all())
+        return err, ok
+
+    def check_histogram(name, kernel, plain, size, *rest):
+        """Exact on dyadic (g, h); within the sqrt(rows) tolerance on real."""
+        inputs = {"exact": (packed, gh_exact, *rest), "real": (packed, gh, *rest)}
+        if name == "histogram_rows":  # (g, h) gathered for each slot's row
+            rid = rest[1].to(torch.int64).clamp(max=n - 1)
+            inputs = {k: (packed, v[1][rid], *rest) for k, v in inputs.items()}
+        exact_err = float((kernel(*inputs["exact"]) - plain(*inputs["exact"])).abs().max())
+        got = kernel(*inputs["real"])
+        err, ok = check(got, plain(*inputs["real"]),
+                        counts_and_tolerance(plain, *inputs["real"]))
+        checked[name].append({"nodes": size, "exact_max_abs_err": exact_err,
+                              "max_abs_err": err, "ok": ok})
+        if exact_err != 0.0 or not ok:
+            raise SystemExit(f"{name} disagrees at {size} nodes: exact {exact_err}, "
+                             f"real {err}")
+        return got
+
+    for nn in HIST_NODES:
+        hist = check_histogram("histogram_private", build_histograms_packed_kernel,
+                               ref.histogram_ref, nn, levels[nn], nn, MAX_BINS, bits)
+        check_histogram("histogram_packed", histogram_packed, ref.histogram_packed_ref,
+                        nn, levels[nn], nn, MAX_BINS, bits)
+    hist32 = hist
+    for npar in ROW_PARENTS:
+        rid, pos = buffers[npar]
+        check_histogram("histogram_rows", build_histograms_rows_kernel,
+                        ref.histogram_rows_ref, npar, pos, rid, npar, MAX_BINS, bits)
+    # The subtraction trick's device path (lane-spread counts, scatter
+    # compaction, sibling = parent - child) at level 5 of the main matrix,
+    # against a full build of the level: exact on dyadic (g, h); on real
+    # (g, h) a sibling carries its parent's rounding, so each child is held
+    # to its parent's tolerance.
+    local = torch.where(levels[32] < 0, 32, levels[32])
+    par = torch.where(local < 32, local // 2, 16).to(torch.int32)
+    sub_err = {}
+    for name_gh, g in (("exact", gh_exact), ("real", gh)):
+        prev = build_histograms_packed_kernel(packed, g, par, 16, MAX_BINS, bits)
+        got = _histograms_by_subtraction(dtrain.matrix.as_packed_bins(), g, local,
+                                         prev, 32, MAX_BINS)
+        want = build_histograms_packed_kernel(packed, g, local, 32, MAX_BINS, bits)
+        sub_err[name_gh] = got - want
+    tol = counts_and_tolerance(ref.histogram_ref, packed, gh, par, 16, MAX_BINS,
+                               bits).repeat_interleave(2, dim=0)
+    results["subtraction_level5"] = {
+        "exact_max_abs_err": float(sub_err["exact"].abs().max()),
+        "max_abs_err": float(sub_err["real"].abs().max()),
+        "tolerance": "dyadic gh exact; real gh the parent's sqrt(rows) tolerance",
+    }
+    if float(sub_err["exact"].abs().max()) != 0.0 or not bool((sub_err["real"].abs() <= tol).all()):
+        raise SystemExit(f"subtraction at level 5 disagrees with a full build: "
+                         f"{results['subtraction_level5']}")
+    del sub_err, tol, prev
+    for name, rows in checked.items():
+        results[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "tolerance": "dyadic gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|)",
+        }
+
+    parent = node_sums(hist32)  # (32, 2) node sums over feature 0's bins
     got = split_scan(hist32, parent, 1.0, 1.0)
     want = ref.split_scan_ref(hist32, parent, 1.0, 1.0)
     fin = torch.isfinite(want)
@@ -280,8 +468,8 @@ def main() -> int:
     finite = torch.isfinite(xt)
     srt = torch.sort(torch.where(finite, xt, float("inf")), dim=0).values
     n_valid = finite.sum(dim=0, dtype=torch.int32)
-    got = quantile_cuts_from_sorted(srt, n_valid, 256)
-    want = ref.quantile_cuts_ref(srt, n_valid, 256)
+    got = quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)
+    want = ref.quantile_cuts_ref(srt, n_valid, MAX_BINS)
     if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
         raise SystemExit("quantile_cuts kernel: +inf pattern differs")
     fin = torch.isfinite(want)
@@ -290,25 +478,35 @@ def main() -> int:
     if err != 0.0:
         raise SystemExit(f"quantile_cuts kernel disagrees: {err}")
 
-    ens = bst.ensemble
     xte = torch.as_tensor(x_te, device=dev)
     targs = (ens.feature, ens.threshold, ens.default_left, ens.leaf_value,
-             ens.is_leaf, xte, ens.n_classes, 6)
+             ens.is_leaf, xte, ens.n_classes, DEPTH)
     got = ensemble_margins_kernel(*targs)
     want = ref.ensemble_margins_ref(*targs)
     err, ok = check(got, want, 1e-5)
     results["ensemble_traversal"] = {"max_abs_err": err, "tolerance": "1e-5"}
     if not ok:
         raise SystemExit(f"ensemble_traversal kernel disagrees: {err}")
-    results["histogram"] = {
-        "max_abs_err": max(lv["max_abs_err"] for lv in levels),
-        "tolerance": "dyadic gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|)",
-    }
-    emit({"phase": "check", **{k: v for k, v in results.items()},
-          "histogram_levels": [{k: v for k, v in lv.items() if k != "pos"}
-                               for lv in levels]})
 
-    # --- 5. times -------------------------------------------------------------
+    # decompress: the training matrix (8-bit symbols) and 4-bit symbols at an
+    # odd row count, against the plain unpack and against the bins packed.
+    n_odd = n - 1 if n % 2 == 0 else n
+    bins4 = torch.randint(0, 16, (n_odd, f), device=dev, generator=gen, dtype=torch.int32)
+    packed4 = pack(bins4, 4)
+    dec_err = 0
+    for words, b, rows, truth in ((packed, bits, n, None), (packed4, 4, n_odd, bins4)):
+        got = decompress(words, b, rows)
+        want = ref.decompress_ref(words, b, rows)
+        dec_err = max(dec_err, int((got - want).abs().max()))
+        if truth is not None:
+            dec_err = max(dec_err, int((got - truth).abs().max()))
+    results["decompress"] = {"max_abs_err": float(dec_err), "tolerance": "exact"}
+    if dec_err != 0:
+        raise SystemExit(f"decompress kernel disagrees: {dec_err}")
+    del bins4, packed4, got, want
+    emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
+
+    # --- 7. times -------------------------------------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
     def time_ms(fn, iters=20, warmup=3) -> float:
@@ -330,47 +528,107 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
+    def library_scatter(bins_rows, pos, src, n_nodes):
+        """One `scatter_add_` on the flat index ((pos * F) + f) * B + bin, as
+        a function of (output, index, source), and its inputs."""
+        pos = pos.to(torch.int64)
+        pos = torch.where((pos >= 0) & (pos < n_nodes), pos, n_nodes)
+        idx = (pos[:, None] * f + torch.arange(f, device=dev)[None, :]) * MAX_BINS \
+            + bins_rows.to(torch.int64)
+        idx = idx.reshape(-1, 1).expand(-1, 2)
+        src = src[:, None, :].expand(-1, f, 2).reshape(-1, 2)
+        out = torch.zeros(((n_nodes + 1) * f * MAX_BINS, 2), device=dev)
+        return lambda: out.scatter_add_(0, idx, src)
+
     w = packed.shape[1]
+    dense = unpack(packed, bits, n)
+    # With (g, h) all zero the privatised kernel does every shared-memory
+    # atomic but its private histograms stay zero, and the flush skips zero
+    # entries: the difference of the two times is what the flush costs.
+    zero_gh = torch.zeros_like(gh)
     hist_rows = []
-    for lv in levels:
-        nn, pos = lv["n_nodes"], lv["pos"]
-        active = int((pos < nn).sum())
-        flat_idx = (pos.to(torch.int64).clamp(max=nn)[:, None] * f
-                    + torch.arange(f, device=dev)[None, :]) * 256 \
-            + unpack(packed, bits, n).to(torch.int64)
-        flat_idx = flat_idx.reshape(-1, 1).expand(-1, 2)
-        src = gh[:, None, :].expand(n, f, 2).reshape(-1, 2)
-        lib_out = torch.zeros(((nn + 1) * f * 256, 2), device=dev)
-        b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * 256 * 8,
+    for nn in HIST_NODES:
+        pos = levels[nn]
+        active = int(((pos >= 0) & (pos < nn)).sum())
+        b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * MAX_BINS * 8,
                            2 * active * f)
+        hargs = (packed, gh, pos, nn, MAX_BINS, bits)
         hist_rows.append({
             "n_nodes": nn,
-            "ms": time_ms(lambda: build_histograms_packed_kernel(packed, gh, pos, nn, 256, bits)),
-            "plain_ms": time_ms(lambda: ref.histogram_ref(packed, gh, pos, nn, 256, bits), iters=5),
-            "library_ms": time_ms(lambda: lib_out.scatter_add_(0, flat_idx, src), iters=5),
+            "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
+            "private_zero_gh_ms": time_ms(lambda: build_histograms_packed_kernel(
+                packed, zero_gh, pos, nn, MAX_BINS, bits)),
+            "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
+            "plain_ms": time_ms(lambda: ref.histogram_ref(*hargs), iters=5),
+            "library_ms": time_ms(library_scatter(dense, pos, gh, nn), iters=5),
             "bound_ms": b_ms, "bound_by": b_by,
         })
-        del flat_idx, src, lib_out
     emit({"phase": "time", "histogram_levels": hist_rows})
 
+    rows_rows = []
+    spw = 32 // bits
+    for npar in ROW_PARENTS:
+        rid, pos = buffers[npar]
+        valid = pos < npar
+        gh_sel = gh[rid.to(torch.int64).clamp(max=n - 1)]
+        rargs = (packed, gh_sel, pos, rid, npar, MAX_BINS, bits)
+        # Bytes this run's data needs: the words of the valid slots' rows,
+        # each (g, h), position and row id once, the histogram once.
+        words = int(torch.unique(rid[valid].to(torch.int64) // spw).numel())
+        m = rid.shape[0]
+        b_ms, b_by = bound(f * words * 4 + m * (8 + 4 + 4) + npar * f * MAX_BINS * 8,
+                           2 * int(valid.sum()) * f)
+        row = {
+            "n_parents": npar, "slots": m, "valid_slots": int(valid.sum()),
+            "words_touched": words,
+            "ms": time_ms(lambda: build_histograms_rows_kernel(*rargs)),
+            "plain_ms": time_ms(lambda: ref.histogram_rows_ref(*rargs), iters=5),
+            "library_ms": time_ms(library_scatter(
+                dense[rid.to(torch.int64).clamp(max=n - 1)], pos, gh_sel, npar), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        if npar == ROW_PARENTS[-1]:
+            # The same slots in a random order: what the buffer's row order
+            # (neighbouring slots sharing a word) is worth.
+            perm = torch.randperm(m, device=dev, generator=gen)
+            shuffled = (packed, gh_sel[perm].contiguous(), pos[perm].contiguous(),
+                        rid[perm].contiguous(), npar, MAX_BINS, bits)
+            row["shuffled_slots_ms"] = time_ms(lambda: build_histograms_rows_kernel(*shuffled))
+        rows_rows.append(row)
+    emit({"phase": "time", "histogram_rows_levels": rows_rows})
+    del dense
+
     n_nodes, nf, nb = hist32.shape[:3]
-    nvb_cuts = 254
+    nvb_cuts = MAX_BINS - 2
     t_trees, arena = ens.feature.shape
+    top, top_rows = hist_rows[-1], rows_rows[-1]
     times = {
-        "histogram": {k: hist_rows[-1][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "histogram_private": {"ms": top["private_ms"],
+                              **{k: top[k] for k in ("plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by")}},
+        "histogram_packed": {"ms": top["packed_ms"],
+                             **{k: top[k] for k in ("plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by")}},
+        "histogram_rows": {k: top_rows[k] for k in ("ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by")},
         "split_scan": {
             "ms": time_ms(lambda: split_scan(hist32, parent, 1.0, 1.0)),
             "plain_ms": time_ms(lambda: ref.split_scan_ref(hist32, parent, 1.0, 1.0), iters=5),
             "library_ms": None,
         },
         "quantile_cuts": {
-            "ms": time_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, 256)),
-            "plain_ms": time_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, 256), iters=5),
+            "ms": time_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
+            "plain_ms": time_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, MAX_BINS), iters=5),
             "library_ms": None,
         },
         "ensemble_traversal": {
             "ms": time_ms(lambda: ensemble_margins_kernel(*targs)),
             "plain_ms": time_ms(lambda: ref.ensemble_margins_ref(*targs), iters=5),
+            "library_ms": None,
+        },
+        "decompress": {
+            "ms": time_ms(lambda: decompress(packed, bits, n)),
+            "plain_ms": time_ms(lambda: ref.decompress_ref(packed, bits, n), iters=5),
             "library_ms": None,
         },
     }
@@ -386,12 +644,17 @@ def main() -> int:
     b_ms, b_by = bound(HELD_OUT * nf * 4 + t_trees * arena * 14 + HELD_OUT * 4,
                        HELD_OUT * t_trees * 6 + HELD_OUT * t_trees)
     times["ensemble_traversal"].update(bound_ms=b_ms, bound_by=b_by)
+    # The words read once, one int32 written per (row, feature); a shift and
+    # a mask per element.
+    b_ms, b_by = bound(f * w * 4 + n * f * 4, 2 * n * f)
+    times["decompress"].update(bound_ms=b_ms, bound_by=b_by)
 
+    counted = {**launches, **{k: ops_launches[k] for k in ("histogram_packed", "decompress")}}
     kernels = []
     for name in REPLACES:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": counted[name],
             "max_abs_err": results[name]["max_abs_err"], **times[name],
         })
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):

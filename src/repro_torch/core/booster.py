@@ -10,10 +10,18 @@ from the packed matrix -> incremental margin update in bin space. The
 Booster runs on its training matrix's device; `predict` moves raw rows
 there and runs the ensemble-traversal kernel on the card.
 
+Trees grow as the reference's do: depthwise or lossguide (`growth`,
+`max_leaves`); with the default `use_kernel_histograms=False` by the
+subtraction trick (the privatised histogram kernel at the root, the row-id
+kernel below it); with `use_kernel_histograms=True` every level in full
+through the privatised kernel.
+
 Not ported yet: evals, metrics and early stopping, `update`, checkpoints,
-sampling, constraints, lossguide growth, the numeric sentinel, multi-device
-fits. Their knobs keep the reference's names and defaults; a non-default
-value raises NotImplementedError naming the knob.
+sampling (`subsample`, `colsample_*`, `sampling_method`), monotone
+constraints, the numeric sentinel (`numeric_check`), the uncompressed
+matrix (`compress_matrix=False`), multi-device fits. Their knobs keep the
+reference's names and defaults; a non-default value raises
+NotImplementedError naming the knob.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core import split as S
 from repro_torch.core import tree as T
 from repro_torch.core.dmatrix import DeviceDMatrix, cuts_equal
 from repro_torch.device import as_tensor
+from repro_torch.kernels import ops as KO
 from repro_torch.serve import traversal as ST
 
 
@@ -36,8 +45,10 @@ from repro_torch.serve import traversal as ST
 class BoosterConfig:
     """Field names and defaults of `repro.core.booster.BoosterConfig`.
 
-    `use_kernel_histograms` is accepted and has no effect: on a CUDA matrix
-    the histogram kernel always runs. `hist_block_rows` has no effect either.
+    `use_kernel_histograms=False` grows with the subtraction trick, `True`
+    builds every level in full through the privatised histogram kernel, as
+    the reference's kernel path does. `hist_block_rows` has no effect: the
+    kernels need no dense tile.
     """
 
     n_rounds: int = 100
@@ -71,8 +82,8 @@ class BoosterConfig:
         unported = {
             "subsample": 1.0, "colsample_bytree": 1.0, "colsample_bylevel": 1.0,
             "colsample_bynode": 1.0, "monotone_constraints": None,
-            "sampling_method": "uniform", "growth": "depthwise",
-            "numeric_check": "off", "compress_matrix": True,
+            "sampling_method": "uniform", "numeric_check": "off",
+            "compress_matrix": True,
         }
         for knob, default in unported.items():
             if getattr(self, knob) != default:
@@ -131,12 +142,17 @@ class Booster:
         data = dtrain.packed_bins()
         margins = torch.full((dtrain.n_rows, k), self.base_score,
                              dtype=torch.float32, device=self.device)
+        hist_builder = (KO.build_histograms_kernel_packed if cfg.use_kernel_histograms
+                        else None)
         trees: list[T.Tree] = []
         for _ in range(cfg.n_rounds):
             gh_all = obj.grad(margins, y)  # (n, k, 2), round-start gradients
             round_trees = [
                 T.grow_tree(data, gh_all[:, c, :].contiguous(), dtrain.cuts,
-                            cfg.max_depth, cfg.max_bins, cfg.split_params)
+                            cfg.max_depth, cfg.max_bins, cfg.split_params,
+                            growth=cfg.growth,
+                            max_leaves=cfg.max_leaves or 2**cfg.max_depth,
+                            hist_builder=hist_builder)
                 for c in range(k)
             ]
             deltas = torch.stack([

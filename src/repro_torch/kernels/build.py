@@ -33,7 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as
 # c_void_p, ints as c_int, floats as c_float). All return an int error code.
 SIGNATURES = {
-    "rt_histogram_packed": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "rt_histogram_private": [_P] * 4 + [_I] * 10 + [_P],
+    "rt_histogram_rows": [_P] * 5 + [_I] * 10 + [_P],
+    "rt_histogram_packed": [_P] * 4 + [_I] * 7 + [_P],
+    "rt_decompress": [_P] * 2 + [_I] * 5 + [_P],
     "rt_split_scan": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
     "rt_ensemble_margins": [_P] * 7 + [_I] * 8 + [_P],

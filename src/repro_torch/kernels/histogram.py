@@ -1,9 +1,20 @@
-"""Wrapper of the histogram CUDA kernel (`csrc/histogram.cu`).
+"""Wrappers of the histogram CUDA kernels (`csrc/histogram.cu`).
 
-Counterpart of `repro.kernels.histogram.build_histograms_packed_kernel`: the
-same contract (packed words, (g, h) pairs and level-local positions in,
-(n_nodes, F, max_bins, 2) out), computed with privatised shared-memory
-histograms and atomics instead of one-hot matmuls.
+All three compute the contract of `repro.core.histogram` (packed words,
+(g, h) pairs and level-local positions in, (n_nodes, F, max_bins, 2) out):
+
+* `build_histograms_packed_kernel`, counterpart of
+  `repro.kernels.histogram.build_histograms_packed_kernel`: privatised
+  shared-memory histograms and atomics instead of one-hot matmuls.
+* `build_histograms_rows_kernel`, the same design over a compacted row
+  buffer (slot i holds row `row_ids[i]`): the kernel behind
+  `core.histogram.build_histograms_packed_rows`, which the subtraction trick
+  calls below the root.
+* `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`:
+  no private histogram, every (row, feature) adds straight into the output
+  with global atomics.
+
+Float summation order is that of the atomics, not fixed from run to run.
 """
 from __future__ import annotations
 
@@ -14,8 +25,8 @@ import torch
 
 from repro_torch.kernels import build as B
 
-# A block sweeps at least this many words per row stripe, so the flush of
-# its private histogram stays small beside the work that filled it.
+# A block sweeps at least this many words (or slots) per stripe, so the
+# flush of its private histogram stays small beside the work that filled it.
 MIN_WORDS_PER_BLOCK = 1024
 # Aim for this many blocks per streaming multiprocessor over the grid.
 BLOCKS_PER_SM = 2
@@ -25,14 +36,15 @@ THREADS = 512  # threads per block
 class HistogramPlan(NamedTuple):
     node_tile: int  # nodes per block (grid z = ceil(n_nodes / node_tile))
     feat_group: int  # features per block (grid y)
-    words_per_block: int  # packed words per row stripe (grid x)
+    words_per_block: int  # packed words (or buffer slots) per stripe (grid x)
 
 
 def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
                 n_sm: int, smem_bytes: int) -> HistogramPlan:
     """Size a block's private histogram from the shared-memory limit: as many
     nodes as fit for one feature (the rest go to further node tiles on the
-    grid's z axis), then as many features as fit beside them."""
+    grid's z axis), then as many features as fit beside them. The row
+    kernel passes its slot count as `n_words`."""
     per_node = max_bins * 8  # one feature, one node: max_bins (g, h) floats
     node_tile = min(n_nodes, smem_bytes // per_node)
     if node_tile < 1:
@@ -47,38 +59,114 @@ def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
     return HistogramPlan(node_tile, feat_group, math.ceil(n_words / row_blocks))
 
 
+def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
+                  n_nodes: int, bits: int) -> torch.Tensor:
+    """Argument checks shared by the three wrappers; returns gh 8-byte
+    aligned, since the kernels read each (g, h) as one float2."""
+    B.expect(packed, "packed", torch.int32, 2)
+    B.expect(gh, "gh", torch.float32, 2)
+    B.expect(positions, "positions", torch.int32, 1)
+    if gh.shape[1] != 2 or positions.shape[0] != gh.shape[0]:
+        raise ValueError(f"gh must be (N, 2) and positions (N,), got "
+                         f"{tuple(gh.shape)} and {tuple(positions.shape)}")
+    if not 1 <= bits <= 32:
+        raise ValueError(f"bits must be in [1, 32], got {bits}")
+    if n_nodes < 1:
+        raise ValueError(f"n_nodes must be positive, got {n_nodes}")
+    return gh.clone() if gh.data_ptr() % 8 else gh
+
+
 def build_histograms_packed_kernel(
     packed: torch.Tensor,  # (F, W) int32 words
     gh: torch.Tensor,  # (N, 2) float32
-    positions: torch.Tensor,  # (N,) int32, n_nodes = inactive
+    positions: torch.Tensor,  # (N,) int32, n_nodes (or -1) = inactive
     n_nodes: int,
     max_bins: int,
     bits: int,
 ) -> torch.Tensor:
-    """Histogram (n_nodes, F, max_bins, 2) float32 on the card. Float
-    summation order is that of the atomics, not fixed from run to run."""
-    B.expect(packed, "packed", torch.int32, 2)
-    B.expect(gh, "gh", torch.float32, 2)
-    B.expect(positions, "positions", torch.int32, 1)
+    """Histogram (n_nodes, F, max_bins, 2) float32 on the card, through
+    privatised shared-memory histograms."""
+    gh = _check_inputs(packed, gh, positions, n_nodes, bits)
     f, w = packed.shape
     n = gh.shape[0]
-    if gh.shape[1] != 2 or positions.shape[0] != n:
-        raise ValueError(f"gh must be (N, 2) and positions (N,), got "
-                         f"{tuple(gh.shape)} and {tuple(positions.shape)}")
     if w * (32 // bits) < n:
         raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
-    if gh.data_ptr() % 8:
-        gh = gh.clone()  # the kernel reads (g, h) as one 8-byte float2
     dev = packed.device
-    plan = launch_plan(w, f, n_nodes, max_bins, *B.device_limits(dev.index))
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
-    err = B.lib().rt_histogram_packed(
+    if w == 0 or f == 0:
+        return out
+    plan = launch_plan(w, f, n_nodes, max_bins, *B.device_limits(dev.index))
+    err = B.lib().rt_histogram_private(
         packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
         n, f, w, n_nodes, max_bins, bits, *plan, THREADS, B.stream(dev),
     )
-    B.check(err, "histogram_packed")
+    B.check(err, "histogram_private")
     build_histograms_packed_kernel.launches += 1
     return out
 
 
+def build_histograms_rows_kernel(
+    packed: torch.Tensor,  # (F, W) int32 words
+    gh_sel: torch.Tensor,  # (m, 2) float32, (g, h) of each slot's row
+    pos_sel: torch.Tensor,  # (m,) int32 node of each slot, n_nodes = dump
+    row_ids: torch.Tensor,  # (m,) int32 row of each slot, >= W * spw = padding
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+) -> torch.Tensor:
+    """Histogram (n_nodes, F, max_bins, 2) float32 of the rows in a compacted
+    buffer. A slot at the dump position, or whose row id lies outside the
+    packed words, contributes nothing and its row is never read."""
+    gh_sel = _check_inputs(packed, gh_sel, pos_sel, n_nodes, bits)
+    B.expect(row_ids, "row_ids", torch.int32, 1)
+    if row_ids.shape[0] != pos_sel.shape[0]:
+        raise ValueError(f"row_ids must be (m,) like pos_sel, got "
+                         f"{tuple(row_ids.shape)} and {tuple(pos_sel.shape)}")
+    f, w = packed.shape
+    m = pos_sel.shape[0]
+    dev = packed.device
+    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    if m == 0 or w == 0 or f == 0:
+        return out
+    plan = launch_plan(m, f, n_nodes, max_bins, *B.device_limits(dev.index))
+    err = B.lib().rt_histogram_rows(
+        packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
+        row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
+        *plan, THREADS, B.stream(dev),
+    )
+    B.check(err, "histogram_rows")
+    build_histograms_rows_kernel.launches += 1
+    return out
+
+
+def histogram_packed(
+    packed: torch.Tensor,  # (F, W) int32 words
+    gh: torch.Tensor,  # (N, 2) float32
+    positions: torch.Tensor,  # (N,) int32; n_nodes or -1 = inactive
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+) -> torch.Tensor:
+    """Histogram (n_nodes, F, max_bins, 2) float32 on the card, every add a
+    global atomic into the output."""
+    gh = _check_inputs(packed, gh, positions, n_nodes, bits)
+    f, w = packed.shape
+    n = gh.shape[0]
+    if w * (32 // bits) < n:
+        raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
+    dev = packed.device
+    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    if w == 0 or f == 0:
+        return out
+    err = B.lib().rt_histogram_packed(
+        packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        n, f, w, n_nodes, max_bins, bits, THREADS, B.stream(dev),
+    )
+    B.check(err, "histogram_packed")
+    histogram_packed.launches += 1
+    return out
+
+
 build_histograms_packed_kernel.launches = 0
+build_histograms_rows_kernel.launches = 0
+histogram_packed.launches = 0

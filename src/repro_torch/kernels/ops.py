@@ -9,18 +9,27 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.compress import PackedBins
 from repro_torch.kernels import ref as R
+from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
-from repro_torch.kernels.histogram import build_histograms_packed_kernel
+from repro_torch.kernels.histogram import (
+    build_histograms_packed_kernel,
+    build_histograms_rows_kernel,
+    histogram_packed,
+)
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan as split_scan_kernel
 
 # The wrappers whose `launches` count shows which kernels a run went through.
 KERNELS = {
-    "histogram": build_histograms_packed_kernel,
+    "histogram_private": build_histograms_packed_kernel,
+    "histogram_rows": build_histograms_rows_kernel,
+    "histogram_packed": histogram_packed,
     "split_scan": split_scan_kernel,
     "quantile_cuts": quantile_cuts_from_sorted,
     "ensemble_traversal": ensemble_margins_kernel,
+    "decompress": decompress,
 }
 
 
@@ -33,14 +42,54 @@ def launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def histogram(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
-              n_nodes: int, max_bins: int, bits: int) -> torch.Tensor:
-    """(n_nodes, F, max_bins, 2) histogram from packed words."""
+def histogram_packed_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
+                        n_nodes: int, max_bins: int, bits: int) -> torch.Tensor:
+    """(n_nodes, F, max_bins, 2) histogram from packed words through the
+    global-atomic kernel; positions n_nodes or -1 are inactive."""
+    if packed.is_cuda:
+        return histogram_packed(packed, gh.contiguous(),
+                                positions.to(torch.int32).contiguous(),
+                                n_nodes, max_bins, bits)
+    return R.histogram_packed_ref(packed, gh, positions, n_nodes, max_bins, bits)
+
+
+def histogram_private_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
+                         n_nodes: int, max_bins: int, bits: int) -> torch.Tensor:
+    """(n_nodes, F, max_bins, 2) histogram from packed words through the
+    privatised kernel."""
     if packed.is_cuda:
         return build_histograms_packed_kernel(
             packed, gh.contiguous(), positions.to(torch.int32).contiguous(),
             n_nodes, max_bins, bits)
     return R.histogram_ref(packed, gh, positions, n_nodes, max_bins, bits)
+
+
+def build_histograms_kernel_packed(data: PackedBins, gh: torch.Tensor,
+                                   positions: torch.Tensor, n_nodes: int,
+                                   max_bins: int) -> torch.Tensor:
+    """The `hist_builder` of `use_kernel_histograms=True`: the training
+    matrix's packed words straight to the privatised kernel, every level."""
+    return histogram_private_op(data.packed, gh, positions, n_nodes, max_bins,
+                                data.bits)
+
+
+def histogram_rows(packed: torch.Tensor, gh_sel: torch.Tensor, pos_sel: torch.Tensor,
+                   row_ids: torch.Tensor, n_nodes: int, max_bins: int,
+                   bits: int) -> torch.Tensor:
+    """(n_nodes, F, max_bins, 2) histogram of a compacted row buffer."""
+    if packed.is_cuda:
+        return build_histograms_rows_kernel(
+            packed, gh_sel.contiguous(), pos_sel.to(torch.int32).contiguous(),
+            row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits)
+    return R.histogram_rows_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
+                                max_bins, bits)
+
+
+def decompress_op(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
+    """(n_rows, F) int32 bins unpacked from the packed words."""
+    if packed.is_cuda:
+        return decompress(packed.contiguous(), bits, n_rows)
+    return R.decompress_ref(packed, bits, n_rows)
 
 
 def split_scan(hist: torch.Tensor, parent_sum: torch.Tensor,

@@ -1,33 +1,63 @@
-"""Plain PyTorch versions of the four CUDA kernels; counterpart of
+"""Plain PyTorch versions of the CUDA kernels; counterpart of
 `repro.kernels.ref`.
 
 Each computes the same function as its kernel. The CPU path runs them (the
 dispatch in `kernels/ops.py` sends a CPU tensor here), and the kernels are
 held against them on the card. Where the kernel's arithmetic is
-deterministic (split scan, cut selection, traversal) the plain version
-performs the same float operations in the same order, so the two agree
-bit for bit; the histogram kernel adds with atomics, in no fixed order.
+deterministic (split scan, cut selection, traversal, unpack) the plain
+version performs the same operations in the same order, so the two agree
+bit for bit; the histogram kernels add with atomics, in no fixed order.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import histogram as H
-from repro_torch.core.compress import unpack
+from repro_torch.core.compress import symbols_per_word, unpack, words_as_uint
+
+# Plain version of the decompress kernel: (F, W) words -> (n_rows, F) int32.
+decompress_ref = unpack
 
 
 def histogram_ref(
     packed: torch.Tensor,  # (F, W) int32 words
     gh: torch.Tensor,  # (N, 2) float32
-    positions: torch.Tensor,  # (N,) int32, n_nodes = inactive
+    positions: torch.Tensor,  # (N,) int32, n_nodes (or -1) = inactive
     n_nodes: int,
     max_bins: int,
     bits: int,
 ) -> torch.Tensor:
-    """Plain version of the histogram kernel: unpack, then scatter-add.
-    Returns (n_nodes, F, max_bins, 2) float32."""
+    """Plain version of the privatised histogram kernel: unpack, then
+    scatter-add. Returns (n_nodes, F, max_bins, 2) float32."""
     bins = unpack(packed, bits, gh.shape[0])
     return H.build_histograms(bins, gh, positions, n_nodes, max_bins)
+
+
+# `histogram_packed` computes the same function as the privatised kernel.
+histogram_packed_ref = histogram_ref
+
+
+def histogram_rows_ref(
+    packed: torch.Tensor,  # (F, W) int32 words
+    gh_sel: torch.Tensor,  # (m, 2) float32
+    pos_sel: torch.Tensor,  # (m,) int node per slot, n_nodes = dump
+    row_ids: torch.Tensor,  # (m,) int row per slot, >= W * spw = padding
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+) -> torch.Tensor:
+    """Plain version of the row-id histogram kernel: one word gather and a
+    shift/mask per (slot, feature), then the scatter-add in slot order. A
+    slot whose row id lies outside the packed words goes to the dump slot,
+    as one at the dump position does."""
+    spw = symbols_per_word(bits)
+    rid = row_ids.to(torch.int64)
+    inside = (rid >= 0) & (rid < packed.shape[1] * spw)
+    rid = torch.where(inside, rid, 0)
+    words = words_as_uint(packed[:, rid // spw])  # (F, m)
+    bins = ((words >> ((rid % spw) * bits)) & ((1 << bits) - 1)).t()
+    pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
+    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins)
 
 
 def inclusive_scan(v: torch.Tensor) -> torch.Tensor:

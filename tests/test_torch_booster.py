@@ -1,6 +1,8 @@
 """Boosting end to end: the port's `Booster.fit`/`predict` against the JAX
 package's on shared cuts (CPU: the kernels' plain versions), and a JAX-trained
-model carried across with `booster_from_numpy`.
+model carried across with `booster_from_numpy`. The default config grows by
+the subtraction trick in both packages; the variants are the kernel path
+(`use_kernel_histograms=True`, every level in full) and lossguide growth.
 
 Tree structure must match exactly. Leaves, training margins and predictions
 agree to rtol 1e-5, atol 1e-5. They differ because float sums run in
@@ -86,6 +88,44 @@ def test_fit_matches_reference(fits, objective):
     np.testing.assert_allclose(tb.margins.numpy(), np.asarray(jb.margins), **TOL)
 
 
+# Config variants beside the default, on the binary task. The kernel path
+# runs the reference's Pallas kernel in interpret mode, so it fits fewer
+# rounds on fewer rows.
+VARIANTS = {
+    "kernel": dict(use_kernel_histograms=True, n_rounds=3, rows=1000),
+    "lossguide": dict(growth="lossguide", max_leaves=7, n_rounds=4, rows=2000),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_fit_variants_match_reference(data, variant):
+    x, labels, x_new = data
+    kw = dict(VARIANTS[variant])
+    rows = kw.pop("rows")
+    x, y = x[:rows], labels["binary:logistic"][:rows]
+    kw.update(max_depth=4, max_bins=32, objective="binary:logistic")
+    jd = JDMatrix(x, label=y, max_bins=32)
+    jb = JBooster(**kw).fit(jd)
+    tb = Booster(**kw).fit(DeviceDMatrix(x, label=y, max_bins=32, cuts=np.asarray(jd.cuts),
+                                         device="cpu"))
+    for name in ("feature", "split_bin", "default_left", "is_leaf"):
+        np.testing.assert_array_equal(getattr(tb.ensemble, name).numpy(),
+                                      np.asarray(getattr(jb.ensemble, name)), err_msg=name)
+    if variant == "lossguide":
+        leaves = tb.ensemble.is_leaf.numpy().sum(axis=1)
+        assert leaves.max() == 7 and leaves.min() > 1  # the budget binds
+    np.testing.assert_allclose(tb.ensemble.leaf_value.numpy(),
+                               np.asarray(jb.ensemble.leaf_value), **TOL)
+    np.testing.assert_allclose(tb.margins.numpy(), np.asarray(jb.margins), **TOL)
+    np.testing.assert_allclose(tb.predict_margins(x_new).numpy(),
+                               np.asarray(jb.predict_margins(x_new)), **TOL)
+    # the growth knobs travel with a model carried across
+    state = {**dataclasses.asdict(jb.cfg), "cuts": np.asarray(jb.cuts),
+             "base_score": jb.base_score, "n_classes": jb.ensemble.n_classes,
+             **{f: np.asarray(getattr(jb.ensemble, f)) for f in ENSEMBLE_FIELDS}}
+    assert booster_from_numpy(state, device="cpu").cfg == tb.cfg
+
+
 @pytest.mark.parametrize("objective", list(OBJECTIVES))
 def test_predict_matches_reference(data, fits, objective):
     x, _, x_new = data
@@ -126,7 +166,7 @@ def test_booster_from_numpy_predicts_like_reference(data, fits, objective):
 @pytest.mark.parametrize("knob,value", [
     ("subsample", 0.5), ("colsample_bytree", 0.5), ("colsample_bylevel", 0.5),
     ("colsample_bynode", 0.5), ("monotone_constraints", (1, 0)),
-    ("sampling_method", "goss"), ("growth", "lossguide"), ("numeric_check", "raise"),
+    ("sampling_method", "goss"), ("numeric_check", "raise"),
     ("compress_matrix", False),
 ])
 def test_unported_knobs_raise(knob, value):
@@ -140,7 +180,7 @@ def test_config_keeps_reference_fields_and_defaults():
     mine = {f.name: f.default for f in dataclasses.fields(BoosterConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JConfig)}
     assert mine == theirs
-    Booster(use_kernel_histograms=True)  # accepted, no effect
+    Booster(use_kernel_histograms=True, growth="lossguide", max_leaves=8)  # ported
 
 
 def test_fit_and_predict_errors(data):

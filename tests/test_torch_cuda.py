@@ -5,10 +5,11 @@ imports no JAX, so it runs where the card is:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: split scan, cut selection and traversal do the same float
-operations in the same order as their plain versions, so they must agree
-bit for bit; the histogram kernel adds with atomics in no fixed order
-(rtol 1e-5, atol 2e-5).
+Tolerances: split scan, cut selection, traversal and decompress do the
+same operations in the same order as their plain versions, so they must
+agree bit for bit; the histogram kernels add with atomics in no fixed order
+(rtol 1e-5, atol 2e-5 on real-valued (g, h), exact on dyadic (g, h), whose
+partial sums are exact in any order).
 """
 import numpy as np
 import pytest
@@ -17,8 +18,13 @@ import torch
 from repro_torch.core import compress as TC
 from repro_torch.core import quantile as TQ
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
-from repro_torch.kernels.histogram import build_histograms_packed_kernel
+from repro_torch.kernels.histogram import (
+    build_histograms_packed_kernel,
+    build_histograms_rows_kernel,
+    histogram_packed,
+)
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
@@ -77,6 +83,80 @@ def test_histogram_kernel_on_card(rng):
 
 
 @pytest.mark.cuda
+def test_histogram_packed_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, max_bins, n_nodes in [(1001, 5, 256, 1), (4096, 28, 256, 32),
+                                    (777, 3, 16, 3), (300, 2, 1024, 12)]:
+        packed, _, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+        pos[rng.random(n) < 0.1] = -1  # inactive as the reference pads: -1
+        gh = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                      axis=1).astype(np.float32)  # dyadic: exact in any order
+        args = (packed.to(dev), torch.from_numpy(gh).to(dev),
+                torch.from_numpy(pos).to(dev), n_nodes, max_bins, bits)
+        got = histogram_packed(*args)
+        want = ref.histogram_packed_ref(*args)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_histogram_rows_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, max_bins, n_nodes in [(1001, 5, 256, 1), (4096, 28, 256, 16),
+                                    (777, 3, 16, 3), (300, 2, 1024, 130)]:
+        packed, gh, _, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+        m = n // 2
+        k = m - m // 5
+        rid = np.sort(rng.choice(n, size=k, replace=False))
+        rid = np.concatenate([rid, np.full(m - k, n)]).astype(np.int32)
+        rid[-1] = 10 * n  # far past the words: must not be read
+        pos = rng.integers(0, n_nodes + 1, size=m).astype(np.int32)
+        pos[k:] = n_nodes  # padding slots sit at the dump position
+        gh_sel = gh[np.minimum(rid, n - 1)]
+        args = (packed.to(dev), torch.from_numpy(gh_sel).to(dev),
+                torch.from_numpy(pos).to(dev), torch.from_numpy(rid).to(dev),
+                n_nodes, max_bins, bits)
+        got = build_histograms_rows_kernel(*args)
+        want = ref.histogram_rows_ref(*args)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_histograms_by_subtraction_on_card(rng):
+    """The subtraction trick's device path (lane-spread counts, scatter
+    compaction, sibling = parent - child) against a full build of the same
+    level, exact on dyadic (g, h)."""
+    from repro_torch.core import tree as TT
+
+    dev = _cuda()
+    for n, f, max_bins, n_nodes in [(1001, 5, 256, 2), (4096, 28, 256, 32),
+                                    (777, 3, 16, 8)]:
+        packed, _, local, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+        gh = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                      axis=1).astype(np.float32)
+        gh_d, local_d = torch.from_numpy(gh).to(dev), torch.from_numpy(local).to(dev)
+        parent = torch.where(local_d < n_nodes, local_d // 2, n_nodes // 2)
+        packed = packed.to(dev)
+        hist_prev = build_histograms_packed_kernel(packed, gh_d, parent.to(torch.int32),
+                                                   n_nodes // 2, max_bins, bits)
+        got = TT._histograms_by_subtraction(TC.PackedBins(packed, bits, n), gh_d,
+                                            local_d, hist_prev, n_nodes, max_bins)
+        want = build_histograms_packed_kernel(packed, gh_d, local_d, n_nodes, max_bins, bits)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_decompress_kernel_on_card(rng):
+    dev = _cuda()
+    for n, f, bits in [(1001, 5, 4), (777, 28, 8), (4096, 3, 8), (333, 2, 5), (65, 1, 32)]:
+        bins = torch.from_numpy(rng.integers(0, 2**min(bits, 31), size=(n, f)).astype(np.int32))
+        packed = TC.pack(bins, bits).to(dev)
+        got = decompress(packed, bits, n)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.decompress_ref(packed, bits, n)
+                                      .cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), bins.numpy())
+
+
+@pytest.mark.cuda
 def test_split_scan_kernel_on_card(rng):
     dev = _cuda()
     for shape in [(1, 3, 8), (32, 28, 256), (3, 5, 1024), (2, 4, 33)]:
@@ -119,7 +199,9 @@ def test_traversal_kernel_on_card(rng):
 @pytest.mark.cuda
 def test_compute_cuts_and_fit_on_card(rng):
     """The CUDA path end to end at a small size: same cuts as the CPU path,
-    and a fit whose raw-row margins agree with its bin-space margins."""
+    a default fit (subtraction) that launches the privatised histogram at
+    the root and the row-id histogram below it, and raw-row margins that
+    agree with its bin-space margins."""
     from repro_torch.core import Booster, DeviceDMatrix
 
     _cuda()
@@ -135,6 +217,8 @@ def test_compute_cuts_and_fit_on_card(rng):
                                           d.bits).numpy())
     bst = Booster(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic").fit(d)
     raw = bst.predict_margins(x)
-    assert all(v > 0 for v in ops.launches().values())
+    assert ops.launches() == {
+        "histogram_private": 3, "histogram_rows": 9, "histogram_packed": 0,
+        "split_scan": 12, "quantile_cuts": 1, "ensemble_traversal": 1, "decompress": 0}
     binned = bst.predict_margins(DeviceDMatrix(x, ref=d))
     np.testing.assert_allclose(raw.cpu().numpy(), binned.cpu().numpy(), atol=1e-5)

@@ -1,9 +1,13 @@
-"""The plain PyTorch versions of the four CUDA kernels (`repro_torch.kernels.ref`,
+"""The plain PyTorch versions of the CUDA kernels (`repro_torch.kernels.ref`,
 reached through `kernels.ops` on CPU tensors) against the JAX package's
 functions as its own tests run them on the CPU (Pallas in interpret mode).
 
 Tolerances and their reasons:
-  * histogram: rtol 1e-5, atol 2e-5 — float sums in another order.
+  * privatised and row-id histograms: rtol 1e-5, atol 2e-5 — float sums
+    in another order.
+  * histogram_packed: exact, on dyadic (g, h) whose partial sums are exact
+    in any order.
+  * decompress: exact (integers).
   * split scan: bin and direction exact; hl 1e-6. The gain to
     5·B·2⁻²⁴ of max(|gain|, 1) for B bins, not 1e-6: the prefix sums are
     taken in another order (strictly left to right here, a log-depth scan in
@@ -24,12 +28,19 @@ import pytest
 import torch
 
 from repro.core import compress as JC
+from repro.core import histogram as JH
 from repro.kernels import ops as JO
 from repro.kernels.quantile_cuts import quantile_cuts_from_sorted as j_cuts_from_sorted
 from repro_torch.core import quantile as TQ
 from repro_torch.kernels import ops
+from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, trees_per_block
-from repro_torch.kernels.histogram import build_histograms_packed_kernel, launch_plan
+from repro_torch.kernels.histogram import (
+    build_histograms_packed_kernel,
+    build_histograms_rows_kernel,
+    histogram_packed,
+    launch_plan,
+)
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
@@ -54,6 +65,11 @@ def _hist_inputs(rng, n, f, max_bins, n_nodes):
     return packed, gh, pos, bits
 
 
+def _words(packed: np.ndarray) -> np.ndarray:
+    """The reference's uint32 words as the port's int32 bit patterns."""
+    return packed.copy().view(np.int32)
+
+
 @pytest.mark.parametrize("n,f,max_bins,n_nodes", [
     (257, 4, 16, 1),    # ragged last word
     (1000, 7, 64, 3),
@@ -65,10 +81,68 @@ def test_histogram_plain_vs_reference(rng, n, f, max_bins, n_nodes):
     packed, gh, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
     want = np.asarray(JO.histogram_private_op(
         jnp.asarray(packed), jnp.asarray(gh), jnp.asarray(pos), n_nodes, max_bins, bits))
-    got = ops.histogram(torch.from_numpy(packed.copy().view(np.int32)), torch.from_numpy(gh),
-                        torch.from_numpy(pos), n_nodes, max_bins, bits)
+    got = ops.histogram_private_op(torch.from_numpy(_words(packed)), torch.from_numpy(gh),
+                                   torch.from_numpy(pos), n_nodes, max_bins, bits)
     assert got.shape == (n_nodes, f, max_bins, 2)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n,f,max_bins,n_nodes", [
+    (1000, 5, 16, 1),
+    (777, 3, 32, 3),   # odd row count, nodes not a multiple of the TPU's 8
+    (1501, 9, 16, 12),  # two node blocks and two feature blocks there
+])
+def test_histogram_packed_plain_vs_reference(rng, n, f, max_bins, n_nodes):
+    """Inactive rows carry n_nodes or -1; the reference's node blocks of 8
+    put n_nodes into padding rows of its output, -1 nowhere."""
+    packed, _, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+    pos[rng.random(n) < 0.1] = -1
+    gh = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                  axis=1).astype(np.float32)  # dyadic: every sum exact
+    want = np.asarray(JO.histogram_packed_op(
+        jnp.asarray(packed), jnp.asarray(gh), jnp.asarray(pos), n_nodes, max_bins, bits))
+    got = ops.histogram_packed_op(torch.from_numpy(_words(packed)), torch.from_numpy(gh),
+                                  torch.from_numpy(pos), n_nodes, max_bins, bits).numpy()
+    assert got.shape == (n_nodes, f, max_bins, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,f,max_bins,n_nodes,m", [
+    (1000, 4, 16, 1, 500),
+    (999, 7, 64, 4, 499),   # odd rows: a ragged last word
+    (513, 3, 256, 16, 256),
+])
+def test_histogram_rows_plain_vs_reference(rng, n, f, max_bins, n_nodes, m):
+    """A compacted buffer as the subtraction trick makes it: selected rows
+    in row order, some at the dump position, then padding slots whose ids
+    are >= n (n itself, past the last word, far past)."""
+    packed, gh, _, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+    k = m - m // 5
+    rid = np.sort(rng.choice(n, size=k, replace=False)).astype(np.int32)
+    pad = np.array([n, n + 1, n + 64, 10 * n], np.int32)
+    rid = np.concatenate([rid, np.resize(pad, m - k)])
+    pos = rng.integers(0, n_nodes + 1, size=m).astype(np.int32)  # n_nodes = dump
+    pos[k:] = n_nodes
+    gh_sel = gh[np.minimum(rid, n - 1)]
+    want = np.asarray(JH.build_histograms_packed_rows(
+        jnp.asarray(packed), jnp.asarray(gh_sel), jnp.asarray(pos), jnp.asarray(rid),
+        n_nodes, max_bins, bits))
+    got = ops.histogram_rows(torch.from_numpy(_words(packed)), torch.from_numpy(gh_sel),
+                             torch.from_numpy(pos), torch.from_numpy(rid), n_nodes,
+                             max_bins, bits).numpy()
+    assert got.shape == (n_nodes, f, max_bins, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bits,n,f", [(4, 1001, 5), (8, 777, 11), (8, 2048, 3), (5, 333, 2)])
+def test_decompress_plain_vs_reference(rng, bits, n, f):
+    bins = rng.integers(0, 2**bits, size=(n, f)).astype(np.int32)
+    packed = np.asarray(JC.pack(jnp.asarray(bins), bits))
+    want = np.asarray(JO.decompress_op(jnp.asarray(packed), bits, n))
+    got = ops.decompress_op(torch.from_numpy(_words(packed)), bits, n).numpy()
+    assert got.dtype == np.int32 and got.shape == (n, f)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, bins)
 
 
 def _split_inputs(rng, n_nodes, f, b, with_missing=True):
@@ -160,9 +234,14 @@ def test_traversal_plain_vs_reference(rng, n, f, n_trees, depth, k):
 def test_wrappers_take_only_cuda_tensors():
     """On a CPU tensor a wrapper raises; only ops picks the plain version."""
     cpu = torch.zeros(4, 2)
+    words, pos = torch.zeros(1, 1, dtype=torch.int32), torch.zeros(4, dtype=torch.int32)
+    for hist_kernel in (build_histograms_packed_kernel, histogram_packed):
+        with pytest.raises(ValueError, match="CUDA"):
+            hist_kernel(words, cpu, pos, 1, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        build_histograms_packed_kernel(torch.zeros(1, 1, dtype=torch.int32), cpu,
-                                       torch.zeros(4, dtype=torch.int32), 1, 16, 8)
+        build_histograms_rows_kernel(words, cpu, pos, pos, 1, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        decompress(words, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
         split_scan(torch.zeros(1, 1, 8, 2), torch.zeros(1, 2))
     with pytest.raises(ValueError, match="CUDA"):

@@ -2,9 +2,8 @@
 JAX package on the same inputs (CPU: the kernels' plain versions).
 
 Integer outputs (split feature and bin, default direction, leaf flags,
-positions) must match exactly; sums and leaf values agree to 1e-5 — float
-sums in another order (the reference's default builder also derives one
-child's histogram by subtraction). The fixtures are chosen without
+positions) must match exactly; sums, histograms and leaf values agree to
+1e-5 — float sums in another order. The fixtures are chosen without
 near-tied gains, so that the same splits win on both sides.
 """
 import jax.numpy as jnp
@@ -13,15 +12,18 @@ import pytest
 import torch
 
 from repro.core import compress as JC
+from repro.core import histogram as JH
 from repro.core import partition as JP
 from repro.core import quantile as JQ
 from repro.core import split as JS
 from repro.core import tree as JT
 from repro.kernels import ops as JO
 from repro_torch.core import compress as TC
+from repro_torch.core import histogram as TH
 from repro_torch.core import partition as TP
 from repro_torch.core import split as TS
 from repro_torch.core import tree as TT
+from repro_torch.kernels import ops as TO
 
 
 @pytest.fixture
@@ -119,20 +121,14 @@ def tree_data():
     return gh, cuts, cm, max_bins
 
 
-@pytest.mark.parametrize("builder", ["subtraction", "kernel"])
-def test_grow_tree_vs_reference(tree_data, builder):
-    gh, cuts, cm, max_bins = tree_data
-    depth = 4
-    params = JS.SplitParams(reg_lambda=1.0, gamma=0.1, min_child_weight=1.0)
-    hist_builder = JO.build_histograms_kernel_packed if builder == "kernel" else None
-    want = JT.grow_tree(cm.as_packed_bins(), jnp.asarray(gh), jnp.asarray(cuts), depth,
-                        max_bins, params, hist_builder=hist_builder)
-    pb = TC.PackedBins(torch.from_numpy(np.asarray(cm.packed).view(np.int32).copy()),
-                       cm.bits, cm.n_rows)
-    got = TT.grow_tree(pb, torch.from_numpy(gh), torch.from_numpy(cuts), depth, max_bins,
-                       TS.SplitParams(*params))
-    assert got.n_arena == TT.arena_size(depth) == want.n_arena
-    assert int(got.is_leaf.sum()) > 4  # a real tree, not a stump
+def _port_bins(cm):
+    return TC.PackedBins(torch.from_numpy(np.asarray(cm.packed).view(np.int32).copy()),
+                         cm.bits, cm.n_rows)
+
+
+def _assert_same_tree(got, want):
+    """Structure and thresholds exact, leaves 1e-5, gains 1e-5 rel / 1e-4 abs."""
+    assert got.n_arena == want.n_arena
     for name in ("feature", "split_bin", "default_left", "is_leaf"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
@@ -144,9 +140,80 @@ def test_grow_tree_vs_reference(tree_data, builder):
     np.testing.assert_allclose(gg[np.isfinite(wg)], wg[np.isfinite(wg)], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("builder", ["subtraction", "kernel", "full"])
+def test_grow_tree_vs_reference(tree_data, builder):
+    """subtraction: both packages' default growth; kernel: a given
+    hist_builder (subtraction off, the privatised kernel every level), in
+    both; full: the port's full-level builder against the reference's
+    full XLA build (hist_subtraction=False)."""
+    gh, cuts, cm, max_bins = tree_data
+    depth = 4
+    params = JS.SplitParams(reg_lambda=1.0, gamma=0.1, min_child_weight=1.0)
+    j_kw, t_kw = {}, {}
+    if builder != "subtraction":
+        t_kw["hist_builder"] = TO.build_histograms_kernel_packed
+    if builder == "kernel":
+        j_kw["hist_builder"] = JO.build_histograms_kernel_packed
+    elif builder == "full":
+        j_kw["hist_subtraction"] = False
+    want = JT.grow_tree(cm.as_packed_bins(), jnp.asarray(gh), jnp.asarray(cuts), depth,
+                        max_bins, params, **j_kw)
+    got = TT.grow_tree(_port_bins(cm), torch.from_numpy(gh), torch.from_numpy(cuts), depth,
+                       max_bins, TS.SplitParams(*params), **t_kw)
+    assert got.n_arena == TT.arena_size(depth)
+    assert int(got.is_leaf.sum()) > 4  # a real tree, not a stump
+    _assert_same_tree(got, want)
+
+
+@pytest.mark.parametrize("max_leaves", [5, 8])
+def test_grow_tree_lossguide_vs_reference(tree_data, max_leaves):
+    """Lossguide: only the top-k gains of a level split, k = the leaf budget
+    left. The budget runs out inside a level, so the rank order matters."""
+    gh, cuts, cm, max_bins = tree_data
+    depth = 4
+    params = JS.SplitParams(reg_lambda=1.0, gamma=0.1, min_child_weight=1.0)
+    want = JT.grow_tree(cm.as_packed_bins(), jnp.asarray(gh), jnp.asarray(cuts), depth,
+                        max_bins, params, growth="lossguide", max_leaves=max_leaves)
+    got = TT.grow_tree(_port_bins(cm), torch.from_numpy(gh), torch.from_numpy(cuts), depth,
+                       max_bins, TS.SplitParams(*params), growth="lossguide",
+                       max_leaves=max_leaves)
+    assert int(got.is_leaf.sum()) == max_leaves  # the budget is spent exactly
+    _assert_same_tree(got, want)
+
+
+@pytest.mark.parametrize("n_nodes,layout", [(2, "random"), (8, "random"), (8, "ties"),
+                                            (16, "random")])
+def test_histograms_by_subtraction_vs_reference(tree_data, n_nodes, layout):
+    """One level below the root: the smaller child's histogram over the
+    compacted buffer, the sibling as parent - child. "ties": every parent's
+    children hold the same number of rows, so the left child is built."""
+    gh, _, cm, max_bins = tree_data
+    n = cm.n_rows
+    rng = np.random.default_rng(n_nodes)
+    if layout == "ties":
+        local = (np.arange(n) % n_nodes).astype(np.int32)
+    else:
+        local = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)  # n_nodes = inactive
+    parent = np.where(local < n_nodes, local // 2, n_nodes // 2).astype(np.int32)
+    hist_prev = JH.build_histograms_packed(cm.packed, jnp.asarray(gh), jnp.asarray(parent),
+                                           n_nodes // 2, max_bins, cm.bits, n)
+    want = np.asarray(JT._histograms_by_subtraction(
+        cm.as_packed_bins(), jnp.asarray(gh), jnp.asarray(local), hist_prev, n_nodes,
+        max_bins, 65536))
+    got = TT._histograms_by_subtraction(
+        _port_bins(cm), torch.from_numpy(gh), torch.from_numpy(local),
+        torch.from_numpy(np.array(hist_prev)), n_nodes, max_bins).numpy()
+    assert got.shape == (n_nodes, cm.packed.shape[0], max_bins, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # and the level's full histogram, which subtraction stands in for
+    full = TH.build_histograms_packed(_port_bins(cm).packed, torch.from_numpy(gh),
+                                      torch.from_numpy(local), n_nodes, max_bins, cm.bits)
+    np.testing.assert_allclose(got, full.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_grow_tree_refuses_unported_growth(tree_data):
     gh, cuts, cm, max_bins = tree_data
     pb = TC.PackedBins(torch.zeros(6, 1, dtype=torch.int32), 8, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="growth"):
         TT.grow_tree(pb, torch.zeros(4, 2), torch.from_numpy(cuts), 2, max_bins,
-                     growth="lossguide")
+                     growth="bestfirst")
