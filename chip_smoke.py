@@ -29,11 +29,20 @@ Phases, each printing one JSON line:
                 `decompress`: `ops.histogram_packed_op` and `ops.decompress_op`
                 on the training matrix's words, counts reset just before.
   6. check    — each kernel against its plain PyTorch version on the same
-                CUDA inputs, at the main path's shapes; and the subtraction
-                trick's device path at level 5 against a full build.
+                CUDA inputs, at the main path's shapes; the histograms also on
+                a skewed copy of the words (SKEW of the symbols in the missing
+                bin); traversal also at depth 14, depth 13 with 4 classes and
+                300 classes (exact); and the subtraction trick's device path at
+                level 5 against a full build.
   7. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
-                the bound (bytes over 3.35 TB/s or operations over peak).
+                the bound (bytes over 3.35 TB/s or operations over peak), with
+                each private histogram's launch plan (node tile, feature
+                group, shared bytes, blocks per SM from the plan and from
+                `cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the
+                privatised kernel also under the earlier plan that fills a
+                block's opt-in shared memory, on both word sets; the main
+                path's traversal with its arenas staged and read through L2.
 Then the kernels line, the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
@@ -57,6 +66,11 @@ HIST_NODES = (1, 8, 32)  # full-level histograms checked: levels 0, 3 and 5
 ROW_PARENTS = (1, 4, 16)  # row-id histograms checked: parents of levels 1, 3, 5
 FIT_PAIRS = 5  # host times vary between fits: the median of five pairs
 L2_FLUSH_BYTES = 128 << 20  # more than the 50 MB L2, written between timed launches
+SKEW = 0.8  # share of the skewed words' symbols moved to the missing bin
+# Traversal shapes past the staged route's shared memory: (trees, depth,
+# classes, rows) — one arena of 459 KB, 4 classes beside a 229 KB arena,
+# accumulators of 300 classes.
+DEEP_TRAVERSALS = ((4, 14, 1, HELD_OUT), (8, 13, 4, HELD_OUT), (600, 6, 300, 20_000))
 
 # Where each kernel's TPU original lives (file:line of its pallas_call). The
 # row-id histogram extends the privatised kernel to the function the
@@ -200,11 +214,18 @@ def main() -> int:
     from repro_torch.kernels import build as KB
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.decompress import decompress
-    from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
+    from repro_torch.kernels.ensemble_traversal import (
+        THREADS as TRAVERSAL_THREADS,
+        ensemble_margins_kernel,
+        traversal_plan,
+    )
     from repro_torch.kernels.histogram import (
+        THREADS as HIST_THREADS,
         build_histograms_packed_kernel,
         build_histograms_rows_kernel,
         histogram_packed,
+        launch_plan,
+        occupancy,
     )
     from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
     from repro_torch.kernels.split_scan import split_scan
@@ -325,12 +346,14 @@ def main() -> int:
     p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
     yy = torch.as_tensor(y_tr, device=dev)
     gh = torch.stack([p - yy, p * (1 - p)], dim=1).contiguous()
-    # Dyadic (g, h) with few significant bits: every partial sum is exact in
-    # float32, in any order, so there kernel and plain version must agree
-    # exactly — every row must land in its (node, feature, bin).
+    # Integer (g, h), g in {-1, 0, 1} and h = 1: every partial sum is an
+    # integer below 2^24 in magnitude (there are fewer rows per bin), so it is
+    # exact in float32 in any order, and kernel and plain version must agree
+    # exactly: h counts the rows of each (node, feature, bin), so every row
+    # must land in its own. The skewed words put most rows in one bin.
     gh_exact = torch.stack([
-        torch.randint(-8, 9, (n,), device=dev, generator=gen) / 4,
-        torch.randint(0, 5, (n,), device=dev, generator=gen) / 4,
+        torch.randint(-1, 2, (n,), device=dev, generator=gen).to(torch.float32),
+        torch.ones(n, device=dev),
     ], dim=1).contiguous()
     ones = torch.ones_like(gh)
 
@@ -357,13 +380,18 @@ def main() -> int:
 
     levels = {nn: level_positions(nn) for nn in HIST_NODES}
     buffers = {npar: row_buffer(npar) for npar in ROW_PARENTS}
+    # The training matrix with SKEW of its symbols moved to the missing bin,
+    # as in sparse data: many lanes of a warp add to one (node, bin).
+    dense = unpack(packed, bits, n)
+    skewed = pack(torch.where(torch.rand(dense.shape, device=dev, generator=gen) < SKEW,
+                              MAX_BINS - 1, dense), bits)
 
     def counts_and_tolerance(plain, *args):
         """Rows per bin, and the tolerance for real-valued (g, h): atomics add
         in no fixed order, and summing k terms in two arbitrary orders
         differs by about sqrt(k) * 2^-24 * sum|x|; four times that, per bin."""
         count = plain(*args[:1], ones[:args[1].shape[0]], *args[2:])[..., :1]
-        if float(count.max()) * 2 * 4 >= 2**24:
+        if float(count.max()) >= 2**24:
             raise SystemExit("rows per bin too many for the exact histogram check")
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
@@ -385,6 +413,36 @@ def main() -> int:
         raise SystemExit("the ops path's histogram or bins disagree with the plain versions")
     del bins
 
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def time_ms(fn, iters=20, warmup=3) -> float:
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(iters):
+            flush.zero_()  # each launch finds the L2 cold, as in a fit
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            total += s.elapsed_time(e)
+        return total / iters
+
+    def random_ensemble(n_trees: int, depth: int, n_features: int, g):
+        """Random complete arenas: a fifth of the nodes leaves, the last level
+        all leaves, thresholds around the features' scale."""
+        a = 2 ** (depth + 1) - 1
+        is_leaf = torch.rand(n_trees, a, device=dev, generator=g) < 0.2
+        is_leaf[:, 2 ** depth - 1:] = True
+        thr = torch.randn(n_trees, a, device=dev, generator=g)
+        thr[is_leaf] = float("inf")
+        return (torch.randint(0, n_features, (n_trees, a), device=dev, generator=g,
+                              dtype=torch.int32),
+                thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
+                torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
+
     # --- 6. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
@@ -395,36 +453,45 @@ def main() -> int:
         ok = bool(((got - want).abs() <= tol).all())
         return err, ok
 
-    def check_histogram(name, kernel, plain, size, *rest):
-        """Exact on dyadic (g, h); within the sqrt(rows) tolerance on real."""
-        inputs = {"exact": (packed, gh_exact, *rest), "real": (packed, gh, *rest)}
+    def check_histogram(name, kernel, plain, size, *rest, words=packed, data="higgs"):
+        """Exact on integer (g, h); within the sqrt(rows) tolerance on real.
+        On the skewed words the real-valued plain version runs in float64:
+        in float32 its index_add_ adds a hot bin's hundreds of thousands of
+        positive h one at a time, and that running sum drifts past the
+        tolerance by itself (the kernels add blocked or aggregated sums)."""
+        inputs = {"exact": (words, gh_exact, *rest), "real": (words, gh, *rest)}
         if name == "histogram_rows":  # (g, h) gathered for each slot's row
             rid = rest[1].to(torch.int64).clamp(max=n - 1)
-            inputs = {k: (packed, v[1][rid], *rest) for k, v in inputs.items()}
+            inputs = {k: (words, v[1][rid], *rest) for k, v in inputs.items()}
         exact_err = float((kernel(*inputs["exact"]) - plain(*inputs["exact"])).abs().max())
         got = kernel(*inputs["real"])
-        err, ok = check(got, plain(*inputs["real"]),
-                        counts_and_tolerance(plain, *inputs["real"]))
-        checked[name].append({"nodes": size, "exact_max_abs_err": exact_err,
+        real = inputs["real"]
+        want = plain(*real) if data == "higgs" else plain(real[0], real[1].double(), *real[2:])
+        err, ok = check(got, want, counts_and_tolerance(plain, *real))
+        checked[name].append({"nodes": size, "data": data, "exact_max_abs_err": exact_err,
                               "max_abs_err": err, "ok": ok})
         if exact_err != 0.0 or not ok:
-            raise SystemExit(f"{name} disagrees at {size} nodes: exact {exact_err}, "
-                             f"real {err}")
+            raise SystemExit(f"{name} disagrees at {size} nodes on {data}: exact "
+                             f"{exact_err}, real {err}")
         return got
 
-    for nn in HIST_NODES:
-        hist = check_histogram("histogram_private", build_histograms_packed_kernel,
-                               ref.histogram_ref, nn, levels[nn], nn, MAX_BINS, bits)
-        check_histogram("histogram_packed", histogram_packed, ref.histogram_packed_ref,
-                        nn, levels[nn], nn, MAX_BINS, bits)
-    hist32 = hist
-    for npar in ROW_PARENTS:
-        rid, pos = buffers[npar]
-        check_histogram("histogram_rows", build_histograms_rows_kernel,
-                        ref.histogram_rows_ref, npar, pos, rid, npar, MAX_BINS, bits)
+    for words, data in ((packed, "higgs"), (skewed, "skewed")):
+        for nn in HIST_NODES:
+            hist = check_histogram("histogram_private", build_histograms_packed_kernel,
+                                   ref.histogram_ref, nn, levels[nn], nn, MAX_BINS, bits,
+                                   words=words, data=data)
+            check_histogram("histogram_packed", histogram_packed, ref.histogram_packed_ref,
+                            nn, levels[nn], nn, MAX_BINS, bits, words=words, data=data)
+            if data == "higgs" and nn == HIST_NODES[-1]:
+                hist32 = hist
+        for npar in ROW_PARENTS:
+            rid, pos = buffers[npar]
+            check_histogram("histogram_rows", build_histograms_rows_kernel,
+                            ref.histogram_rows_ref, npar, pos, rid, npar, MAX_BINS, bits,
+                            words=words, data=data)
     # The subtraction trick's device path (lane-spread counts, scatter
     # compaction, sibling = parent - child) at level 5 of the main matrix,
-    # against a full build of the level: exact on dyadic (g, h); on real
+    # against a full build of the level: exact on integer (g, h); on real
     # (g, h) a sibling carries its parent's rounding, so each child is held
     # to its parent's tolerance.
     local = torch.where(levels[32] < 0, 32, levels[32])
@@ -441,7 +508,7 @@ def main() -> int:
     results["subtraction_level5"] = {
         "exact_max_abs_err": float(sub_err["exact"].abs().max()),
         "max_abs_err": float(sub_err["real"].abs().max()),
-        "tolerance": "dyadic gh exact; real gh the parent's sqrt(rows) tolerance",
+        "tolerance": "integer gh exact; real gh the parent's sqrt(rows) tolerance",
     }
     if float(sub_err["exact"].abs().max()) != 0.0 or not bool((sub_err["real"].abs() <= tol).all()):
         raise SystemExit(f"subtraction at level 5 disagrees with a full build: "
@@ -450,7 +517,8 @@ def main() -> int:
     for name, rows in checked.items():
         results[name] = {
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "tolerance": "dyadic gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|)",
+            "tolerance": "integer gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|) "
+                         "(skewed words: against the plain version in float64)",
         }
 
     parent = node_sums(hist32)  # (32, 2) node sums over feature 0's bins
@@ -484,7 +552,34 @@ def main() -> int:
     got = ensemble_margins_kernel(*targs)
     want = ref.ensemble_margins_ref(*targs)
     err, ok = check(got, want, 1e-5)
-    results["ensemble_traversal"] = {"max_abs_err": err, "tolerance": "1e-5"}
+
+    def kernel_types(args):
+        """The traversal's arguments with the arena already in the kernel's
+        types, so that a timed call launches the kernel and converts nothing."""
+        feat, thr, dl, leaf, is_leaf = args[:5]
+        return (feat.to(torch.int32).contiguous(), thr.contiguous(),
+                dl.to(torch.uint8).contiguous(), leaf.contiguous(),
+                is_leaf.to(torch.uint8).contiguous(), *args[5:])
+
+    # Models past the staged route's shared memory: the arenas read through
+    # L2, or the classes tiled over the grid. Each class sums in tree order
+    # on both sides, so these must agree bit for bit.
+    deep = []
+    for n_trees, depth, k, rows in DEEP_TRAVERSALS:
+        dargs = (*random_ensemble(n_trees, depth, f, gen), xte[:rows], k, depth)
+        kdargs = kernel_types(dargs)
+        d_err = float((ensemble_margins_kernel(*dargs) - ref.ensemble_margins_ref(*dargs))
+                      .abs().max())
+        deep.append({"trees": n_trees, "depth": depth, "classes": k, "rows": rows,
+                     "plan": list(traversal_plan(n_trees, 2 ** (depth + 1) - 1, k,
+                                                 KB.device_limits(0).smem_block)),
+                     "max_abs_err": d_err,
+                     "ms": time_ms(lambda: ensemble_margins_kernel(*kdargs))})
+        if d_err != 0.0:
+            raise SystemExit(f"ensemble_traversal disagrees at depth {depth}, {k} "
+                             f"classes: {d_err}")
+    results["ensemble_traversal"] = {"max_abs_err": err, "tolerance": "1e-5; deep and "
+                                     "wide models exact", "deep_and_wide": deep}
     if not ok:
         raise SystemExit(f"ensemble_traversal kernel disagrees: {err}")
 
@@ -507,23 +602,6 @@ def main() -> int:
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
     # --- 7. times -------------------------------------------------------------
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-
-    def time_ms(fn, iters=20, warmup=3) -> float:
-        for _ in range(warmup):
-            fn()
-        total = 0.0
-        for _ in range(iters):
-            flush.zero_()  # each launch finds the L2 cold, as in a fit
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            torch.cuda.synchronize()
-            total += s.elapsed_time(e)
-        return total / iters
-
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -541,67 +619,131 @@ def main() -> int:
         return lambda: out.scatter_add_(0, idx, src)
 
     w = packed.shape[1]
-    dense = unpack(packed, bits, n)
+    limits = KB.device_limits(0)
+
+    def plan_reading(kind: str, n_items: int, nodes: int) -> dict:
+        """A private kernel's launch plan, and the resident blocks per SM that
+        the CUDA runtime allows it (registers and threads included)."""
+        plan = launch_plan(n_items, f, nodes, MAX_BINS, limits)
+        return {"node_tile": plan.node_tile, "feat_group": plan.feat_group,
+                "items_per_block": plan.words_per_block, "smem_bytes": plan.smem_bytes,
+                "blocks_per_sm_by_smem": plan.blocks_per_sm,
+                "blocks_per_sm_occupancy": occupancy(kind, plan, bits)}
+
+    def fill_plan(n_items: int, nodes: int) -> tuple[int, int, int]:
+        """The private kernels' earlier plan, for comparison: one block fills
+        the opt-in shared memory (nodes first, then features beside them),
+        and the stripes make about two blocks per SM."""
+        per_node = MAX_BINS * 8
+        node_tile = min(nodes, limits.smem_block // per_node)
+        feat_group = min(f, limits.smem_block // (node_tile * per_node))
+        tiles = -(-f // feat_group) * -(-nodes // node_tile)
+        row_blocks = max(1, min(-(-n_items // 1024), -(-2 * limits.n_sm // tiles)))
+        return node_tile, feat_group, -(-n_items // row_blocks)
+
+    def private_at(plan, words_, gh_, pos, nn):
+        """#1 under `plan` (node tile, feature group, words per block),
+        through the library itself: the launch is not counted."""
+        out = torch.zeros((nn, f, MAX_BINS, 2), device=dev)
+        KB.check(KB.lib().rt_histogram_private(
+            words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), out.data_ptr(), n, f, w,
+            nn, MAX_BINS, bits, *plan, HIST_THREADS, KB.stream(dev)), "histogram_private")
+        return out
+
     # With (g, h) all zero the privatised kernel does every shared-memory
     # atomic but its private histograms stay zero, and the flush skips zero
     # entries: the difference of the two times is what the flush costs.
     zero_gh = torch.zeros_like(gh)
-    hist_rows = []
-    for nn in HIST_NODES:
-        pos = levels[nn]
-        active = int(((pos >= 0) & (pos < nn)).sum())
-        b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * MAX_BINS * 8,
-                           2 * active * f)
-        hargs = (packed, gh, pos, nn, MAX_BINS, bits)
-        hist_rows.append({
-            "n_nodes": nn,
-            "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
-            "private_zero_gh_ms": time_ms(lambda: build_histograms_packed_kernel(
-                packed, zero_gh, pos, nn, MAX_BINS, bits)),
-            "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
-            "plain_ms": time_ms(lambda: ref.histogram_ref(*hargs), iters=5),
-            "library_ms": time_ms(library_scatter(dense, pos, gh, nn), iters=5),
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
-    emit({"phase": "time", "histogram_levels": hist_rows})
-
-    rows_rows = []
+    hist_rows, rows_rows = [], []
     spw = 32 // bits
-    for npar in ROW_PARENTS:
-        rid, pos = buffers[npar]
-        valid = pos < npar
-        gh_sel = gh[rid.to(torch.int64).clamp(max=n - 1)]
-        rargs = (packed, gh_sel, pos, rid, npar, MAX_BINS, bits)
-        # Bytes this run's data needs: the words of the valid slots' rows,
-        # each (g, h), position and row id once, the histogram once.
-        words = int(torch.unique(rid[valid].to(torch.int64) // spw).numel())
-        m = rid.shape[0]
-        b_ms, b_by = bound(f * words * 4 + m * (8 + 4 + 4) + npar * f * MAX_BINS * 8,
-                           2 * int(valid.sum()) * f)
-        row = {
-            "n_parents": npar, "slots": m, "valid_slots": int(valid.sum()),
-            "words_touched": words,
-            "ms": time_ms(lambda: build_histograms_rows_kernel(*rargs)),
-            "plain_ms": time_ms(lambda: ref.histogram_rows_ref(*rargs), iters=5),
-            "library_ms": time_ms(library_scatter(
-                dense[rid.to(torch.int64).clamp(max=n - 1)], pos, gh_sel, npar), iters=5),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-        if npar == ROW_PARENTS[-1]:
-            # The same slots in a random order: what the buffer's row order
-            # (neighbouring slots sharing a word) is worth.
-            perm = torch.randperm(m, device=dev, generator=gen)
-            shuffled = (packed, gh_sel[perm].contiguous(), pos[perm].contiguous(),
-                        rid[perm].contiguous(), npar, MAX_BINS, bits)
-            row["shuffled_slots_ms"] = time_ms(lambda: build_histograms_rows_kernel(*shuffled))
-        rows_rows.append(row)
+    for words_, data in ((packed, "higgs"), (skewed, "skewed")):
+        dense_ = dense if data == "higgs" else unpack(words_, bits, n)
+        for nn in HIST_NODES:
+            pos = levels[nn]
+            active = int(((pos >= 0) & (pos < nn)).sum())
+            b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * MAX_BINS * 8,
+                               2 * active * f)
+            hargs = (words_, gh, pos, nn, MAX_BINS, bits)
+            fill = fill_plan(w, nn)
+            if not torch.equal(private_at(fill, words_, gh_exact, pos, nn),
+                               build_histograms_packed_kernel(words_, gh_exact, *hargs[2:])):
+                raise SystemExit(f"histogram_private under the fill plan disagrees at {nn} nodes")
+            row = {
+                "n_nodes": nn, "data": data,
+                "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
+                "private_fill_plan_ms": time_ms(lambda: private_at(fill, words_, gh, pos, nn)),
+                "fill_plan": list(fill),
+                "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
+                "library_ms": time_ms(library_scatter(dense_, pos, gh, nn), iters=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            if data == "higgs":
+                row.update(
+                    private_zero_gh_ms=time_ms(lambda: build_histograms_packed_kernel(
+                        packed, zero_gh, pos, nn, MAX_BINS, bits)),
+                    plain_ms=time_ms(lambda: ref.histogram_ref(*hargs), iters=5),
+                    plan=plan_reading("private", w, nn),
+                    packed_blocks_per_sm_occupancy=occupancy("packed", None, bits))
+            hist_rows.append(row)
+
+        for npar in ROW_PARENTS:
+            rid, pos = buffers[npar]
+            valid = pos < npar
+            gh_sel = gh[rid.to(torch.int64).clamp(max=n - 1)]
+            rargs = (words_, gh_sel, pos, rid, npar, MAX_BINS, bits)
+            # Bytes this run's data needs: the words of the valid slots' rows,
+            # each (g, h), position and row id once, the histogram once.
+            n_words_touched = int(torch.unique(rid[valid].to(torch.int64) // spw).numel())
+            m = rid.shape[0]
+            b_ms, b_by = bound(f * n_words_touched * 4 + m * (8 + 4 + 4)
+                               + npar * f * MAX_BINS * 8, 2 * int(valid.sum()) * f)
+            row = {
+                "n_parents": npar, "data": data, "slots": m, "valid_slots": int(valid.sum()),
+                "words_touched": n_words_touched,
+                "ms": time_ms(lambda: build_histograms_rows_kernel(*rargs)),
+                "library_ms": time_ms(library_scatter(
+                    dense_[rid.to(torch.int64).clamp(max=n - 1)], pos, gh_sel, npar), iters=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            if data == "higgs":
+                row["plain_ms"] = time_ms(lambda: ref.histogram_rows_ref(*rargs), iters=5)
+                row["plan"] = plan_reading("rows", m, npar)
+            if data == "higgs" and npar == ROW_PARENTS[-1]:
+                # The same slots in a random order: what the buffer's row order
+                # (neighbouring slots sharing a word) is worth.
+                perm = torch.randperm(m, device=dev, generator=gen)
+                shuffled = (packed, gh_sel[perm].contiguous(), pos[perm].contiguous(),
+                            rid[perm].contiguous(), npar, MAX_BINS, bits)
+                row["shuffled_slots_ms"] = time_ms(
+                    lambda: build_histograms_rows_kernel(*shuffled))
+            rows_rows.append(row)
+        del dense_
+    emit({"phase": "time", "histogram_levels": hist_rows})
     emit({"phase": "time", "histogram_rows_levels": rows_rows})
-    del dense
+    del dense, skewed
 
     n_nodes, nf, nb = hist32.shape[:3]
     nvb_cuts = MAX_BINS - 2
     t_trees, arena = ens.feature.shape
-    top, top_rows = hist_rows[-1], rows_rows[-1]
+    top = next(r for r in hist_rows
+               if r["data"] == "higgs" and r["n_nodes"] == HIST_NODES[-1])
+    top_rows = next(r for r in rows_rows
+                    if r["data"] == "higgs" and r["n_parents"] == ROW_PARENTS[-1])
+    # The main path's traversal also with every arena read through L2
+    # (trees_blk 0), as deeper models read them, through the library itself
+    # (not counted): what staging the arenas in shared memory is worth.
+    ktargs = kernel_types(targs)
+    t_out = torch.empty((xte.shape[0], ens.n_classes), device=dev)
+
+    def arenas_through_l2():
+        KB.check(KB.lib().rt_ensemble_margins(
+            *[t.data_ptr() for t in ktargs[:6]], t_out.data_ptr(), *ktargs[0].shape,
+            *xte.shape, ens.n_classes, DEPTH, ens.n_classes, 0, TRAVERSAL_THREADS,
+            KB.stream(dev)), "ensemble_margins")
+
+    arenas_through_l2()
+    if not torch.equal(t_out, ensemble_margins_kernel(*ktargs)):
+        raise SystemExit("the traversal through L2 differs from the staged route")
     times = {
         "histogram_private": {"ms": top["private_ms"],
                               **{k: top[k] for k in ("plain_ms", "library_ms",
@@ -622,7 +764,7 @@ def main() -> int:
             "library_ms": None,
         },
         "ensemble_traversal": {
-            "ms": time_ms(lambda: ensemble_margins_kernel(*targs)),
+            "ms": time_ms(lambda: ensemble_margins_kernel(*ktargs), iters=50),
             "plain_ms": time_ms(lambda: ref.ensemble_margins_ref(*targs), iters=5),
             "library_ms": None,
         },
@@ -649,6 +791,12 @@ def main() -> int:
     b_ms, b_by = bound(f * w * 4 + n * f * 4, 2 * n * f)
     times["decompress"].update(bound_ms=b_ms, bound_by=b_by)
 
+    emit({"phase": "time", "ensemble_traversal_routes": {
+        "rows": HELD_OUT, "trees": t_trees, "max_depth": DEPTH,
+        "plan": list(traversal_plan(t_trees, arena, ens.n_classes,
+                                    KB.device_limits(0).smem_block)),
+        "staged_ms": times["ensemble_traversal"]["ms"],
+        "through_l2_ms": time_ms(arenas_through_l2, iters=50)}})
     counted = {**launches, **{k: ops_launches[k] for k in ("histogram_packed", "decompress")}}
     kernels = []
     for name in REPLACES:

@@ -17,7 +17,8 @@ def build_histograms(
     n_nodes: int,
     max_bins: int,
 ) -> torch.Tensor:
-    """Dense scatter-add: hist (n_nodes, n_features, max_bins, 2) float32.
+    """Dense scatter-add: hist (n_nodes, n_features, max_bins, 2) in gh's
+    dtype (float32 on the training path).
 
     One flat index ((pos * F) + f) * B + bin per (row, feature); inactive
     rows land in a dump slot that is sliced off."""
@@ -26,7 +27,7 @@ def build_histograms(
     pos = torch.where((pos >= 0) & (pos < n_nodes), pos, n_nodes)
     fidx = torch.arange(f, dtype=torch.int64, device=bins.device)[None, :]
     idx = (pos[:, None] * f + fidx) * max_bins + bins.to(torch.int64)
-    flat = torch.zeros(((n_nodes + 1) * f * max_bins, 2), dtype=torch.float32,
+    flat = torch.zeros(((n_nodes + 1) * f * max_bins, 2), dtype=gh.dtype,
                        device=bins.device)
     flat.index_add_(0, idx.reshape(-1), gh[:, None, :].expand(n, f, 2).reshape(-1, 2))
     return flat.reshape(n_nodes + 1, f, max_bins, 2)[:n_nodes]

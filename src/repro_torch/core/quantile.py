@@ -1,11 +1,11 @@
 """Feature quantile generation (paper §2.1); counterpart of `repro.core.quantile`.
 
-Exact sort-based quantiles: the columns are sorted with `torch.sort` (NaN
-filled with +inf so it sorts to the tail), then the selection stage picks
-the interior boundaries of `n_value_bins` equal-mass bins. On a CUDA tensor
-the selection runs in the cut-selection kernel (`kernels/csrc/quantile_cuts.cu`),
-on a CPU tensor in its plain version; both are bit-identical to
-`select_cuts_from_sorted` below. Missing values (NaN) take the reserved last
+Exact sort-based quantiles (`kernels.ops.compute_cuts_op`): the columns are
+sorted with `torch.sort` (NaN filled with +inf so it sorts to the tail),
+then the selection stage picks the interior boundaries of `n_value_bins`
+equal-mass bins. On a CUDA tensor the selection runs in the cut-selection
+kernel (`kernels/csrc/quantile_cuts.cu`), on a CPU tensor in its plain
+version, bit-identical to it. Missing values (NaN) take the reserved last
 bin.
 
 The streaming sketch of the reference (external memory) is not ported yet.
@@ -23,20 +23,6 @@ def n_value_bins(max_bins: int = DEFAULT_MAX_BINS) -> int:
     return max_bins - 1
 
 
-def select_cuts_from_sorted(
-    srt: torch.Tensor,  # (n_rows, n_features) column-sorted f32, +inf tail
-    n_valid: torch.Tensor,  # (n_features,) finite count per column
-    max_bins: int = DEFAULT_MAX_BINS,
-) -> torch.Tensor:
-    """Selection stage of compute_cuts: rank pick + interpolation + dedup,
-    then the ascending re-sort that moves the +inf dedup markers to the
-    tail. Returns (n_features, max_bins - 2) f32."""
-    from repro_torch.kernels import ops  # lazy: ops imports core modules
-
-    cand = ops.quantile_cuts(srt, n_valid, max_bins)
-    return torch.sort(cand, dim=-1).values
-
-
 def compute_cuts(x: torch.Tensor, max_bins: int = DEFAULT_MAX_BINS) -> torch.Tensor:
     """Per-feature quantile cut points.
 
@@ -48,12 +34,9 @@ def compute_cuts(x: torch.Tensor, max_bins: int = DEFAULT_MAX_BINS) -> torch.Ten
       cuts: (n_features, n_value_bins - 1) float32, ascending; value bin b
         holds x <= cuts[b] (and x > cuts[b-1]). Unused tail cuts are +inf.
     """
-    x = x.to(torch.float32)
-    finite = torch.isfinite(x)
-    filled = torch.where(finite, x, torch.full_like(x, float("inf")))
-    srt = torch.sort(filled, dim=0).values
-    n_valid = finite.sum(dim=0, dtype=torch.int32)
-    return select_cuts_from_sorted(srt, n_valid, max_bins)
+    from repro_torch.kernels import ops  # lazy: ops imports core modules
+
+    return ops.compute_cuts_op(x, max_bins)
 
 
 def quantize(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:

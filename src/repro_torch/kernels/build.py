@@ -19,6 +19,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -39,8 +40,9 @@ SIGNATURES = {
     "rt_decompress": [_P] * 2 + [_I] * 5 + [_P],
     "rt_split_scan": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
-    "rt_ensemble_margins": [_P] * 7 + [_I] * 8 + [_P],
-    "rt_smem_optin": [_I, _P],
+    "rt_ensemble_margins": [_P] * 7 + [_I] * 9 + [_P],
+    "rt_histogram_occupancy": [_I] * 4 + [_P],
+    "rt_device_limits": [_I, _P],
 }
 
 
@@ -156,10 +158,18 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+class DeviceLimits(NamedTuple):
+    n_sm: int  # streaming multiprocessors
+    smem_block: int  # opt-in shared memory a block may use, bytes
+    smem_sm: int  # shared memory of one SM, bytes
+    smem_reserved: int  # shared memory the system reserves for each block
+    threads_sm: int  # resident threads one SM holds
+
+
 @functools.lru_cache(maxsize=None)
-def device_limits(index: int) -> tuple[int, int]:
-    """(streaming multiprocessors, opt-in shared memory bytes per block)."""
+def device_limits(index: int) -> DeviceLimits:
+    """The card's SM count, shared-memory limits and threads per SM."""
     n_sm = torch.cuda.get_device_properties(index).multi_processor_count
-    smem = ctypes.c_int(0)
-    check(lib().rt_smem_optin(index, ctypes.addressof(smem)), "rt_smem_optin")
-    return n_sm, smem.value
+    attrs = (ctypes.c_int * 4)()
+    check(lib().rt_device_limits(index, ctypes.addressof(attrs)), "rt_device_limits")
+    return DeviceLimits(n_sm, *attrs)

@@ -9,10 +9,10 @@
 //    matmuls on the MXU because the TPU has no fast atomics. Hopper has
 //    them, so this is the paper's own design: privatised shared-memory
 //    histograms, flushed to the output with global atomics.
-//  * histogram_rows_kernel is the same design over a compacted row buffer:
-//    slot i holds row row_ids[i]. It serves src/repro/core/histogram.py ::
-//    build_histograms_packed_rows, the subtraction trick's smaller-child
-//    histogram below the root.
+//  * histogram_rows_kernel is the same privatised design over a compacted
+//    row buffer: slot i holds row row_ids[i]. It serves
+//    src/repro/core/histogram.py :: build_histograms_packed_rows, the
+//    subtraction trick's smaller-child histogram below the root.
 //  * histogram_global_kernel replaces the TPU kernel
 //    src/repro/kernels/histogram.py :: histogram_packed (_kernel), whose
 //    output block is its accumulator. The design choice carried over is
@@ -23,37 +23,115 @@
 // What bounds them on the H100: each full level reads the packed words once
 // (n_features * n_rows * bits / 8 bytes), gh (8 B/row) and pos (4 B/row),
 // and writes a small histogram: about 40 MB at 1M rows x 28 features, or
-// 12 us at 3.35 TB/s. The real limit is the atomic rate: two float atomics
-// per (row, feature), 56M per level at that size, in shared memory for the
-// private and row kernels, in L2 for the global one.
+// 12 us at 3.35 TB/s. The real limit is the rate of atomic updates: one
+// (g, h) pair per (row, feature), 28M per level at that size, in shared
+// memory for the private and row kernels, in L2 for the global one.
 //
-// Design of the private kernels:
-//  * A block owns a stripe of words (or slots) x a group of features x a
-//    range of nodes, and keeps a private histogram for exactly those in
-//    dynamic shared memory: [feature][node][bin][g,h] floats, updated with
-//    shared-memory atomicAdd, so contending threads never reach L2.
-//  * The feature group and node range are sized by the caller from the
-//    227 KB opt-in limit (one feature at 32 nodes x 256 bins is 64 KB); the
-//    node range is the grid's z dimension, so any n_nodes works.
-//  * Packed kernel: consecutive threads take consecutive words of a
-//    feature, so word loads coalesce along W. A thread unpacks SPW symbols
-//    per word and keeps the SPW rows' (g, h) and node in registers across
-//    the feature group; rows with a position outside the block's node range
-//    (n_nodes or -1 = inactive) are skipped, and a word whose rows are all
-//    skipped loads nothing.
-//  * Row kernel: a thread takes one slot and, for each feature of the
-//    group, one (slot, feature) pair: word packed[f, rid / SPW], shifted by
-//    (rid % SPW) * bits. A slot at the dump position, or with a row id
-//    outside the packed words, contributes nothing and reads nothing past
-//    its position. The buffer keeps row order, so neighbouring slots often
-//    share a word and a cache line.
-//  * At the end the block flushes its non-zero entries to the output with
-//    global atomicAdd. The caller zeroes the output first. Float order is
-//    therefore not fixed from run to run, in all three kernels.
+// Launch plan of the private kernels (kernels/histogram.py::launch_plan):
+// a block owns a stripe of words (or slots) x a group of features x a range
+// of nodes, and keeps a private histogram for exactly those in dynamic
+// shared memory: [feature][node][bin][g,h] floats. The plan caps that
+// histogram so that at least three blocks fit on an SM (about 75 KB of the
+// SM's 228 KB), and puts more node tiles and feature groups on the grid to
+// make up: with one 224 KB block (16 warps) per SM the kernels took 2-2.5x
+// their time at four 56 KB blocks.
+//
+// histogram_private_kernel: consecutive threads take consecutive words of a
+// feature, so word loads coalesce along W. A thread unpacks SPW symbols per
+// word and keeps the SPW rows' (g, h) and node in registers across the
+// feature group; rows with a position outside the block's node range
+// (n_nodes or -1 = inactive) are skipped, and a word whose rows are all
+// skipped loads nothing.
+//
+// histogram_rows_kernel: a thread takes one slot, and for each feature of
+// the group one word packed[f, rid / SPW], shifted by (rid % SPW) * bits.
+//  * The words of kRowsUnroll features are loaded before any of them is
+//    used, so a slot keeps several scattered loads in flight.
+//  * On sm_90a a float atomicAdd to shared memory is a compare-and-swap
+//    loop, one per float. The kernel adds each (g, h) with one 64-bit
+//    compare-and-swap on the pair instead: one loop, and half the retries
+//    when warps contend for a bin. (Hopper's 8-byte float2 atomicAdd
+//    exists for global memory only.)
+//  * Where a warp shows repeats (two or more lanes in the missing bin, or a
+//    lane whose (node, bin) equals its neighbour's), lanes with equal
+//    (node, bin) are summed with __match_any_sync and a shuffle tree, and
+//    one lane adds the sum: a skewed feature would otherwise send up to 32
+//    compare-and-swap loops after one address. Where it shows none, the
+//    match is skipped: on spread-out bins it costs about what it saves.
+//  * At most 32 registers a thread, so that four 56 KB blocks fit an SM.
+//  * A slot at the dump position, or with a row id outside the packed
+//    words, contributes nothing and reads nothing past its position. The
+//    buffer keeps row order, so neighbouring slots often share a word.
+// Both private kernels flush the non-zero entries of their histogram to the
+// output with global atomicAdd at the end. The caller zeroes the output.
+//
+// histogram_global_kernel: a thread takes one word and its SPW rows, and
+// the whole warp walks the features in step, so the lanes of a warp always
+// add into one feature's output slab; each warp starts at its own feature,
+// so the card's warps spread over all the slabs instead of all starting on
+// feature 0's few L2 lines. Per
+// symbol, lanes whose (node, bin) agree are summed with __match_any_sync
+// and a shuffle tree, and one lane adds the warp's sum with one 8-byte
+// float2 atomicAdd (sm_90, global memory: REDG.E.ADD.F32x2) in place of two
+// 4-byte ones. The output stays the accumulator, as on the TPU: there is no
+// private copy and no flush.
+//
+// Float order is therefore not fixed from run to run, in all three kernels.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kRowsUnroll = 4;  // features whose words a slot loads at once
+
+// Sum of v over `peers` (the lanes of the warp whose key equals this lane's),
+// complete in the lowest lane of each group; the shuffle tree takes
+// ceil(log2(group size)) steps and none when every key is unique. Every lane
+// of the warp must call it.
+__device__ __forceinline__ float2 reduce_peers(unsigned peers, float2 v) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
+  peers &= 0xfffffffeu << lane;                    // peers above it
+  while (__any_sync(kFullWarp, peers)) {
+    const int next = __ffs(peers);  // 1 + next peer above still summing
+    const float gx = __shfl_sync(kFullWarp, v.x, (next - 1) & 31);
+    const float gy = __shfl_sync(kFullWarp, v.y, (next - 1) & 31);
+    if (next) {
+      v.x += gx;
+      v.y += gy;
+    }
+    peers &= __ballot_sync(kFullWarp, !(rank & 1));  // odd ranks are done
+    rank >>= 1;
+  }
+  return v;
+}
+
+// Adds (g, h) to the 8-byte shared-memory slot at `slot` with one 64-bit
+// compare-and-swap loop. On sm_90a a float atomicAdd to shared memory is
+// itself such a loop (ATOMS.CAST.SPIN in the SASS), one per float; this is
+// one per pair (ATOMS.CAS.64), half the loops and half the retries under
+// contention.
+__device__ __forceinline__ void add_pair_shared(float* slot, float2 v) {
+  union Pair {
+    unsigned long long bits;
+    float2 gh;
+  };
+  unsigned long long* p = reinterpret_cast<unsigned long long*>(slot);
+  Pair seen, sum;
+  seen.bits = *p;
+  unsigned long long assumed;
+  do {
+    assumed = seen.bits;
+    sum.gh = make_float2(seen.gh.x + v.x, seen.gh.y + v.y);
+    seen.bits = atomicCAS(p, assumed, sum.bits);
+  } while (seen.bits != assumed);
+}
+
+// True in the lane that adds its group's sum: the lowest lane of `peers`.
+__device__ __forceinline__ bool leads(unsigned peers) {
+  return (peers & ((1u << (threadIdx.x & 31)) - 1u)) == 0;
+}
 
 __device__ __forceinline__ uint32_t symbol_mask(int bits) {
   return bits >= 32 ? 0xffffffffu : ((1u << bits) - 1u);
@@ -136,8 +214,11 @@ __global__ void histogram_private_kernel(
   flush_private(hist, out, nf, slab, f0, n0, n_features, max_bins);
 }
 
+// 512 threads a block (kernels/histogram.py) and at most 32 registers a
+// thread, so that four blocks fit an SM's 65,536 registers where the plan's
+// shared memory allows four.
 template <int SPW>
-__global__ void histogram_rows_kernel(
+__global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words)
     const float2* __restrict__ gh,        // (n_slots,) (g, h) of each slot
     const int* __restrict__ pos,          // (n_slots,) node, n_nodes = dump
@@ -154,24 +235,52 @@ __global__ void histogram_rows_kernel(
   zero_private(hist, nf * slab);
 
   const uint32_t mask = symbol_mask(bits);
+  const int missing = max_bins - 1;
   const long long n_symbols = (long long)n_words * SPW;
   const long long s_begin = (long long)blockIdx.x * slots_per_block;
   const long long s_end = min(s_begin + slots_per_block, (long long)n_slots);
-  for (long long s = s_begin + threadIdx.x; s < s_end; s += blockDim.x) {
-    const int p = __ldg(pos + s) - n0;
-    if (p < 0 || p >= nn) continue;  // dump slot, or another tile's node
-    const int r = __ldg(rid + s);
-    if (r < 0 || r >= n_symbols) continue;  // padding id past the words
-    const float2 v = __ldg(gh + s);
+  // The warp steps through its slots together: the votes and the match
+  // below need all 32 lanes, so a lane with nothing to add carries p = -1.
+  for (long long s = s_begin + threadIdx.x; s - (threadIdx.x & 31) < s_end;
+       s += blockDim.x) {
+    int p = s < s_end ? __ldg(pos + s) - n0 : -1;
+    int r = 0;
+    if (p >= 0 && p < nn) r = __ldg(rid + s);
+    if (p < 0 || p >= nn || r < 0 || r >= n_symbols) p = -1;  // reads nothing
+    if (!__any_sync(kFullWarp, p >= 0)) continue;
+    float2 v = make_float2(0.f, 0.f);
+    if (p >= 0) v = __ldg(gh + s);
     const int w = r / SPW;
     const int shift = (r - w * SPW) * bits;
-    float* hn = hist + p * max_bins * 2;
-    for (int fl = 0; fl < nf; ++fl) {
-      const uint32_t word = __ldg(packed + (long long)(f0 + fl) * n_words + w);
-      const int bin = (int)((word >> shift) & mask);
-      float* slot = hn + fl * slab + bin * 2;
-      atomicAdd(slot, v.x);
-      atomicAdd(slot + 1, v.y);
+    const int base = p * max_bins;
+    for (int fl0 = 0; fl0 < nf; fl0 += kRowsUnroll) {
+      uint32_t word[kRowsUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u)
+        word[u] = (p >= 0 && fl0 + u < nf)
+                      ? __ldg(packed + (long long)(f0 + fl0 + u) * n_words + w)
+                      : 0u;
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u) {
+        if (fl0 + u >= nf) break;
+        const int bin = (int)((word[u] >> shift) & mask);
+        const int key = p >= 0 ? base + bin : -1;
+        // Aggregate only where the warp shows repeats: lanes in the missing
+        // bin, or a lane whose (node, bin) equals a neighbour's. A match
+        // costs about as much as the adds it saves on spread-out bins.
+        const int k1 = __shfl_xor_sync(kFullWarp, key, 1);
+        const int k2 = __shfl_xor_sync(kFullWarp, key, 2);
+        const unsigned hot = __ballot_sync(
+            kFullWarp, p >= 0 && (bin == missing || key == k1 || key == k2));
+        float2 sum = v;
+        bool adds = p >= 0;
+        if (__popc(hot) > 1) {
+          const unsigned peers = __match_any_sync(kFullWarp, key);
+          sum = reduce_peers(peers, v);
+          adds = adds && leads(peers);
+        }
+        if (adds) add_pair_shared(hist + (fl0 + u) * slab + key * 2, sum);
+      }
     }
   }
   flush_private(hist, out, nf, slab, f0, n0, n_features, max_bins);
@@ -187,35 +296,41 @@ __global__ void histogram_global_kernel(
     int bits) {
   const uint32_t mask = symbol_mask(bits);
   const long long stride = (long long)gridDim.x * blockDim.x;
+  // The warp steps through the words together (see histogram_rows_kernel).
   for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       w < n_words; w += stride) {
+       w - (threadIdx.x & 31) < n_words; w += stride) {
     int node[SPW];
-    float g[SPW], h[SPW];
+    float2 v[SPW];
     bool any = false;
 #pragma unroll
     for (int j = 0; j < SPW; ++j) {
       const long long row = w * SPW + j;
-      const int p = row < n_rows ? __ldg(pos + row) : -1;
+      const int p = (w < n_words && row < n_rows) ? __ldg(pos + row) : -1;
       node[j] = (p >= 0 && p < n_nodes) ? p : -1;
-      g[j] = h[j] = 0.f;
+      v[j] = make_float2(0.f, 0.f);
       if (node[j] >= 0) {
-        const float2 v = __ldg(gh + row);
-        g[j] = v.x;
-        h[j] = v.y;
+        v[j] = __ldg(gh + row);
         any = true;
       }
     }
-    if (!any) continue;
-    for (int f = 0; f < n_features; ++f) {
-      const uint32_t word = __ldg(packed + (long long)f * n_words + w);
+    if (!__any_sync(kFullWarp, any)) continue;
+    // Each warp starts at its own feature, so the card's warps spread their
+    // adds over every feature's slab instead of queueing on one in L2.
+    const int start = (int)((w >> 5) % n_features);
+    for (int i = 0; i < n_features; ++i) {
+      const int f = i + start < n_features ? i + start : i + start - n_features;
+      const uint32_t word = any ? __ldg(packed + (long long)f * n_words + w) : 0u;
 #pragma unroll
       for (int j = 0; j < SPW; ++j) {
-        if (node[j] < 0) continue;
         const int bin = (int)((word >> (j * bits)) & mask);
-        float* slot =
-            out + (((long long)node[j] * n_features + f) * max_bins + bin) * 2;
-        atomicAdd(slot, g[j]);
-        atomicAdd(slot + 1, h[j]);
+        const int key = node[j] >= 0 ? node[j] * max_bins + bin : -1;
+        const unsigned peers = __match_any_sync(kFullWarp, key);
+        const float2 sum = reduce_peers(peers, v[j]);
+        if (node[j] >= 0 && leads(peers))
+          atomicAdd(reinterpret_cast<float2*>(
+                        out + (((long long)node[j] * n_features + f) * max_bins +
+                               bin) * 2),
+                    sum);
       }
     }
   }
@@ -341,10 +456,40 @@ extern "C" int rt_histogram_packed(
 #undef RT_CALL
 }
 
+// Resident blocks per SM of one histogram kernel (0 private, 1 row-id,
+// 2 global) at `bits`, `threads` and `smem` bytes of dynamic shared memory.
+template <int SPW>
+cudaError_t occupancy(int kernel, int threads, int smem, int* blocks) {
+  const void* fn = kernel == 0   ? (const void*)histogram_private_kernel<SPW>
+                   : kernel == 1 ? (const void*)histogram_rows_kernel<SPW>
+                                 : (const void*)histogram_global_kernel<SPW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
+                                                       (size_t)smem);
+}
+
+extern "C" int rt_histogram_occupancy(int kernel, int bits, int threads,
+                                      int smem, void* out_blocks) {
+  if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
+#define RT_CALL(S) occupancy<S>(kernel, threads, smem, (int*)out_blocks)
+  RT_SPW_SWITCH(bits, RT_CALL)
+#undef RT_CALL
+}
+
 #undef RT_SPW_SWITCH
 
-// Largest dynamic shared memory a block may opt in to on `device`.
-extern "C" int rt_smem_optin(int device, void* out_bytes) {
-  return (int)cudaDeviceGetAttribute(
-      (int*)out_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+// Limits of `device`: [opt-in shared memory bytes per block, shared memory
+// bytes per SM, bytes the system reserves for each block, threads per SM].
+extern "C" int rt_device_limits(int device, void* out) {
+  const cudaDeviceAttr attrs[4] = {cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                   cudaDevAttrReservedSharedMemoryPerBlock,
+                                   cudaDevAttrMaxThreadsPerMultiProcessor};
+  for (int i = 0; i < 4; ++i) {
+    cudaError_t err = cudaDeviceGetAttribute((int*)out + i, attrs[i], device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

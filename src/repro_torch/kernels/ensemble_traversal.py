@@ -2,9 +2,15 @@
 
 Counterpart of `repro.kernels.ensemble_traversal.ensemble_margins_kernel`:
 raw rows (NaN = missing) through all trees, margins (N, K) without
-base_score, tree t feeding class t % K.
+base_score, tree t feeding class t % K. It serves every model the reference
+serves: the plan below picks, from the card's shared memory, how many
+classes a block accumulates and whether it stages the tree arenas or reads
+them from global memory.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -15,17 +21,29 @@ SMEM_TARGET = 48 * 1024  # shared memory a block aims for
 NODE_BYTES = 14  # feature i32 + threshold f32 + leaf f32 + two u8 flags
 
 
-def trees_per_block(n_trees: int, arena: int, n_classes: int, smem_bytes: int) -> int:
-    """How many tree arenas a block stages at once beside its per-class
-    accumulators (n_classes x THREADS floats)."""
-    acc = n_classes * THREADS * 4
-    if acc + arena * NODE_BYTES > smem_bytes:
-        raise ValueError(
-            f"{n_classes} classes with a {arena}-node arena need more than the "
-            f"{smem_bytes} B of shared memory a block may use"
-        )
-    fit = max(1, (max(SMEM_TARGET, acc + arena * NODE_BYTES) - acc) // (arena * NODE_BYTES))
-    return min(n_trees, fit)
+class TraversalPlan(NamedTuple):
+    class_tile: int  # classes a block accumulates (grid y = ceil(K / class_tile))
+    trees_blk: int  # tree arenas a block stages at once; 0 = read from global memory
+
+
+def traversal_plan(n_trees: int, arena: int, n_classes: int,
+                   smem_bytes: int) -> TraversalPlan:
+    """Per-class accumulators (class_tile x THREADS floats) and staged arenas
+    share a block's `smem_bytes`. All classes take one block while their
+    accumulators fit beside one arena; otherwise the classes are tiled over
+    the grid, at most SMEM_TARGET of accumulators a block. Arenas are staged
+    while they fit beside the accumulators, else read through L2."""
+    acc_row = THREADS * 4
+    tree = arena * NODE_BYTES
+    tile = n_classes
+    if n_classes * acc_row + tree > smem_bytes:
+        tiles = math.ceil(n_classes / max(1, SMEM_TARGET // acc_row))
+        tile = math.ceil(n_classes / tiles)
+    acc = tile * acc_row
+    if acc + tree > smem_bytes:
+        return TraversalPlan(tile, 0)
+    fit = max(1, (max(SMEM_TARGET, acc + tree) - acc) // tree)
+    return TraversalPlan(tile, min(n_trees // n_classes * tile, fit))
 
 
 def ensemble_margins_kernel(
@@ -60,11 +78,12 @@ def ensemble_margins_kernel(
     out = torch.empty((n_rows, n_classes), dtype=torch.float32, device=dev)
     if n_rows == 0:
         return out
-    tb = trees_per_block(n_trees, arena, n_classes, B.device_limits(dev.index)[1])
+    plan = traversal_plan(n_trees, arena, n_classes,
+                          B.device_limits(dev.index).smem_block)
     err = B.lib().rt_ensemble_margins(
         feature.data_ptr(), threshold.data_ptr(), default_left.data_ptr(),
         leaf_value.data_ptr(), is_leaf.data_ptr(), x.data_ptr(), out.data_ptr(),
-        n_trees, arena, n_rows, n_features, n_classes, max_depth, tb, THREADS,
+        n_trees, arena, n_rows, n_features, n_classes, max_depth, *plan, THREADS,
         B.stream(dev),
     )
     B.check(err, "ensemble_margins")

@@ -6,18 +6,25 @@ All three compute the contract of `repro.core.histogram` (packed words,
 * `build_histograms_packed_kernel`, counterpart of
   `repro.kernels.histogram.build_histograms_packed_kernel`: privatised
   shared-memory histograms and atomics instead of one-hot matmuls.
-* `build_histograms_rows_kernel`, the same design over a compacted row
-  buffer (slot i holds row `row_ids[i]`): the kernel behind
+* `build_histograms_rows_kernel`, the same privatised design over a
+  compacted row buffer (slot i holds row `row_ids[i]`), with several word
+  loads in flight per slot, one 64-bit compare-and-swap per (g, h) and
+  warp-aggregated adds where a warp shows repeated bins: the kernel behind
   `core.histogram.build_histograms_packed_rows`, which the subtraction trick
   calls below the root.
 * `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`:
-  no private histogram, every (row, feature) adds straight into the output
-  with global atomics.
+  no private histogram, every (row, feature) adds straight into the output,
+  lanes of a warp with the same (node, bin) summed first and added with one
+  8-byte atomic, each warp starting at its own feature.
+
+Both private kernels take their grid from `launch_plan`, sized for three or
+more blocks per SM.
 
 Float summation order is that of the atomics, not fixed from run to run.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -28,8 +35,11 @@ from repro_torch.kernels import build as B
 # A block sweeps at least this many words (or slots) per stripe, so the
 # flush of its private histogram stays small beside the work that filled it.
 MIN_WORDS_PER_BLOCK = 1024
-# Aim for this many blocks per streaming multiprocessor over the grid.
-BLOCKS_PER_SM = 2
+# The plan caps a block's private histogram so that this many blocks fit in
+# one SM's shared memory: on spread-out bins, at one 224 KB block per SM the
+# private kernels took 2-2.5x their time at four 56 KB blocks. (On bins
+# skewed to one value the privatised kernel is faster at one block: PERF.md.)
+MIN_BLOCKS_PER_SM = 3
 THREADS = 512  # threads per block
 
 
@@ -37,26 +47,39 @@ class HistogramPlan(NamedTuple):
     node_tile: int  # nodes per block (grid z = ceil(n_nodes / node_tile))
     feat_group: int  # features per block (grid y)
     words_per_block: int  # packed words (or buffer slots) per stripe (grid x)
+    smem_bytes: int  # a block's private histogram
+    blocks_per_sm: int  # blocks whose shared memory and threads fit on one SM
 
 
 def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
-                n_sm: int, smem_bytes: int) -> HistogramPlan:
-    """Size a block's private histogram from the shared-memory limit: as many
-    nodes as fit for one feature (the rest go to further node tiles on the
-    grid's z axis), then as many features as fit beside them. The row
-    kernel passes its slot count as `n_words`."""
+                limits: B.DeviceLimits) -> HistogramPlan:
+    """Size a block's private histogram for occupancy: at most a third of an
+    SM's shared memory (less the per-block reserve), so that three blocks
+    fit; nodes first (the rest go to further node tiles on the grid's z
+    axis), then features beside them (feature groups on y), each split
+    evenly. The stripes on x make about one wave of resident blocks. The
+    row kernel passes its slot count as `n_words`."""
     per_node = max_bins * 8  # one feature, one node: max_bins (g, h) floats
-    node_tile = min(n_nodes, smem_bytes // per_node)
-    if node_tile < 1:
+    cap = min(limits.smem_block,
+              limits.smem_sm // MIN_BLOCKS_PER_SM - limits.smem_reserved)
+    if per_node > cap:  # one node's bins alone: take what one block may use
+        cap = limits.smem_block
+    if per_node > cap:
         raise ValueError(
             f"max_bins={max_bins} needs {per_node} B of shared memory per "
-            f"node, more than the {smem_bytes} B a block may use"
+            f"node, more than the {cap} B a block may use"
         )
-    feat_group = min(n_features, smem_bytes // (node_tile * per_node))
-    tiles = math.ceil(n_features / feat_group) * math.ceil(n_nodes / node_tile)
+    node_tiles = math.ceil(n_nodes / (cap // per_node))
+    node_tile = math.ceil(n_nodes / node_tiles)
+    groups = math.ceil(n_features / (cap // (node_tile * per_node)))
+    feat_group = math.ceil(n_features / groups)
+    smem = feat_group * node_tile * per_node
+    per_sm = min(limits.smem_sm // (smem + limits.smem_reserved),
+                 limits.threads_sm // THREADS)
     row_blocks = max(1, min(math.ceil(n_words / MIN_WORDS_PER_BLOCK),
-                            math.ceil(BLOCKS_PER_SM * n_sm / tiles)))
-    return HistogramPlan(node_tile, feat_group, math.ceil(n_words / row_blocks))
+                            math.ceil(per_sm * limits.n_sm / (groups * node_tiles))))
+    return HistogramPlan(node_tile, feat_group, math.ceil(n_words / row_blocks),
+                         smem, per_sm)
 
 
 def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
@@ -95,10 +118,11 @@ def build_histograms_packed_kernel(
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
     if w == 0 or f == 0:
         return out
-    plan = launch_plan(w, f, n_nodes, max_bins, *B.device_limits(dev.index))
+    plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index))
     err = B.lib().rt_histogram_private(
         packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        n, f, w, n_nodes, max_bins, bits, *plan, THREADS, B.stream(dev),
+        n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
+        plan.words_per_block, THREADS, B.stream(dev),
     )
     B.check(err, "histogram_private")
     build_histograms_packed_kernel.launches += 1
@@ -128,11 +152,12 @@ def build_histograms_rows_kernel(
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
     if m == 0 or w == 0 or f == 0:
         return out
-    plan = launch_plan(m, f, n_nodes, max_bins, *B.device_limits(dev.index))
+    plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index))
     err = B.lib().rt_histogram_rows(
         packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
         row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
-        *plan, THREADS, B.stream(dev),
+        plan.node_tile, plan.feat_group, plan.words_per_block, THREADS,
+        B.stream(dev),
     )
     B.check(err, "histogram_rows")
     build_histograms_rows_kernel.launches += 1
@@ -165,6 +190,19 @@ def histogram_packed(
     B.check(err, "histogram_packed")
     histogram_packed.launches += 1
     return out
+
+
+def occupancy(kind: str, plan: HistogramPlan | None, bits: int) -> int:
+    """Resident blocks per SM of one histogram kernel ("private", "rows" or
+    "packed") at `plan`'s shared memory on the current card, as the CUDA
+    runtime computes it; `histogram_packed` takes no plan."""
+    kernel = ("private", "rows", "packed").index(kind)
+    smem = plan.smem_bytes if plan is not None else 0
+    blocks = ctypes.c_int(0)
+    B.check(B.lib().rt_histogram_occupancy(kernel, bits, THREADS, smem,
+                                           ctypes.addressof(blocks)),
+            "rt_histogram_occupancy")
+    return blocks.value
 
 
 build_histograms_packed_kernel.launches = 0

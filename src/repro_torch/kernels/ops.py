@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quantile as Q
 from repro_torch.core.compress import PackedBins
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decompress import decompress
@@ -92,24 +93,47 @@ def decompress_op(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
     return R.decompress_ref(packed, bits, n_rows)
 
 
+def compute_cuts_op(x: torch.Tensor, max_bins: int) -> torch.Tensor:
+    """Per-feature cut points (F, max_bins - 2) f32, ascending, +inf tail:
+    missing values filled with +inf, each column sorted with `torch.sort`,
+    then the cut-selection kernel (its plain version on the CPU) and the
+    ascending re-sort that moves its +inf dedup markers to the tail."""
+    x = x.to(torch.float32)
+    finite = torch.isfinite(x)
+    srt = torch.sort(torch.where(finite, x, float("inf")), dim=0).values
+    n_valid = finite.sum(dim=0, dtype=torch.int32)
+    if srt.is_cuda:
+        cand = quantile_cuts_from_sorted(srt.contiguous(), n_valid, max_bins)
+    else:
+        cand = R.quantile_cuts_ref(srt, n_valid, max_bins)
+    return torch.sort(cand, dim=-1).values
+
+
+def quantize_op(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
+    """(n_rows, F) int32 bin ids; NaN takes the missing bin. Plain PyTorch
+    on both devices: the reference computes it outside any kernel too."""
+    return Q.quantize(x, cuts)
+
+
 def split_scan(hist: torch.Tensor, parent_sum: torch.Tensor,
                reg_lambda: float = 1.0, min_child_weight: float = 1.0) -> torch.Tensor:
-    """(n_nodes, F, 5): [gain, bin, default_left, gl, hl] per (node, feature)."""
+    """(n_nodes, F, 5): [gain, bin, default_left, gl, hl] per (node, feature);
+    `core.split` forms the left child's sums from gl and hl."""
     if hist.is_cuda:
         return split_scan_kernel(hist.contiguous(), parent_sum.contiguous(),
                                  reg_lambda, min_child_weight)
     return R.split_scan_ref(hist, parent_sum, reg_lambda, min_child_weight)
 
 
-def quantile_cuts(srt: torch.Tensor, n_valid: torch.Tensor, max_bins: int) -> torch.Tensor:
-    """(F, max_bins - 2) pre-sort candidate cuts from sorted columns."""
-    if srt.is_cuda:
-        return quantile_cuts_from_sorted(srt.contiguous(), n_valid, max_bins)
-    return R.quantile_cuts_ref(srt, n_valid, max_bins)
+def split_scan_op(hist: torch.Tensor, parent_sum: torch.Tensor,
+                  reg_lambda: float = 1.0, min_child_weight: float = 1.0) -> torch.Tensor:
+    """(n_nodes, F, 4): [gain, bin, default_left, hl] per (node, feature), the
+    reference's fields (`split_scan` without gl)."""
+    return split_scan(hist, parent_sum, reg_lambda, min_child_weight)[..., [0, 1, 2, 4]]
 
 
-def ensemble_margins(feature, threshold, default_left, leaf_value, is_leaf,
-                     x: torch.Tensor, n_classes: int, max_depth: int) -> torch.Tensor:
+def ensemble_margins_op(feature, threshold, default_left, leaf_value, is_leaf,
+                        x: torch.Tensor, n_classes: int, max_depth: int) -> torch.Tensor:
     """(N, n_classes) margins of raw rows over all trees, without base_score."""
     if x.is_cuda:
         return ensemble_margins_kernel(

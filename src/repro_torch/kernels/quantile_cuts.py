@@ -1,8 +1,8 @@
 """Wrapper of the cut-selection CUDA kernel (`csrc/quantile_cuts.cu`).
 
 Counterpart of `repro.kernels.quantile_cuts.quantile_cuts_from_sorted`. It
-returns the PRE-SORT candidate cuts; `core.quantile.select_cuts_from_sorted`
-re-sorts them with `torch.sort`, as the reference's caller does. No row cap.
+returns the PRE-SORT candidate cuts; `ops.compute_cuts_op` re-sorts them
+with `torch.sort`, as the reference's caller does. No row cap.
 """
 from __future__ import annotations
 

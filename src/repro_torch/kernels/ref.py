@@ -28,7 +28,9 @@ def histogram_ref(
     bits: int,
 ) -> torch.Tensor:
     """Plain version of the privatised histogram kernel: unpack, then
-    scatter-add. Returns (n_nodes, F, max_bins, 2) float32."""
+    scatter-add. Returns (n_nodes, F, max_bins, 2) in gh's dtype: float32
+    as the kernel computes it, or float64 for a reference whose own
+    rounding stays far below the kernel's."""
     bins = unpack(packed, bits, gh.shape[0])
     return H.build_histograms(bins, gh, positions, n_nodes, max_bins)
 
@@ -49,7 +51,8 @@ def histogram_rows_ref(
     """Plain version of the row-id histogram kernel: one word gather and a
     shift/mask per (slot, feature), then the scatter-add in slot order. A
     slot whose row id lies outside the packed words goes to the dump slot,
-    as one at the dump position does."""
+    as one at the dump position does. Returns (n_nodes, F, max_bins, 2) in
+    gh_sel's dtype."""
     spw = symbols_per_word(bits)
     rid = row_ids.to(torch.int64)
     inside = (rid >= 0) & (rid < packed.shape[1] * spw)

@@ -15,7 +15,7 @@ from repro_torch.kernels import ops
 
 def predict_margins_fused(ens: Ensemble, x: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Margins (n_rows, n_classes) from raw float32 rows, base_score included."""
-    m = ops.ensemble_margins(ens.feature, ens.threshold, ens.default_left,
-                             ens.leaf_value, ens.is_leaf, x, ens.n_classes,
-                             max_depth)
+    m = ops.ensemble_margins_op(ens.feature, ens.threshold, ens.default_left,
+                                ens.leaf_value, ens.is_leaf, x, ens.n_classes,
+                                max_depth)
     return m + ens.base_score

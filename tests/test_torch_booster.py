@@ -163,6 +163,31 @@ def test_booster_from_numpy_predicts_like_reference(data, fits, objective):
                                    rtol=1e-6, atol=1e-6)
 
 
+def test_predict_at_depth_14_matches_reference():
+    """A depth-14 model (32,767-node arenas, more than a block's shared memory
+    holds on the card) carried across with `booster_from_numpy` predicts like
+    the reference."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(600, 5)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    z = np.nan_to_num(x)
+    y = (z[:, 0] + z[:, 1] * z[:, 2] > 0).astype(np.float32)
+    jb = JBooster(n_rounds=2, max_depth=14, max_bins=16,
+                  objective="binary:logistic").fit(JDMatrix(x, label=y, max_bins=16))
+    state = {**dataclasses.asdict(jb.cfg), "cuts": np.asarray(jb.cuts),
+             "base_score": jb.base_score, "n_classes": jb.ensemble.n_classes,
+             **{f: np.asarray(getattr(jb.ensemble, f)) for f in ENSEMBLE_FIELDS}}
+    bst = booster_from_numpy(state, device="cpu")
+    assert bst.ensemble.feature.shape == (2, 2**15 - 1)
+    x_new = rng.normal(size=(300, 5)).astype(np.float32)
+    x_new[rng.random(x_new.shape) < 0.1] = np.nan
+    for rows in (x, x_new):
+        np.testing.assert_allclose(bst.predict_margins(rows).numpy(),
+                                   np.asarray(jb.predict_margins(rows)), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(bst.predict(rows).numpy(), np.asarray(jb.predict(rows)),
+                                   rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("knob,value", [
     ("subsample", 0.5), ("colsample_bytree", 0.5), ("colsample_bylevel", 0.5),
     ("colsample_bynode", 0.5), ("monotone_constraints", (1, 0)),

@@ -145,6 +145,41 @@ def test_histograms_by_subtraction_on_card(rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("skew", [0.0, 0.9])
+def test_histograms_past_the_plan_cap_on_card(rng, skew):
+    """The three histogram kernels at 64 nodes, whose one-feature histogram
+    (128 KB at 256 bins) exceeds the plan's cap of a third of an SM's shared
+    memory, so the nodes take two tiles; with `skew`, that share of the
+    symbols sits in the missing bin, where warp aggregation sums many lanes
+    into one add. Exact on dyadic (g, h)."""
+    dev = _cuda()
+    n, f, max_bins, n_nodes = 20_000, 5, 256, 64
+    bits = TC.bits_needed(max_bins - 1)
+    bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    bins[rng.random((n, f)) < skew] = max_bins - 1
+    packed = TC.pack(torch.from_numpy(bins), bits).to(dev)
+    gh = torch.from_numpy(np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                                   axis=1).astype(np.float32)).to(dev)
+    pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)
+    pos[rng.random(n) < 0.1] = -1
+    pos = torch.from_numpy(pos).to(dev)
+    args = (packed, gh, pos, n_nodes, max_bins, bits)
+    want = ref.histogram_ref(*args).cpu().numpy()
+    for kernel in (build_histograms_packed_kernel, histogram_packed):
+        np.testing.assert_array_equal(kernel(*args).cpu().numpy(), want)
+    m = n // 2
+    rid = np.sort(rng.choice(n, size=m, replace=False)).astype(np.int32)
+    rid[-10:] = n  # padding ids at the dump position
+    pos_sel = rng.integers(0, n_nodes + 1, size=m).astype(np.int32)
+    pos_sel[-10:] = n_nodes
+    rargs = (packed, gh[torch.from_numpy(np.minimum(rid, n - 1)).to(dev)].contiguous(),
+             torch.from_numpy(pos_sel).to(dev), torch.from_numpy(rid).to(dev),
+             n_nodes, max_bins, bits)
+    np.testing.assert_array_equal(build_histograms_rows_kernel(*rargs).cpu().numpy(),
+                                  ref.histogram_rows_ref(*rargs).cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_decompress_kernel_on_card(rng):
     dev = _cuda()
     for n, f, bits in [(1001, 5, 4), (777, 28, 8), (4096, 3, 8), (333, 2, 5), (65, 1, 32)]:
@@ -194,6 +229,24 @@ def test_traversal_kernel_on_card(rng):
         got = ensemble_margins_kernel(*arena, xt, k, depth).cpu().numpy()
         want = ref.ensemble_margins_ref(*arena, xt, k, depth).cpu().numpy()
         np.testing.assert_array_equal(got, want)  # each class summed in tree order
+
+
+@pytest.mark.cuda
+def test_traversal_kernel_any_depth_on_card(rng):
+    """Models past the staged route: a depth-14 arena (459 KB) and depth 13
+    beside 4 classes read the arenas through L2; 300 classes tile over the
+    grid. Bit-identical to the plain version, as the staged route is."""
+    dev = _cuda()
+    for n, f, n_trees, depth, k in [(2000, 6, 4, 14, 1), (1000, 6, 8, 13, 4),
+                                    (500, 6, 600, 6, 300)]:
+        arena = [torch.from_numpy(a).to(dev) for a in _random_ensemble(rng, n_trees, depth, f)]
+        x = rng.normal(size=(n, f)).astype(np.float32)
+        x[rng.random((n, f)) < 0.2] = np.nan
+        xt = torch.from_numpy(x).to(dev)
+        got = ensemble_margins_kernel(*arena, xt, k, depth).cpu().numpy()
+        want = ref.ensemble_margins_ref(*arena, xt, k, depth).cpu().numpy()
+        assert got.shape == (n, k)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -15,8 +15,10 @@ Tolerances and their reasons:
     when the right child is light, which the gain's terms amplify. Worst
     readings over 60 seeds: 6.8e-5 at B=256, 1.0e-5 at 64, 2.7e-6 at 33,
     0 at 8; the limit is 7.6e-5 at 256.
-  * cut selection: +inf pattern exact, values by the rank-flip model (the
-    reference's jitted rank fractions are not true division).
+  * cut selection and `compute_cuts_op`: +inf pattern exact, values by the
+    rank-flip model (the reference's jitted rank fractions are not true
+    division); the finite cuts ascend once the +inf tail is masked.
+  * `quantize_op`: exact, given the reference's cuts.
   * traversal: 1e-5 — leaves summed per class in another order.
 
 The kernels themselves are held against these plain versions on the card
@@ -31,10 +33,15 @@ from repro.core import compress as JC
 from repro.core import histogram as JH
 from repro.kernels import ops as JO
 from repro.kernels.quantile_cuts import quantile_cuts_from_sorted as j_cuts_from_sorted
-from repro_torch.core import quantile as TQ
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.build import DeviceLimits
 from repro_torch.kernels.decompress import decompress
-from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, trees_per_block
+from repro_torch.kernels.ensemble_traversal import (
+    NODE_BYTES,
+    THREADS,
+    ensemble_margins_kernel,
+    traversal_plan,
+)
 from repro_torch.kernels.histogram import (
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
@@ -54,6 +61,9 @@ def rng():
     return np.random.default_rng(1234)
 
 H100_SMEM = 232448  # opt-in shared memory per block on an H100
+# An H100 SXM: SMs, opt-in shared memory per block, per SM, reserved per
+# block, threads per SM.
+H100 = DeviceLimits(132, H100_SMEM, 233_472, 1_024, 2_048)
 
 
 def _hist_inputs(rng, n, f, max_bins, n_nodes):
@@ -160,11 +170,16 @@ def _split_inputs(rng, n_nodes, f, b, with_missing=True):
     ((2, 4, 33), 2.0, 0.0),
 ])
 def test_split_scan_plain_vs_reference(rng, shape, lam, mcw):
+    """`ops.split_scan_op` (the reference's four fields) against
+    `repro.kernels.ops.split_scan_op`, and the gl field of `ops.split_scan`."""
     hist, parent = _split_inputs(rng, *shape)
     want = np.asarray(JO.split_scan_op(jnp.asarray(hist), jnp.asarray(parent), lam, mcw))
     got = ops.split_scan(torch.from_numpy(hist), torch.from_numpy(parent), lam, mcw).numpy()
     assert got.shape == shape[:2] + (5,)
-    mine = got[..., [0, 1, 2, 4]]  # the reference has no gl field
+    mine = ops.split_scan_op(torch.from_numpy(hist), torch.from_numpy(parent), lam,
+                             mcw).numpy()
+    assert mine.shape == want.shape == shape[:2] + (4,)
+    np.testing.assert_array_equal(mine, got[..., [0, 1, 2, 4]])
     np.testing.assert_array_equal(mine[..., 1:3], want[..., 1:3])
     np.testing.assert_array_equal(np.isfinite(mine[..., 0]), np.isfinite(want[..., 0]))
     fin = np.isfinite(want[..., 0])
@@ -199,10 +214,45 @@ def test_cut_selection_plain_vs_reference(rng, n, f, max_bins):
     srt = np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
     n_valid = np.isfinite(srt).sum(axis=0).astype(np.int32)
     want = np.asarray(j_cuts_from_sorted(jnp.asarray(srt), jnp.asarray(n_valid), max_bins))
-    got = TQ.select_cuts_from_sorted(torch.from_numpy(srt), torch.from_numpy(n_valid),
-                                     max_bins).numpy()
+    cand = ref.quantile_cuts_ref(torch.from_numpy(srt), torch.from_numpy(n_valid), max_bins)
+    got = torch.sort(cand, dim=-1).values.numpy()  # ascending, as compute_cuts_op
     assert got.shape == (f, max_bins - 2)
     assert_cuts_close(got, want, x)
+
+
+def _cuts_data(rng, n, f):
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.1] = np.nan
+    x[:, 1] = np.round(x[:, 1])  # a low-cardinality column: duplicate cuts
+    x[:, 2] = 0.5  # constant: one cut
+    return x
+
+
+@pytest.mark.parametrize("n,f,max_bins", [(1000, 5, 16), (777, 4, 64), (513, 3, 256)])
+def test_compute_cuts_op_vs_reference(rng, n, f, max_bins):
+    x = _cuts_data(rng, n, f)
+    want = np.asarray(JO.compute_cuts_op(jnp.asarray(x), max_bins))
+    got = ops.compute_cuts_op(torch.from_numpy(x), max_bins).numpy()
+    assert got.shape == want.shape == (f, max_bins - 2)
+    assert_cuts_close(got, want, x)
+    for row in got:  # ascending once the +inf tail is masked
+        fin = row[np.isfinite(row)]
+        assert np.all(np.diff(fin) > 0)
+    assert np.isfinite(got[2]).sum() == 1 and got[2, 0] == 0.5
+
+
+@pytest.mark.parametrize("n,f,max_bins", [(1000, 5, 16), (513, 3, 256)])
+def test_quantize_op_vs_reference(rng, n, f, max_bins):
+    x = _cuts_data(rng, n, f)
+    cuts = np.array(JO.compute_cuts_op(jnp.asarray(x), max_bins))  # writable
+    x_new = rng.normal(size=(n // 2, f)).astype(np.float32) * 2  # values past the cuts
+    x_new[rng.random(x_new.shape) < 0.1] = np.nan
+    x_new[:5] = x[:5]  # values equal to a cut's neighbours
+    for rows in (x, x_new):
+        want = np.asarray(JO.quantize_op(jnp.asarray(rows), jnp.asarray(cuts)))
+        got = ops.quantize_op(torch.from_numpy(rows), torch.from_numpy(cuts)).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
 
 
 def _random_ensemble(rng, n_trees, depth, n_features):
@@ -225,8 +275,8 @@ def test_traversal_plain_vs_reference(rng, n, f, n_trees, depth, k):
     x[rng.random((n, f)) < 0.2] = np.nan
     want = np.asarray(JO.ensemble_margins_op(*map(jnp.asarray, arena), jnp.asarray(x),
                                              k, depth))
-    got = ops.ensemble_margins(*map(torch.from_numpy, arena), torch.from_numpy(x), k,
-                               depth).numpy()
+    got = ops.ensemble_margins_op(*map(torch.from_numpy, arena), torch.from_numpy(x), k,
+                                  depth).numpy()
     assert got.shape == (n, k)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -255,18 +305,50 @@ def test_wrappers_take_only_cuda_tensors():
 @pytest.mark.parametrize("n_nodes,max_bins", [(1, 256), (8, 256), (32, 256), (200, 256),
                                               (5, 16), (64, 1024)])
 def test_histogram_launch_plan_fits_shared_memory(n_nodes, max_bins):
-    plan = launch_plan(250_000, 28, n_nodes, max_bins, 132, H100_SMEM)
-    assert plan.feat_group * plan.node_tile * max_bins * 8 <= H100_SMEM  # (g, h) f32 per bin
+    """The plan caps a block's private histogram so that three blocks fit on
+    an SM, and covers every node, feature and word."""
+    plan = launch_plan(250_000, 28, n_nodes, max_bins, H100)
+    cap = H100.smem_sm // 3 - H100.smem_reserved
+    assert plan.smem_bytes == plan.feat_group * plan.node_tile * max_bins * 8  # (g, h) f32
+    assert plan.smem_bytes <= cap and plan.blocks_per_sm >= 3
+    assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_sm
     assert 1 <= plan.node_tile <= n_nodes and 1 <= plan.feat_group <= 28
-    if n_nodes * max_bins * 8 <= H100_SMEM:  # one feature at every node fits
+    if n_nodes * max_bins * 8 <= cap:  # one feature at every node fits
         assert plan.node_tile == n_nodes
     assert plan.words_per_block * -(-250_000 // plan.words_per_block) >= 250_000
     if (n_nodes, max_bins) == (32, 256):
-        assert (plan.node_tile, plan.feat_group) == (32, 3)  # 192 KB
+        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (32, 1, 65536)
+    if (n_nodes, max_bins) == (1, 256):
+        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (1, 28, 57344)
 
 
 def test_traversal_trees_per_block():
-    assert trees_per_block(10, 127, 1, H100_SMEM) == 10
-    assert trees_per_block(1000, 127, 1, H100_SMEM) == (48 * 1024 - 1024) // (127 * 14)
-    with pytest.raises(ValueError):
-        trees_per_block(10, 127, 300, H100_SMEM)
+    """Small models stage all classes and as many arenas as fit the target."""
+    assert traversal_plan(10, 127, 1, H100_SMEM) == (1, 10)
+    assert traversal_plan(1000, 127, 1, H100_SMEM) == (1, (48 * 1024 - 1024) // (127 * 14))
+    assert traversal_plan(30, 127, 3, H100_SMEM) == (3, (48 * 1024 - 3 * 1024) // (127 * 14))
+
+
+@pytest.mark.parametrize("depth,n_classes", [
+    (14, 1), (13, 4), (6, 300), (6, 226), (13, 1), (20, 3), (6, 1), (4, 1000),
+])
+def test_traversal_plan_serves_every_model(depth, n_classes):
+    """Models the staged route could not hold (an arena of depth 14, depth 13
+    beside 4 classes, 226 or more classes): the plan tiles the classes and
+    reads arenas from global memory, within a block's shared memory, and
+    never raises."""
+    arena = 2 ** (depth + 1) - 1
+    n_trees = 2 * n_classes
+    tile, trees_blk = traversal_plan(n_trees, arena, n_classes, H100_SMEM)
+    assert 1 <= tile <= n_classes
+    acc = tile * THREADS * 4
+    assert acc + trees_blk * arena * NODE_BYTES <= H100_SMEM
+    assert 0 <= trees_blk <= n_trees // n_classes * tile
+    if trees_blk == 0:  # arenas read through L2 only where one would not fit
+        assert acc + arena * NODE_BYTES > H100_SMEM
+    if n_classes * THREADS * 4 + arena * NODE_BYTES <= H100_SMEM:
+        assert tile == n_classes  # all classes in one block while they fit
+    if (depth, n_classes) in ((14, 1), (13, 4)):
+        assert (tile, trees_blk) == (n_classes, 0)
+    if (depth, n_classes) == (6, 300):
+        assert trees_blk > 0 and tile * THREADS * 4 <= 48 * 1024
