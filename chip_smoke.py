@@ -31,18 +31,25 @@ Phases, each printing one JSON line:
   6. check    — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
-                bin); traversal also at depth 14, depth 13 with 4 classes and
-                300 classes (exact); and the subtraction trick's device path at
-                level 5 against a full build.
+                bin) and a constant-feature copy (one feature's every symbol
+                in one value bin); the split scan bit for bit at 1, 8 and 32
+                nodes and on a histogram whose best thresholds tie over empty
+                runs of bins; traversal also at depth 14, depth 13 with 4
+                classes and 300 classes (exact); and the subtraction trick's
+                device path at level 5 against a full build.
   7. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
                 group, shared bytes, blocks per SM from the plan and from
                 `cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the
-                privatised kernel also under the earlier plan that fills a
-                block's opt-in shared memory, on both word sets; the main
-                path's traversal with its arenas staged and read through L2.
+                privatised kernel also under the plans of 1, 2 and 3 blocks
+                per SM (1: a block fills its opt-in shared memory, as the
+                earlier fill plan did), on both word sets, the wrapper's own
+                plan marked; the split scan at 1, 8 and 32 nodes beside an empty
+                launch on the same stream, each also as device time per launch
+                of 100 launches queued back to back; the main path's traversal
+                with its arenas staged and read through L2.
 Then the kernels line, the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
@@ -67,6 +74,12 @@ ROW_PARENTS = (1, 4, 16)  # row-id histograms checked: parents of levels 1, 3, 5
 FIT_PAIRS = 5  # host times vary between fits: the median of five pairs
 L2_FLUSH_BYTES = 128 << 20  # more than the 50 MB L2, written between timed launches
 SKEW = 0.8  # share of the skewed words' symbols moved to the missing bin
+CONSTANT_BIN = 7  # every symbol of the constant-feature words' feature 0
+# Best split thresholds tied over an empty run of bins: the run starts at
+# these bins (lane c % 32 of the scan's warp scores threshold c, so the ties
+# span lanes and, from 31 on, wrap from lane 31 to lane 0).
+TIE_STARTS = (8, 32, 33, 100)
+TIE_GAP = 5
 # Traversal shapes past the staged route's shared memory: (trees, depth,
 # classes, rows) — one arena of 459 KB, 4 classes beside a 229 KB arena,
 # accumulators of 300 classes.
@@ -174,6 +187,9 @@ def profile_fit(dtrain) -> None:
         raise SystemExit("the profiler recorded no device kernels")
     busy = sum(device_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=device_us, reverse=True)[:12]
+    # The fit's histogram and split-scan kernels by name: device time per
+    # launch inside a fit, with no host time in it.
+    ours = [e for e in kernels if re.search(r"(histogram|split_scan)_?\w*_kernel", e.key)]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_fit.txt").write_text(
@@ -182,7 +198,10 @@ def profile_fit(dtrain) -> None:
           "device_busy_s": busy, "idle_share_untraced": 1 - busy / untraced,
           "device_kernel_launches": sum(e.count for e in kernels),
           "top": [{"name": e.key[:90], "device_ms": device_us(e) / 1e3,
-                   "calls": e.count} for e in top]})
+                   "calls": e.count} for e in top],
+          "port_kernels": [{"name": e.key[:90], "device_ms": device_us(e) / 1e3,
+                            "calls": e.count, "us_per_call": device_us(e) / e.count}
+                           for e in ours]})
 
 
 def main() -> int:
@@ -220,6 +239,8 @@ def main() -> int:
         traversal_plan,
     )
     from repro_torch.kernels.histogram import (
+        MIN_BLOCKS_PER_SM,
+        PRIVATE_BLOCKS_PER_SM,
         THREADS as HIST_THREADS,
         build_histograms_packed_kernel,
         build_histograms_rows_kernel,
@@ -385,6 +406,11 @@ def main() -> int:
     dense = unpack(packed, bits, n)
     skewed = pack(torch.where(torch.rand(dense.shape, device=dev, generator=gen) < SKEW,
                               MAX_BINS - 1, dense), bits)
+    # The training matrix with feature 0 constant in a value bin: every lane
+    # of a warp adds to one (node, bin), and none of them is the missing bin.
+    constant = packed.clone()
+    constant[0] = pack(torch.full((n, 1), CONSTANT_BIN, device=dev, dtype=torch.int32),
+                       bits)[0]
 
     def counts_and_tolerance(plain, *args):
         """Rows per bin, and the tolerance for real-valued (g, h): atomics add
@@ -430,6 +456,23 @@ def main() -> int:
             total += s.elapsed_time(e)
         return total / iters
 
+    def back_to_back_ms(fn, launches=100) -> float:
+        """Device ms per launch of `launches` launches queued behind a sleeping
+        kernel, so that no host time falls between them: for kernels of a few
+        microseconds, whose single-launch event times are mostly the host's.
+        Inputs stay in L2, as a level's histogram does in a fit."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # ~25 ms of device time to queue behind
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(launches):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / launches
+
     def random_ensemble(n_trees: int, depth: int, n_features: int, g):
         """Random complete arenas: a fifth of the nodes leaves, the last level
         all leaves, thresholds around the features' scale."""
@@ -455,10 +498,11 @@ def main() -> int:
 
     def check_histogram(name, kernel, plain, size, *rest, words=packed, data="higgs"):
         """Exact on integer (g, h); within the sqrt(rows) tolerance on real.
-        On the skewed words the real-valued plain version runs in float64:
-        in float32 its index_add_ adds a hot bin's hundreds of thousands of
-        positive h one at a time, and that running sum drifts past the
-        tolerance by itself (the kernels add blocked or aggregated sums)."""
+        On the skewed and constant words the real-valued plain version runs
+        in float64: in float32 its index_add_ adds a hot bin's hundreds of
+        thousands of positive h one at a time, and that running sum drifts
+        past the tolerance by itself (the kernels add blocked or aggregated
+        sums)."""
         inputs = {"exact": (words, gh_exact, *rest), "real": (words, gh, *rest)}
         if name == "histogram_rows":  # (g, h) gathered for each slot's row
             rid = rest[1].to(torch.int64).clamp(max=n - 1)
@@ -475,15 +519,16 @@ def main() -> int:
                              f"{exact_err}, real {err}")
         return got
 
-    for words, data in ((packed, "higgs"), (skewed, "skewed")):
+    level_hists = {}  # the Higgs-shaped words' real-(g, h) level histograms
+    for words, data in ((packed, "higgs"), (skewed, "skewed"), (constant, "constant")):
         for nn in HIST_NODES:
             hist = check_histogram("histogram_private", build_histograms_packed_kernel,
                                    ref.histogram_ref, nn, levels[nn], nn, MAX_BINS, bits,
                                    words=words, data=data)
             check_histogram("histogram_packed", histogram_packed, ref.histogram_packed_ref,
                             nn, levels[nn], nn, MAX_BINS, bits, words=words, data=data)
-            if data == "higgs" and nn == HIST_NODES[-1]:
-                hist32 = hist
+            if data == "higgs":
+                level_hists[nn] = hist
         for npar in ROW_PARENTS:
             rid, pos = buffers[npar]
             check_histogram("histogram_rows", build_histograms_rows_kernel,
@@ -518,19 +563,48 @@ def main() -> int:
         results[name] = {
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": "integer gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|) "
-                         "(skewed words: against the plain version in float64)",
+                         "(skewed and constant words: against the plain version in float64)",
         }
 
-    parent = node_sums(hist32)  # (32, 2) node sums over feature 0's bins
-    got = split_scan(hist32, parent, 1.0, 1.0)
-    want = ref.split_scan_ref(hist32, parent, 1.0, 1.0)
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[..., 1:3], want[..., 1:3]):
-        raise SystemExit("split_scan kernel: bins, directions or -inf pattern differ")
-    err, ok = check(got[fin], want[fin], 1e-6 * want[fin].abs().clamp(min=1))
-    results["split_scan"] = {"max_abs_err": err, "tolerance": "bins/dirs exact, floats 1e-6 rel"}
-    if not ok:
-        raise SystemExit(f"split_scan kernel disagrees: {err}")
+    del constant
+
+    def tie_starts(n_nodes: int) -> torch.Tensor:
+        return torch.tensor(TIE_STARTS, device=dev).repeat(-(-n_nodes // len(TIE_STARTS)))[
+            :n_nodes]
+
+    def tie_histogram(n_nodes: int) -> torch.Tensor:
+        """Integer (g, h), alike in every feature, in which node i's bins below
+        k = TIE_STARTS[i % 4] hold g = -(i + 1), the bins from k + TIE_GAP on
+        g = +(i + 1), and the run between them nothing: thresholds k - 1 ..
+        k + TIE_GAP - 1 split the rows alike and tie exactly, and bin k - 1
+        must win."""
+        b = torch.arange(MAX_BINS, device=dev)[None, :]
+        k = tie_starts(n_nodes)[:, None]
+        empty = ((b >= k) & (b < k + TIE_GAP)) | (b == MAX_BINS - 1)  # (n, B)
+        scale = torch.arange(1, n_nodes + 1, device=dev, dtype=torch.float32)[:, None]
+        g = torch.where(empty, 0.0, torch.where(b < k, -scale, scale))
+        h = torch.where(empty, 0.0, 1.0)
+        return torch.stack([g, h], dim=-1)[:, None].expand(n_nodes, f, MAX_BINS, 2).contiguous()
+
+    # Bit for bit: the kernel does the plain version's operations in its order.
+    scan_inputs = {f"{nn}_nodes": (h, node_sums(h)) for nn, h in level_hists.items()}
+    tie = tie_histogram(HIST_NODES[-1])
+    scan_inputs["ties"] = (tie, node_sums(tie))
+    scan_checked, scan_err = [], 0.0
+    for name, (h_, parent_) in scan_inputs.items():
+        got = split_scan(h_, parent_, 1.0, 1.0)
+        want = ref.split_scan_ref(h_, parent_, 1.0, 1.0)
+        same = torch.equal(got, want)
+        scan_err = max(scan_err, float(torch.where(got == want, 0.0, got - want).abs().max()))
+        if name == "ties":
+            lowest = (tie_starts(h_.shape[0]) - 1).float()[:, None].expand(got.shape[:2])
+            same = same and torch.equal(got[..., 1], lowest)
+        scan_checked.append({"input": name, "shape": list(h_.shape[:3]), "bit_identical": same})
+        if not same:
+            raise SystemExit(f"split_scan kernel is not bit-identical to its plain "
+                             f"version on {name}")
+    results["split_scan"] = {"max_abs_err": scan_err, "tolerance": "bit-identical",
+                             "inputs": scan_checked}
 
     xt = torch.as_tensor(x_tr, device=dev)
     finite = torch.isfinite(xt)
@@ -624,30 +698,22 @@ def main() -> int:
     def plan_reading(kind: str, n_items: int, nodes: int) -> dict:
         """A private kernel's launch plan, and the resident blocks per SM that
         the CUDA runtime allows it (registers and threads included)."""
-        plan = launch_plan(n_items, f, nodes, MAX_BINS, limits)
+        private = kind == "private"
+        plan = launch_plan(n_items, f, nodes, MAX_BINS, limits,
+                           PRIVATE_BLOCKS_PER_SM if private else MIN_BLOCKS_PER_SM)
         return {"node_tile": plan.node_tile, "feat_group": plan.feat_group,
                 "items_per_block": plan.words_per_block, "smem_bytes": plan.smem_bytes,
                 "blocks_per_sm_by_smem": plan.blocks_per_sm,
                 "blocks_per_sm_occupancy": occupancy(kind, plan, bits)}
 
-    def fill_plan(n_items: int, nodes: int) -> tuple[int, int, int]:
-        """The private kernels' earlier plan, for comparison: one block fills
-        the opt-in shared memory (nodes first, then features beside them),
-        and the stripes make about two blocks per SM."""
-        per_node = MAX_BINS * 8
-        node_tile = min(nodes, limits.smem_block // per_node)
-        feat_group = min(f, limits.smem_block // (node_tile * per_node))
-        tiles = -(-f // feat_group) * -(-nodes // node_tile)
-        row_blocks = max(1, min(-(-n_items // 1024), -(-2 * limits.n_sm // tiles)))
-        return node_tile, feat_group, -(-n_items // row_blocks)
-
     def private_at(plan, words_, gh_, pos, nn):
-        """#1 under `plan` (node tile, feature group, words per block),
-        through the library itself: the launch is not counted."""
+        """#1 under `plan` (a `HistogramPlan`), through the library itself:
+        the launch is not counted."""
         out = torch.zeros((nn, f, MAX_BINS, 2), device=dev)
         KB.check(KB.lib().rt_histogram_private(
             words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), out.data_ptr(), n, f, w,
-            nn, MAX_BINS, bits, *plan, HIST_THREADS, KB.stream(dev)), "histogram_private")
+            nn, MAX_BINS, bits, plan.node_tile, plan.feat_group, plan.words_per_block,
+            plan.blocks_per_sm, HIST_THREADS, KB.stream(dev)), "histogram_private")
         return out
 
     # With (g, h) all zero the privatised kernel does every shared-memory
@@ -664,15 +730,28 @@ def main() -> int:
             b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * MAX_BINS * 8,
                                2 * active * f)
             hargs = (words_, gh, pos, nn, MAX_BINS, bits)
-            fill = fill_plan(w, nn)
-            if not torch.equal(private_at(fill, words_, gh_exact, pos, nn),
-                               build_histograms_packed_kernel(words_, gh_exact, *hargs[2:])):
-                raise SystemExit(f"histogram_private under the fill plan disagrees at {nn} nodes")
+            # #1 under the plans of 1, 2 and 3 blocks per SM (1: a block fills
+            # its opt-in shared memory), each first checked exact against the
+            # wrapper on integer (g, h); a plan met twice is timed once.
+            plans = {f"blocks_per_sm_{t}": launch_plan(w, f, nn, MAX_BINS, limits, t)
+                     for t in (3, 2, 1)}
+            want_exact = build_histograms_packed_kernel(words_, gh_exact, *hargs[2:])
+            plan_ms: dict[tuple, float] = {}
+            for name_p, plan_p in plans.items():
+                if plan_p in plan_ms:
+                    continue
+                if not torch.equal(private_at(plan_p, words_, gh_exact, pos, nn), want_exact):
+                    raise SystemExit(f"histogram_private under plan {name_p} disagrees at "
+                                     f"{nn} nodes on {data}")
+                plan_ms[plan_p] = time_ms(lambda: private_at(plan_p, words_, gh, pos, nn))
+            del want_exact
             row = {
                 "n_nodes": nn, "data": data,
                 "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
-                "private_fill_plan_ms": time_ms(lambda: private_at(fill, words_, gh, pos, nn)),
-                "fill_plan": list(fill),
+                "private_plan": f"blocks_per_sm_{PRIVATE_BLOCKS_PER_SM}",
+                "private_plans": {k: {"plan": [v.node_tile, v.feat_group, v.words_per_block,
+                                               v.smem_bytes],
+                                      "ms": plan_ms[v]} for k, v in plans.items()},
                 "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
                 "library_ms": time_ms(library_scatter(dense_, pos, gh, nn), iters=5),
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -722,7 +801,28 @@ def main() -> int:
     emit({"phase": "time", "histogram_rows_levels": rows_rows})
     del dense, skewed
 
-    n_nodes, nf, nb = hist32.shape[:3]
+    # The split scan at each checked level, beside an empty launch on the same
+    # stream: the floor under any launch's time.
+    def empty_launch():
+        KB.check(KB.lib().rt_empty_launch(KB.stream(dev)), "empty_launch")
+
+    scan_rows = []
+    for nn in HIST_NODES:
+        h_, parent_ = scan_inputs[f"{nn}_nodes"]
+        nb = h_.shape[2]
+        # Prefix sums (2 adds per candidate) and two gain evaluations of 11 flops.
+        b_ms, b_by = bound(nn * f * nb * 8 + nn * 8 + nn * f * 5 * 4,
+                           nn * f * (nb - 2) * (2 + 2 * 11))
+        scan_rows.append({
+            "n_nodes": nn, "shape": list(h_.shape[:3]),
+            "ms": time_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
+            "back_to_back_ms": back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
+            "plain_ms": time_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by})
+    emit({"phase": "time", "split_scan_levels": scan_rows,
+          "empty_launch_ms": time_ms(empty_launch),
+          "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)})
+
     nvb_cuts = MAX_BINS - 2
     t_trees, arena = ens.feature.shape
     top = next(r for r in hist_rows
@@ -753,11 +853,8 @@ def main() -> int:
                                                     "bound_ms", "bound_by")}},
         "histogram_rows": {k: top_rows[k] for k in ("ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by")},
-        "split_scan": {
-            "ms": time_ms(lambda: split_scan(hist32, parent, 1.0, 1.0)),
-            "plain_ms": time_ms(lambda: ref.split_scan_ref(hist32, parent, 1.0, 1.0), iters=5),
-            "library_ms": None,
-        },
+        "split_scan": {k: scan_rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                      "bound_by")} | {"library_ms": None},
         "quantile_cuts": {
             "ms": time_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
             "plain_ms": time_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, MAX_BINS), iters=5),
@@ -774,16 +871,12 @@ def main() -> int:
             "library_ms": None,
         },
     }
-    # Prefix sums (2 adds per candidate) and two gain evaluations of 11 flops.
-    b_ms, b_by = bound(n_nodes * nf * nb * 8 + n_nodes * 8 + n_nodes * nf * 5 * 4,
-                       n_nodes * nf * (nb - 2) * (2 + 2 * 11))
-    times["split_scan"].update(bound_ms=b_ms, bound_by=b_by)
     # Two sorted values gathered per candidate, the counts, the candidates out.
-    b_ms, b_by = bound(nf * nvb_cuts * 2 * 4 + nf * 4 + nf * nvb_cuts * 4,
-                       nf * nvb_cuts * 6)
+    b_ms, b_by = bound(f * nvb_cuts * 2 * 4 + f * 4 + f * nvb_cuts * 4,
+                       f * nvb_cuts * 6)
     times["quantile_cuts"].update(bound_ms=b_ms, bound_by=b_by)
     # Rows read once, the arena once, margins written once; a compare per level.
-    b_ms, b_by = bound(HELD_OUT * nf * 4 + t_trees * arena * 14 + HELD_OUT * 4,
+    b_ms, b_by = bound(HELD_OUT * f * 4 + t_trees * arena * 14 + HELD_OUT * 4,
                        HELD_OUT * t_trees * 6 + HELD_OUT * t_trees)
     times["ensemble_traversal"].update(bound_ms=b_ms, bound_by=b_by)
     # The words read once, one int32 written per (row, feature); a shift and

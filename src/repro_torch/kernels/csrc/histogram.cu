@@ -31,17 +31,32 @@
 // a block owns a stripe of words (or slots) x a group of features x a range
 // of nodes, and keeps a private histogram for exactly those in dynamic
 // shared memory: [feature][node][bin][g,h] floats. The plan caps that
-// histogram so that at least three blocks fit on an SM (about 75 KB of the
-// SM's 228 KB), and puts more node tiles and feature groups on the grid to
-// make up: with one 224 KB block (16 warps) per SM the kernels took 2-2.5x
-// their time at four 56 KB blocks.
+// histogram so that a target number of blocks fit on an SM (the row-id
+// kernel three, about 75 KB of the SM's 228 KB; the privatised kernel two),
+// and puts more node tiles and feature groups on the grid to make up: with
+// one 224 KB block (16 warps) per SM the row-id kernel took 2-2.5x its time
+// at four 56 KB blocks.
 //
 // histogram_private_kernel: consecutive threads take consecutive words of a
-// feature, so word loads coalesce along W. A thread unpacks SPW symbols per
-// word and keeps the SPW rows' (g, h) and node in registers across the
-// feature group; rows with a position outside the block's node range
-// (n_nodes or -1 = inactive) are skipped, and a word whose rows are all
-// skipped loads nothing.
+// feature, so word loads coalesce along W, and the warp steps through its
+// words together (a lane past the stripe's end carries no rows), so that
+// the votes below have all 32 lanes. A thread unpacks SPW symbols per word
+// and keeps the SPW rows' (g, h) and node in registers across the feature
+// group; rows with a position outside the block's node range (n_nodes or
+// -1 = inactive) are skipped, and a word whose rows are all skipped loads
+// nothing.
+//  * Each (g, h) is added with one 64-bit compare-and-swap on the pair, as
+//    in histogram_rows_kernel: one loop per symbol where two float
+//    atomicAdds are two, and half the retries when lanes contend for a bin.
+//  * The key of the j-th symbol of a lane's word is its (node, bin). Where
+//    the warp shows repeats at symbol j (two or more lanes in the missing
+//    bin, or a lane whose key equals its xor-1 or xor-2 neighbour's, which
+//    also catches a constant non-missing feature), lanes with equal keys
+//    are summed with __match_any_sync and a shuffle tree, and one lane adds
+//    the sum. Where it shows none the match is skipped. The neighbours'
+//    nodes are compared once per word and their symbols with one shuffle of
+//    the word per feature, so the test costs two shuffles and SPW votes per
+//    (word, feature).
 //
 // histogram_rows_kernel: a thread takes one slot, and for each feature of
 // the group one word packed[f, rid / SPW], shifted by (rid % SPW) * bits.
@@ -161,8 +176,14 @@ __device__ __forceinline__ void flush_private(const float* hist, float* out,
   }
 }
 
-template <int SPW>
-__global__ void histogram_private_kernel(
+// 512 threads a block (kernels/histogram.py). MIN_BLOCKS is the launch
+// plan's blocks per SM (2 to 4 with up to four symbols a word, 8 bits and
+// wider), so that registers (at most 64, 40 or 32 a thread) never hold fewer
+// blocks on an SM than the plan's shared memory does; more symbols a word
+// need more registers than that without spilling, and take what they need
+// (MIN_BLOCKS 1).
+template <int SPW, int MIN_BLOCKS>
+__global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words)
     const float2* __restrict__ gh,        // (n_rows,) (g, h)
     const int* __restrict__ pos,          // (n_rows,) node, n_nodes = inactive
@@ -178,45 +199,70 @@ __global__ void histogram_private_kernel(
   zero_private(hist, nf * slab);
 
   const uint32_t mask = symbol_mask(bits);
+  const int missing = max_bins - 1;
   const long long w_begin = (long long)blockIdx.x * words_per_block;
   const long long w_end = min(w_begin + words_per_block, (long long)n_words);
-  for (long long w = w_begin + threadIdx.x; w < w_end; w += blockDim.x) {
+  for (long long w = w_begin + threadIdx.x; w - (threadIdx.x & 31) < w_end;
+       w += blockDim.x) {
     int node[SPW];
-    float g[SPW], h[SPW];
+    float2 v[SPW];
     bool any = false;
 #pragma unroll
     for (int j = 0; j < SPW; ++j) {
       const long long row = w * SPW + j;
-      const int p = row < n_rows ? __ldg(pos + row) - n0 : -1;
+      const int p = (w < w_end && row < n_rows) ? __ldg(pos + row) - n0 : -1;
       node[j] = (p >= 0 && p < nn) ? p : -1;
-      g[j] = h[j] = 0.f;
+      v[j] = make_float2(0.f, 0.f);
       if (node[j] >= 0) {
-        const float2 v = __ldg(gh + row);
-        g[j] = v.x;
-        h[j] = v.y;
+        v[j] = __ldg(gh + row);
         any = true;
       }
     }
-    if (!any) continue;
+    if (!__any_sync(kFullWarp, any)) continue;
+    // Bit j: the xor-1 neighbour's j-th row is at this lane's j-th node;
+    // bit SPW + j: the xor-2 neighbour's.
+    unsigned long long same = 0;
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int a = __shfl_xor_sync(kFullWarp, node[j], 1);
+      const int b = __shfl_xor_sync(kFullWarp, node[j], 2);
+      same |= (unsigned long long)(node[j] >= 0 && a == node[j]) << j;
+      same |= (unsigned long long)(node[j] >= 0 && b == node[j]) << (SPW + j);
+    }
     for (int fl = 0; fl < nf; ++fl) {
-      const uint32_t word = __ldg(packed + (long long)(f0 + fl) * n_words + w);
+      const uint32_t word = any ? __ldg(packed + (long long)(f0 + fl) * n_words + w) : 0u;
+      // Bits where the neighbours' words differ from this lane's.
+      const uint32_t d1 = word ^ __shfl_xor_sync(kFullWarp, word, 1);
+      const uint32_t d2 = word ^ __shfl_xor_sync(kFullWarp, word, 2);
       float* hf = hist + fl * slab;
 #pragma unroll
       for (int j = 0; j < SPW; ++j) {
-        if (node[j] < 0) continue;
-        const int bin = (int)((word >> (j * bits)) & mask);
-        float* slot = hf + (node[j] * max_bins + bin) * 2;
-        atomicAdd(slot, g[j]);
-        atomicAdd(slot + 1, h[j]);
+        const int shift = j * bits;
+        const int bin = (int)((word >> shift) & mask);
+        const bool on = node[j] >= 0;
+        const bool repeat =
+            on && (bin == missing ||
+                   (((same >> j) & 1) && ((d1 >> shift) & mask) == 0) ||
+                   (((same >> (SPW + j)) & 1) && ((d2 >> shift) & mask) == 0));
+        const unsigned hot = __ballot_sync(kFullWarp, repeat);
+        const int key = on ? node[j] * max_bins + bin : -1;
+        float2 sum = v[j];
+        bool adds = on;
+        if (hot & (hot - 1)) {  // two or more lanes flagged: aggregate
+          const unsigned peers = __match_any_sync(kFullWarp, key);
+          sum = reduce_peers(peers, v[j]);
+          adds = adds && leads(peers);
+        }
+        if (adds) add_pair_shared(hf + key * 2, sum);
       }
     }
   }
   flush_private(hist, out, nf, slab, f0, n0, n_features, max_bins);
 }
 
-// 512 threads a block (kernels/histogram.py) and at most 32 registers a
-// thread, so that four blocks fit an SM's 65,536 registers where the plan's
-// shared memory allows four.
+// 512 threads a block and at most 32 registers a thread, so that four
+// blocks fit an SM's 65,536 registers where the plan's shared memory allows
+// four.
 template <int SPW>
 __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words)
@@ -350,19 +396,36 @@ cudaError_t private_launch_shape(Kernel kernel, int n_items, int n_features,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
+using PrivateKernel = void (*)(const uint32_t*, const float2*, const int*,
+                               float*, int, int, int, int, int, int, int, int,
+                               int);
+
+// The privatised kernel's instance for a plan of `blocks_per_sm` blocks.
+template <int SPW>
+PrivateKernel private_kernel(int blocks_per_sm) {
+  if constexpr (SPW > 4) {
+    return histogram_private_kernel<SPW, 1>;
+  } else {
+    return blocks_per_sm >= 4   ? histogram_private_kernel<SPW, 4>
+           : blocks_per_sm == 3 ? histogram_private_kernel<SPW, 3>
+                                : histogram_private_kernel<SPW, 2>;
+  }
+}
+
 template <int SPW>
 cudaError_t launch_private(const void* packed, const void* gh, const void* pos,
                            void* out, int n_rows, int n_features, int n_words,
                            int n_nodes, int max_bins, int bits, int node_tile,
-                           int feat_group, int words_per_block, int threads,
-                           cudaStream_t stream) {
+                           int feat_group, int words_per_block,
+                           int blocks_per_sm, int threads, cudaStream_t stream) {
   dim3 grid;
   size_t smem;
+  const PrivateKernel kernel = private_kernel<SPW>(blocks_per_sm);
   cudaError_t err = private_launch_shape(
-      histogram_private_kernel<SPW>, n_words, n_features, n_nodes, max_bins,
-      node_tile, feat_group, words_per_block, &grid, &smem);
+      kernel, n_words, n_features, n_nodes, max_bins, node_tile, feat_group,
+      words_per_block, &grid, &smem);
   if (err != cudaSuccess) return err;
-  histogram_private_kernel<SPW><<<grid, threads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       (const uint32_t*)packed, (const float2*)gh, (const int*)pos, (float*)out,
       n_rows, n_features, n_words, n_nodes, max_bins, bits, node_tile,
       feat_group, words_per_block);
@@ -422,12 +485,13 @@ cudaError_t launch_global(const void* packed, const void* gh, const void* pos,
 extern "C" int rt_histogram_private(
     const void* packed, const void* gh, const void* pos, void* out,
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
-    int bits, int node_tile, int feat_group, int words_per_block, int threads,
-    void* stream) {
+    int bits, int node_tile, int feat_group, int words_per_block,
+    int blocks_per_sm, int threads, void* stream) {
 #define RT_CALL(S)                                                          \
   launch_private<S>(packed, gh, pos, out, n_rows, n_features, n_words,      \
                     n_nodes, max_bins, bits, node_tile, feat_group,         \
-                    words_per_block, threads, (cudaStream_t)stream)
+                    words_per_block, blocks_per_sm, threads,                \
+                    (cudaStream_t)stream)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }
@@ -457,10 +521,12 @@ extern "C" int rt_histogram_packed(
 }
 
 // Resident blocks per SM of one histogram kernel (0 private, 1 row-id,
-// 2 global) at `bits`, `threads` and `smem` bytes of dynamic shared memory.
+// 2 global) at `bits`, `threads` and `smem` bytes of dynamic shared memory;
+// the private kernel's instance is that of a plan of `plan_blocks` blocks.
 template <int SPW>
-cudaError_t occupancy(int kernel, int threads, int smem, int* blocks) {
-  const void* fn = kernel == 0   ? (const void*)histogram_private_kernel<SPW>
+cudaError_t occupancy(int kernel, int threads, int smem, int plan_blocks,
+                      int* blocks) {
+  const void* fn = kernel == 0   ? (const void*)private_kernel<SPW>(plan_blocks)
                    : kernel == 1 ? (const void*)histogram_rows_kernel<SPW>
                                  : (const void*)histogram_global_kernel<SPW>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -471,9 +537,11 @@ cudaError_t occupancy(int kernel, int threads, int smem, int* blocks) {
 }
 
 extern "C" int rt_histogram_occupancy(int kernel, int bits, int threads,
-                                      int smem, void* out_blocks) {
+                                      int smem, int plan_blocks,
+                                      void* out_blocks) {
   if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
-#define RT_CALL(S) occupancy<S>(kernel, threads, smem, (int*)out_blocks)
+#define RT_CALL(S)                                                          \
+  occupancy<S>(kernel, threads, smem, plan_blocks, (int*)out_blocks)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }

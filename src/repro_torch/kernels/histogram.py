@@ -5,7 +5,9 @@ All three compute the contract of `repro.core.histogram` (packed words,
 
 * `build_histograms_packed_kernel`, counterpart of
   `repro.kernels.histogram.build_histograms_packed_kernel`: privatised
-  shared-memory histograms and atomics instead of one-hot matmuls.
+  shared-memory histograms and atomics instead of one-hot matmuls, one
+  64-bit compare-and-swap per (g, h) and warp-aggregated adds where a warp
+  shows repeated bins.
 * `build_histograms_rows_kernel`, the same privatised design over a
   compacted row buffer (slot i holds row `row_ids[i]`), with several word
   loads in flight per slot, one 64-bit compare-and-swap per (g, h) and
@@ -17,8 +19,8 @@ All three compute the contract of `repro.core.histogram` (packed words,
   lanes of a warp with the same (node, bin) summed first and added with one
   8-byte atomic, each warp starting at its own feature.
 
-Both private kernels take their grid from `launch_plan`, sized for three or
-more blocks per SM.
+Both private kernels take their grid from `launch_plan`, each with its own
+target of resident blocks per SM.
 
 Float summation order is that of the atomics, not fixed from run to run.
 """
@@ -37,9 +39,13 @@ from repro_torch.kernels import build as B
 MIN_WORDS_PER_BLOCK = 1024
 # The plan caps a block's private histogram so that this many blocks fit in
 # one SM's shared memory: on spread-out bins, at one 224 KB block per SM the
-# private kernels took 2-2.5x their time at four 56 KB blocks. (On bins
-# skewed to one value the privatised kernel is faster at one block: PERF.md.)
+# row-id kernel took 2-2.5x its time at four 56 KB blocks.
 MIN_BLOCKS_PER_SM = 3
+# The privatised kernel's own target: at 8 nodes two blocks of 7 features
+# beat three of 4 and one of 14 on both word sets at 1M and 11M rows
+# (PERF.md §6); at 1 and 32 nodes the targets of two and three give the
+# same plan.
+PRIVATE_BLOCKS_PER_SM = 2
 THREADS = 512  # threads per block
 
 
@@ -52,16 +58,17 @@ class HistogramPlan(NamedTuple):
 
 
 def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
-                limits: B.DeviceLimits) -> HistogramPlan:
-    """Size a block's private histogram for occupancy: at most a third of an
-    SM's shared memory (less the per-block reserve), so that three blocks
-    fit; nodes first (the rest go to further node tiles on the grid's z
-    axis), then features beside them (feature groups on y), each split
-    evenly. The stripes on x make about one wave of resident blocks. The
-    row kernel passes its slot count as `n_words`."""
+                limits: B.DeviceLimits,
+                blocks_per_sm: int = MIN_BLOCKS_PER_SM) -> HistogramPlan:
+    """Size a block's private histogram for occupancy: at most an SM's
+    shared memory over `blocks_per_sm` (less the per-block reserve), so
+    that that many blocks fit; nodes first (the rest go to further node
+    tiles on the grid's z axis), then features beside them (feature groups
+    on y), each split evenly. The stripes on x make about one wave of
+    resident blocks. The row kernel passes its slot count as `n_words`."""
     per_node = max_bins * 8  # one feature, one node: max_bins (g, h) floats
     cap = min(limits.smem_block,
-              limits.smem_sm // MIN_BLOCKS_PER_SM - limits.smem_reserved)
+              limits.smem_sm // blocks_per_sm - limits.smem_reserved)
     if per_node > cap:  # one node's bins alone: take what one block may use
         cap = limits.smem_block
     if per_node > cap:
@@ -118,11 +125,12 @@ def build_histograms_packed_kernel(
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
     if w == 0 or f == 0:
         return out
-    plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index))
+    plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
+                       PRIVATE_BLOCKS_PER_SM)
     err = B.lib().rt_histogram_private(
         packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
         n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
-        plan.words_per_block, THREADS, B.stream(dev),
+        plan.words_per_block, plan.blocks_per_sm, THREADS, B.stream(dev),
     )
     B.check(err, "histogram_private")
     build_histograms_packed_kernel.launches += 1
@@ -197,9 +205,9 @@ def occupancy(kind: str, plan: HistogramPlan | None, bits: int) -> int:
     "packed") at `plan`'s shared memory on the current card, as the CUDA
     runtime computes it; `histogram_packed` takes no plan."""
     kernel = ("private", "rows", "packed").index(kind)
-    smem = plan.smem_bytes if plan is not None else 0
+    smem, plan_blocks = (plan.smem_bytes, plan.blocks_per_sm) if plan else (0, 0)
     blocks = ctypes.c_int(0)
-    B.check(B.lib().rt_histogram_occupancy(kernel, bits, THREADS, smem,
+    B.check(B.lib().rt_histogram_occupancy(kernel, bits, THREADS, smem, plan_blocks,
                                            ctypes.addressof(blocks)),
             "rt_histogram_occupancy")
     return blocks.value

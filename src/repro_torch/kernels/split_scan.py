@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels import build as B
 
-MAX_BINS_LIMIT = 1025  # one thread per value bin, at most 1024 per block
+MAX_BINS_LIMIT = 1025  # a warp's stage of 1024 value bins: 8 KB of shared memory
 
 
 def split_scan(
@@ -34,6 +34,8 @@ def split_scan(
     out = torch.empty((n_nodes, f, 5), dtype=torch.float32, device=dev)
     if n_nodes == 0 or f == 0:
         return out
+    if hist.data_ptr() % 8:  # the kernel reads each (g, h) as one float2
+        hist = hist.clone()
     err = B.lib().rt_split_scan(
         hist.data_ptr(), parent_sum.data_ptr(), out.data_ptr(), n_nodes, f,
         max_bins, float(reg_lambda), float(min_child_weight), B.stream(dev),

@@ -28,6 +28,8 @@ from repro_torch.kernels.histogram import (
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
+from _torch_parity import tied_split_histogram
+
 
 @pytest.fixture
 def rng():
@@ -145,18 +147,24 @@ def test_histograms_by_subtraction_on_card(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("skew", [0.0, 0.9])
-def test_histograms_past_the_plan_cap_on_card(rng, skew):
+@pytest.mark.parametrize("skew,constant", [(0.0, False), (0.9, False), (1.0, False),
+                                           (0.0, True)],
+                         ids=["0.0", "0.9", "1.0", "constant"])
+def test_histograms_past_the_plan_cap_on_card(rng, skew, constant):
     """The three histogram kernels at 64 nodes, whose one-feature histogram
-    (128 KB at 256 bins) exceeds the plan's cap of a third of an SM's shared
-    memory, so the nodes take two tiles; with `skew`, that share of the
-    symbols sits in the missing bin, where warp aggregation sums many lanes
-    into one add. Exact on dyadic (g, h)."""
+    (128 KB at 256 bins) exceeds the plans' caps (a half or a third of an
+    SM's shared memory), so the nodes take two tiles; with `skew`, that
+    share of the symbols sits in the missing bin (all of them at 1.0), and
+    with `constant` feature 0 sits in one value bin: many lanes add to one
+    (node, bin), which the three kernels sum by warp before they add. Exact
+    on dyadic (g, h)."""
     dev = _cuda()
     n, f, max_bins, n_nodes = 20_000, 5, 256, 64
     bits = TC.bits_needed(max_bins - 1)
     bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
     bins[rng.random((n, f)) < skew] = max_bins - 1
+    if constant:
+        bins[:, 0] = 7
     packed = TC.pack(torch.from_numpy(bins), bits).to(dev)
     gh = torch.from_numpy(np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
                                    axis=1).astype(np.float32)).to(dev)
@@ -193,9 +201,17 @@ def test_decompress_kernel_on_card(rng):
 
 @pytest.mark.cuda
 def test_split_scan_kernel_on_card(rng):
+    """Random histograms from 3 to 1025 bins, then thresholds tied over
+    empty runs that cross lanes' candidates (lane c % 32 scores threshold c;
+    ties from bin 7, 31, 32 and 100 on, the run from 31 wrapping from lane
+    31 to lane 0), with missing values absent and going left."""
     dev = _cuda()
-    for shape in [(1, 3, 8), (32, 28, 256), (3, 5, 1024), (2, 4, 33)]:
-        hist, parent = _split_inputs(rng, *shape)
+    inputs = [_split_inputs(rng, *shape) for shape in [
+        (1, 3, 8), (32, 28, 256), (3, 5, 1024), (2, 4, 33), (4, 3, 3), (2, 5, 257),
+        (2, 3, 1025)]]
+    inputs += [tied_split_histogram((8, 32, 33, 101), 28, 256, missing_g=m)
+               for m in (0.0, -1.0)]
+    for hist, parent in inputs:
         hist_t, parent_t = torch.from_numpy(hist).to(dev), torch.from_numpy(parent).to(dev)
         got = split_scan(hist_t, parent_t, 1.0, 1.0).cpu().numpy()
         want = ref.split_scan_ref(hist_t, parent_t, 1.0, 1.0).cpu().numpy()

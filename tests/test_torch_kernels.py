@@ -43,6 +43,7 @@ from repro_torch.kernels.ensemble_traversal import (
     traversal_plan,
 )
 from repro_torch.kernels.histogram import (
+    PRIVATE_BLOCKS_PER_SM,
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
     histogram_packed,
@@ -51,7 +52,7 @@ from repro_torch.kernels.histogram import (
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
-from _torch_parity import assert_cuts_close
+from _torch_parity import assert_cuts_close, tied_split_histogram
 
 
 @pytest.fixture
@@ -66,9 +67,15 @@ H100_SMEM = 232448  # opt-in shared memory per block on an H100
 H100 = DeviceLimits(132, H100_SMEM, 233_472, 1_024, 2_048)
 
 
-def _hist_inputs(rng, n, f, max_bins, n_nodes):
+def _hist_inputs(rng, n, f, max_bins, n_nodes, words="uniform"):
+    """Bins spread over all values; `words="skewed"` moves 80% of them to the
+    missing bin, `"constant"` puts every row's feature 0 in value bin 1."""
     bits = JC.bits_needed(max_bins - 1)
     bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    if words == "skewed":
+        bins[rng.random((n, f)) < 0.8] = max_bins - 1
+    elif words == "constant":
+        bins[:, 0] = 1
     gh = np.stack([rng.normal(size=n), rng.random(n)], axis=1).astype(np.float32)
     pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)  # n_nodes = inactive
     packed = np.asarray(JC.pack(jnp.asarray(bins), bits))
@@ -80,15 +87,18 @@ def _words(packed: np.ndarray) -> np.ndarray:
     return packed.copy().view(np.int32)
 
 
-@pytest.mark.parametrize("n,f,max_bins,n_nodes", [
-    (257, 4, 16, 1),    # ragged last word
-    (1000, 7, 64, 3),
-    (513, 3, 256, 8),
-    (64, 1, 8, 2),
-    (301, 5, 32, 8),
-])
-def test_histogram_plain_vs_reference(rng, n, f, max_bins, n_nodes):
-    packed, gh, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
+@pytest.mark.parametrize("n,f,max_bins,n_nodes,words", [
+    (257, 4, 16, 1, "uniform"),    # ragged last word
+    (1000, 7, 64, 3, "uniform"),
+    (513, 3, 256, 8, "uniform"),
+    (64, 1, 8, 2, "uniform"),
+    (301, 5, 32, 8, "uniform"),
+    (1000, 5, 256, 8, "skewed"),   # most lanes of a warp in one bin
+    (999, 4, 256, 32, "constant"),
+], ids=["257-4-16-1", "1000-7-64-3", "513-3-256-8", "64-1-8-2", "301-5-32-8",
+        "skewed-1000-5-256-8", "constant-999-4-256-32"])
+def test_histogram_plain_vs_reference(rng, n, f, max_bins, n_nodes, words):
+    packed, gh, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes, words)
     want = np.asarray(JO.histogram_private_op(
         jnp.asarray(packed), jnp.asarray(gh), jnp.asarray(pos), n_nodes, max_bins, bits))
     got = ops.histogram_private_op(torch.from_numpy(_words(packed)), torch.from_numpy(gh),
@@ -204,6 +214,17 @@ def test_split_scan_ties_go_to_the_lowest_bin():
     assert got[0, 0, 1] == 2.0
     none = ops.split_scan(torch.zeros(1, 1, 10, 2), torch.zeros(1, 2), 1.0, 1.0).numpy()
     assert none[0, 0, 0] == -np.inf and none[0, 0, 1] == 0.0
+    # 256 bins, thresholds tied from 7 on (over bins 8..12) and from 31 on
+    # (32..36): the ties straddle the bins 7/8 and 31/32; missing values
+    # absent, then going left. Bin and direction as the reference's.
+    for missing_g, left in ((0.0, 0.0), (-1.0, 1.0)):
+        hist, parent = tied_split_histogram((8, 32), 3, 256, missing_g=missing_g)
+        want = np.asarray(JO.split_scan_op(jnp.asarray(hist), jnp.asarray(parent), 1.0, 1.0))
+        got = ops.split_scan(torch.from_numpy(hist), torch.from_numpy(parent), 1.0,
+                             1.0).numpy()
+        np.testing.assert_array_equal(got[..., 1:3], want[..., 1:3])
+        np.testing.assert_array_equal(got[..., 1], [[7.0] * 3, [31.0] * 3])
+        assert np.all(got[..., 2] == left)
 
 
 @pytest.mark.parametrize("n,f,max_bins", [(1000, 7, 16), (513, 3, 256), (64, 1, 256),
@@ -320,6 +341,26 @@ def test_histogram_launch_plan_fits_shared_memory(n_nodes, max_bins):
         assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (32, 1, 65536)
     if (n_nodes, max_bins) == (1, 256):
         assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (1, 28, 57344)
+
+
+@pytest.mark.parametrize("n_nodes", [1, 8, 32, 64])
+def test_private_histogram_launch_plan(n_nodes):
+    """The privatised kernel's own plan at the main path's widths (28
+    features, 256 bins) fits an H100's shared memory, holds its target of
+    blocks per SM, and gives a block as many of a level's nodes, then
+    features, as its share of an SM holds, split evenly."""
+    plan = launch_plan(250_000, 28, n_nodes, 256, H100, PRIVATE_BLOCKS_PER_SM)
+    per_node = 256 * 8
+    share = H100.smem_sm // PRIVATE_BLOCKS_PER_SM - H100.smem_reserved
+    assert plan.smem_bytes == plan.feat_group * plan.node_tile * per_node
+    assert plan.smem_bytes <= min(share, H100.smem_block)
+    assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_sm
+    assert plan.blocks_per_sm >= PRIVATE_BLOCKS_PER_SM
+    assert plan.node_tile == -(-n_nodes // -(-n_nodes // (share // per_node)))
+    if plan.feat_group < 28:  # one feature more would not fit the share
+        assert (plan.feat_group + 1) * plan.node_tile * per_node > share
+    assert 1 <= plan.node_tile <= n_nodes and 1 <= plan.feat_group <= 28
+    assert plan.words_per_block * -(-250_000 // plan.words_per_block) >= 250_000
 
 
 def test_traversal_trees_per_block():
