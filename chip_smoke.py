@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                 traversal of a ref= matrix, and each kernel of the path must
                 launch as often as the path says (counts reset just before,
                 read just after): privatised histogram 10, row-id histogram
-                50, split scan 60, cut selection 1, traversal 1.
+                50, split scan 60, cut selection 1, traversal 1. Where
+                predict_s goes: a warm predict, the held-out rows' copy to
+                the card alone, and a predict of rows already on the card.
   4. fit      — two further fits on the same matrix, each with its own
                 counts: `use_kernel_histograms=True` (privatised histogram
                 60, row-id 0) and `growth="lossguide", max_leaves=32`. Each
@@ -36,7 +38,12 @@ Phases, each printing one JSON line:
                 nodes and on a histogram whose best thresholds tie over empty
                 runs of bins; traversal also at depth 14, depth 13 with 4
                 classes and 300 classes (exact); and the subtraction trick's
-                device path at level 5 against a full build.
+                device path at level 5 against a full build; the cut selection
+                also on tied, constant, all-missing and one-value columns,
+                bit for bit; the traversal at the serving shapes (SERVING:
+                500 trees at depth 6 and 8, 700 trees x 7 classes, and 500
+                trees at depth 6 whose every walk goes the full depth, over
+                the 1M training rows), bit for bit.
   7. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
@@ -49,7 +56,12 @@ Phases, each printing one JSON line:
                 plan marked; the split scan at 1, 8 and 32 nodes beside an empty
                 launch on the same stream, each also as device time per launch
                 of 100 launches queued back to back; the main path's traversal
-                with its arenas staged and read through L2.
+                with its arenas staged and read through L2, and with its rows
+                from the other source (row tile or global memory) than its
+                plan's; the traversal at each serving shape,
+                its bound counting the levels the run's rows visit; the cut
+                selection by events and back to back, beside
+                `compute_cuts_op` and the candidate sort it no longer runs.
 Then the kernels line, the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
@@ -81,9 +93,16 @@ CONSTANT_BIN = 7  # every symbol of the constant-feature words' feature 0
 TIE_STARTS = (8, 32, 33, 100)
 TIE_GAP = 5
 # Traversal shapes past the staged route's shared memory: (trees, depth,
-# classes, rows) — one arena of 459 KB, 4 classes beside a 229 KB arena,
-# accumulators of 300 classes.
+# classes, rows) — packed arenas of 256 KB and 128 KB (two stages do not fit
+# a block), sums of 300 classes (tiled over the grid).
 DEEP_TRAVERSALS = ((4, 14, 1, HELD_OUT), (8, 13, 4, HELD_OUT), (600, 6, 300, 20_000))
+# A served model's size over the training rows: (trees, depth, classes,
+# share of the internal levels' nodes that are leaves). The README trains
+# n_rounds=500; 700 trees are 100 rounds of a 7-class (covtype-shaped)
+# model. A fifth of the nodes leaves stops a depth-6 walk after ~2.9 levels;
+# a model fitted on 1M rows splits every node it reaches above its last
+# level, which share 0.0 gives: every walk takes the full depth.
+SERVING = ((500, 6, 1, 0.2), (500, 8, 1, 0.2), (700, 6, 7, 0.2), (500, 6, 1, 0.0))
 
 # Where each kernel's TPU original lives (file:line of its pallas_call). The
 # row-id histogram extends the privatised kernel to the function the
@@ -236,6 +255,8 @@ def main() -> int:
     from repro_torch.kernels.ensemble_traversal import (
         THREADS as TRAVERSAL_THREADS,
         ensemble_margins_kernel,
+        node_fields,
+        pack_nodes,
         traversal_plan,
     )
     from repro_torch.kernels.histogram import (
@@ -295,6 +316,20 @@ def main() -> int:
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated()
     acc = accuracy(prob)
+
+    def host_s(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # Where predict_s goes: the held-out rows' copy to the card, against a
+    # warm predict from numpy and one from rows already on the card.
+    predict_parts = {"predict_warm_s": host_s(lambda: bst.predict(x_te)),
+                     "row_copy_s": host_s(lambda: torch.as_tensor(x_te, device=dev))}
+    xte_dev = torch.as_tensor(x_te, device=dev)
+    predict_parts["predict_rows_on_card_s"] = host_s(lambda: bst.predict(xte_dev))
     # The same model in bin space on a ref= matrix: x <= threshold exactly
     # when bin <= split_bin, so both traversals reach the same leaves.
     binned = bst.predict_margins(DeviceDMatrix(x_te, ref=dtrain))
@@ -303,7 +338,7 @@ def main() -> int:
     emit({"phase": "main", "rows": args.rows, "features": int(x.shape[1]),
           "bits": dtrain.bits, "rounds": ROUNDS, "max_depth": DEPTH,
           "max_bins": MAX_BINS, "build_s": t1 - t0, "fit_s": t2 - t1,
-          "predict_s": t3 - t2, "held_out_accuracy": acc,
+          "predict_s": t3 - t2, **predict_parts, "held_out_accuracy": acc,
           "binned_vs_raw_max_err": bin_err, "max_memory_allocated": peak,
           "launches": launches})
     if acc <= 0.7:
@@ -473,11 +508,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / launches
 
-    def random_ensemble(n_trees: int, depth: int, n_features: int, g):
-        """Random complete arenas: a fifth of the nodes leaves, the last level
-        all leaves, thresholds around the features' scale."""
+    def random_ensemble(n_trees: int, depth: int, n_features: int, g, leaf_share=0.2):
+        """Random complete arenas: `leaf_share` of the nodes leaves, the last
+        level all leaves, thresholds around the features' scale."""
         a = 2 ** (depth + 1) - 1
-        is_leaf = torch.rand(n_trees, a, device=dev, generator=g) < 0.2
+        is_leaf = torch.rand(n_trees, a, device=dev, generator=g) < leaf_share
         is_leaf[:, 2 ** depth - 1:] = True
         thr = torch.randn(n_trees, a, device=dev, generator=g)
         thr[is_leaf] = float("inf")
@@ -606,55 +641,73 @@ def main() -> int:
     results["split_scan"] = {"max_abs_err": scan_err, "tolerance": "bit-identical",
                              "inputs": scan_checked}
 
+    def cuts_inputs(xx):
+        finite_ = torch.isfinite(xx)
+        return (torch.sort(torch.where(finite_, xx, float("inf")), dim=0).values,
+                finite_.sum(dim=0, dtype=torch.int32))
+
+    # The training matrix, and a copy whose columns 1-4 are tied (rounded),
+    # constant, all missing, and missing but for one value: the kernel's
+    # in-order compaction must be bit for bit the plain version's sort.
     xt = torch.as_tensor(x_tr, device=dev)
-    finite = torch.isfinite(xt)
-    srt = torch.sort(torch.where(finite, xt, float("inf")), dim=0).values
-    n_valid = finite.sum(dim=0, dtype=torch.int32)
-    got = quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)
-    want = ref.quantile_cuts_ref(srt, n_valid, MAX_BINS)
-    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
-        raise SystemExit("quantile_cuts kernel: +inf pattern differs")
-    fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max())
-    results["quantile_cuts"] = {"max_abs_err": err, "tolerance": "exact"}
-    if err != 0.0:
-        raise SystemExit(f"quantile_cuts kernel disagrees: {err}")
+    odd = xt[:20_000].clone()
+    odd[:, 1] = torch.round(odd[:, 1])
+    odd[:, 2] = 0.5
+    odd[:, 3] = float("nan")
+    odd[:, 4] = float("nan")
+    odd[7, 4] = 1.25
+    srt, n_valid = cuts_inputs(xt)
+    cut_checks = {}
+    for name_c, (srt_c, nv_c) in (("higgs", (srt, n_valid)), ("odd", cuts_inputs(odd))):
+        want = ref.quantile_cuts_ref(srt_c, nv_c, MAX_BINS)
+        cut_checks[name_c] = torch.equal(quantile_cuts_from_sorted(srt_c, nv_c, MAX_BINS), want)
+        if not cut_checks[name_c]:
+            raise SystemExit(f"quantile_cuts kernel is not bit-identical to its plain "
+                             f"version on the {name_c} columns")
+    del odd
+    results["quantile_cuts"] = {"max_abs_err": 0.0, "tolerance": "bit-identical",
+                                "inputs": cut_checks}
 
     xte = torch.as_tensor(x_te, device=dev)
     targs = (ens.feature, ens.threshold, ens.default_left, ens.leaf_value,
              ens.is_leaf, xte, ens.n_classes, DEPTH)
-    got = ensemble_margins_kernel(*targs)
+    got = ensemble_margins_kernel(ens.nodes, xte, ens.n_classes, DEPTH)
     want = ref.ensemble_margins_ref(*targs)
-    err, ok = check(got, want, 1e-5)
+    err = float((got - want).abs().max())
 
-    def kernel_types(args):
-        """The traversal's arguments with the arena already in the kernel's
-        types, so that a timed call launches the kernel and converts nothing."""
-        feat, thr, dl, leaf, is_leaf = args[:5]
-        return (feat.to(torch.int32).contiguous(), thr.contiguous(),
-                dl.to(torch.uint8).contiguous(), leaf.contiguous(),
-                is_leaf.to(torch.uint8).contiguous(), *args[5:])
+    def check_traversal(arena, x_, k, depth, chunk=100_000):
+        """The kernel on packed nodes against the plain walk over the arena
+        fields, bit for bit (rows are independent: the plain version runs on
+        row chunks to bound its memory). Returns the packed nodes."""
+        nodes = pack_nodes(*arena)
+        got_ = ensemble_margins_kernel(nodes, x_, k, depth)
+        for r0 in range(0, x_.shape[0], chunk):
+            want_ = ref.ensemble_margins_ref(*arena, x_[r0:r0 + chunk], k, depth)
+            if not torch.equal(got_[r0:r0 + chunk], want_):
+                raise SystemExit(f"ensemble_traversal disagrees at {arena[0].shape[0]} trees, "
+                                 f"depth {depth}, {k} classes: "
+                                 f"{float((got_[r0:r0 + chunk] - want_).abs().max())}")
+        return nodes
 
     # Models past the staged route's shared memory: the arenas read through
-    # L2, or the classes tiled over the grid. Each class sums in tree order
-    # on both sides, so these must agree bit for bit.
-    deep = []
-    for n_trees, depth, k, rows in DEEP_TRAVERSALS:
-        dargs = (*random_ensemble(n_trees, depth, f, gen), xte[:rows], k, depth)
-        kdargs = kernel_types(dargs)
-        d_err = float((ensemble_margins_kernel(*dargs) - ref.ensemble_margins_ref(*dargs))
-                      .abs().max())
-        deep.append({"trees": n_trees, "depth": depth, "classes": k, "rows": rows,
-                     "plan": list(traversal_plan(n_trees, 2 ** (depth + 1) - 1, k,
-                                                 KB.device_limits(0).smem_block)),
-                     "max_abs_err": d_err,
-                     "ms": time_ms(lambda: ensemble_margins_kernel(*kdargs))})
-        if d_err != 0.0:
-            raise SystemExit(f"ensemble_traversal disagrees at depth {depth}, {k} "
-                             f"classes: {d_err}")
-    results["ensemble_traversal"] = {"max_abs_err": err, "tolerance": "1e-5; deep and "
-                                     "wide models exact", "deep_and_wide": deep}
-    if not ok:
+    # L2, or the classes tiled over the grid; and a served model's size. Each
+    # class sums in tree order on both sides, so these must agree bit for bit.
+    deep, serving = [], []
+    for shapes, xs_, rows_out in (
+            (tuple((*s, 0.2) for s in DEEP_TRAVERSALS), xte, deep),
+            (tuple((t, d, k, n, share) for t, d, k, share in SERVING), xt, serving)):
+        for n_trees, depth, k, rows, share in shapes:
+            nodes = check_traversal(random_ensemble(n_trees, depth, f, gen, share), xs_[:rows],
+                                    k, depth)
+            rows_out.append({"trees": n_trees, "depth": depth, "classes": k, "rows": rows,
+                             "leaf_share": share, "nodes": nodes, "max_abs_err": 0.0,
+                             "plan": list(traversal_plan(n_trees, nodes.shape[1], k, f,
+                                                         KB.device_limits(0).smem_block))})
+    results["ensemble_traversal"] = {"max_abs_err": err, "tolerance": "bit-identical "
+                                     "(main, deep and wide models, serving shapes)",
+                                     "deep_and_wide": [{k: v for k, v in r.items() if k != "nodes"}
+                                                       for r in deep]}
+    if err != 0.0:
         raise SystemExit(f"ensemble_traversal kernel disagrees: {err}")
 
     # decompress: the training matrix (8-bit symbols) and 4-bit symbols at an
@@ -824,26 +877,62 @@ def main() -> int:
           "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)})
 
     nvb_cuts = MAX_BINS - 2
-    t_trees, arena = ens.feature.shape
     top = next(r for r in hist_rows
                if r["data"] == "higgs" and r["n_nodes"] == HIST_NODES[-1])
     top_rows = next(r for r in rows_rows
                     if r["data"] == "higgs" and r["n_parents"] == ROW_PARENTS[-1])
-    # The main path's traversal also with every arena read through L2
-    # (trees_blk 0), as deeper models read them, through the library itself
-    # (not counted): what staging the arenas in shared memory is worth.
-    ktargs = kernel_types(targs)
-    t_out = torch.empty((xte.shape[0], ens.n_classes), device=dev)
 
-    def arenas_through_l2():
+    def traversal_at(nodes, x_, k, depth, plan):
+        """The traversal under `plan` (class tile, trees a stage, row tile),
+        through the library itself: the launch is not counted."""
+        out = torch.empty((x_.shape[0], k), device=dev)
         KB.check(KB.lib().rt_ensemble_margins(
-            *[t.data_ptr() for t in ktargs[:6]], t_out.data_ptr(), *ktargs[0].shape,
-            *xte.shape, ens.n_classes, DEPTH, ens.n_classes, 0, TRAVERSAL_THREADS,
-            KB.stream(dev)), "ensemble_margins")
+            nodes.data_ptr(), x_.data_ptr(), out.data_ptr(), *nodes.shape[:2], *x_.shape, k,
+            depth, *plan, TRAVERSAL_THREADS, KB.stream(dev)), "ensemble_margins")
+        return out
 
-    arenas_through_l2()
-    if not torch.equal(t_out, ensemble_margins_kernel(*ktargs)):
-        raise SystemExit("the traversal through L2 differs from the staged route")
+    def levels_visited(nodes, x_, depth, chunk=100_000) -> int:
+        """(row, tree) levels the walk descends on this run's rows: the
+        traversal's work, which the data decides (a walk stops at a leaf)."""
+        value, feature, default_left, is_leaf = node_fields(nodes)
+        total = 0
+        for r0 in range(0, x_.shape[0], chunk):
+            xc = x_[r0:r0 + chunk]
+            node = torch.zeros((nodes.shape[0], xc.shape[0]), dtype=torch.int64, device=dev)
+            row = torch.arange(xc.shape[0], device=dev)[None, :]
+            for _ in range(depth):
+                inner = ~torch.gather(is_leaf, 1, node)
+                total += int(inner.sum())
+                v = xc[row, torch.gather(feature, 1, node)]
+                left = torch.where(torch.isnan(v), torch.gather(default_left, 1, node),
+                                   v <= torch.gather(value, 1, node))
+                node = torch.where(inner, torch.where(left, 2 * node + 1, 2 * node + 2), node)
+        return total
+
+    def traversal_bound(nodes, x_, k, depth) -> tuple[float, str]:
+        """Rows read once, the packed arenas once, margins written once; a
+        compare, a NaN test and a child index per level visited, one add per
+        (row, tree)."""
+        rows_, feats = x_.shape
+        return bound(rows_ * feats * 4 + nodes.numel() * 4 + rows_ * k * 4,
+                     3 * levels_visited(nodes, x_, depth) + rows_ * nodes.shape[0])
+
+    # The main path's traversal also with every arena read through L2
+    # (trees_blk 0), as deeper models read them, and with the other source
+    # of its rows (the row tile or global memory), through the library
+    # itself (not counted): what staging the arenas and the rows is worth.
+    main_plan = traversal_plan(ens.n_trees, ens.nodes.shape[1], ens.n_classes, f,
+                               KB.device_limits(0).smem_block)
+    route_plans = {"through_l2": (main_plan.class_tile, 0, main_plan.row_tile),
+                   "rows_from_global" if main_plan.row_tile else "row_tile": (
+                       main_plan.class_tile, main_plan.trees_blk, 1 - main_plan.row_tile)}
+    main_out = ensemble_margins_kernel(ens.nodes, xte, ens.n_classes, DEPTH)
+    for name_r, plan_r in route_plans.items():
+        if not torch.equal(traversal_at(ens.nodes, xte, ens.n_classes, DEPTH, plan_r), main_out):
+            raise SystemExit(f"the traversal {name_r} differs from the wrapper's plan")
+    # The cut selection beside the call it sits in: compute_cuts_op now ends
+    # with the kernel, and the candidate sort it ran before is timed alone.
+    cand = ref.quantile_cuts_ref(srt, n_valid, MAX_BINS)
     times = {
         "histogram_private": {"ms": top["private_ms"],
                               **{k: top[k] for k in ("plain_ms", "library_ms",
@@ -857,11 +946,14 @@ def main() -> int:
                                                       "bound_by")} | {"library_ms": None},
         "quantile_cuts": {
             "ms": time_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
+            "back_to_back_ms": back_to_back_ms(
+                lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
             "plain_ms": time_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, MAX_BINS), iters=5),
             "library_ms": None,
         },
         "ensemble_traversal": {
-            "ms": time_ms(lambda: ensemble_margins_kernel(*ktargs), iters=50),
+            "ms": time_ms(lambda: ensemble_margins_kernel(ens.nodes, xte, ens.n_classes, DEPTH),
+                          iters=50),
             "plain_ms": time_ms(lambda: ref.ensemble_margins_ref(*targs), iters=5),
             "library_ms": None,
         },
@@ -871,25 +963,39 @@ def main() -> int:
             "library_ms": None,
         },
     }
-    # Two sorted values gathered per candidate, the counts, the candidates out.
+    # Two sorted values gathered per candidate, the counts, the cuts out.
     b_ms, b_by = bound(f * nvb_cuts * 2 * 4 + f * 4 + f * nvb_cuts * 4,
                        f * nvb_cuts * 6)
     times["quantile_cuts"].update(bound_ms=b_ms, bound_by=b_by)
-    # Rows read once, the arena once, margins written once; a compare per level.
-    b_ms, b_by = bound(HELD_OUT * f * 4 + t_trees * arena * 14 + HELD_OUT * 4,
-                       HELD_OUT * t_trees * 6 + HELD_OUT * t_trees)
+    b_ms, b_by = traversal_bound(ens.nodes, xte, ens.n_classes, DEPTH)
     times["ensemble_traversal"].update(bound_ms=b_ms, bound_by=b_by)
     # The words read once, one int32 written per (row, feature); a shift and
     # a mask per element.
     b_ms, b_by = bound(f * w * 4 + n * f * 4, 2 * n * f)
     times["decompress"].update(bound_ms=b_ms, bound_by=b_by)
 
+    emit({"phase": "time", "quantile_cuts": {
+        "shape": list(srt.shape),
+        "ms": times["quantile_cuts"]["ms"],
+        "back_to_back_ms": times["quantile_cuts"]["back_to_back_ms"],
+        "compute_cuts_op_back_to_back_ms": back_to_back_ms(
+            lambda: ops.compute_cuts_op(xt, MAX_BINS), launches=20),
+        "candidate_sort_back_to_back_ms": back_to_back_ms(
+            lambda: torch.sort(cand, dim=-1)),
+        "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)}})
+    for rows_out, xs_ in ((deep, xte), (serving, xt)):
+        for r in rows_out:
+            nodes, x_ = r.pop("nodes"), xs_[:r["rows"]]
+            r["ms"] = time_ms(lambda: ensemble_margins_kernel(nodes, x_, r["classes"],
+                                                              r["depth"]), iters=10)
+            r["bound_ms"], r["bound_by"] = traversal_bound(nodes, x_, r["classes"],
+                                                           r["depth"])
     emit({"phase": "time", "ensemble_traversal_routes": {
-        "rows": HELD_OUT, "trees": t_trees, "max_depth": DEPTH,
-        "plan": list(traversal_plan(t_trees, arena, ens.n_classes,
-                                    KB.device_limits(0).smem_block)),
-        "staged_ms": times["ensemble_traversal"]["ms"],
-        "through_l2_ms": time_ms(arenas_through_l2, iters=50)}})
+        "rows": HELD_OUT, "trees": ens.n_trees, "max_depth": DEPTH, "plan": list(main_plan),
+        "wrapper_ms": times["ensemble_traversal"]["ms"],
+        **{f"{k}_ms": time_ms(lambda: traversal_at(ens.nodes, xte, ens.n_classes, DEPTH, v),
+                              iters=50) for k, v in route_plans.items()}},
+        "ensemble_traversal_deep_and_wide": deep, "ensemble_traversal_serving": serving})
     counted = {**launches, **{k: ops_launches[k] for k in ("histogram_packed", "decompress")}}
     kernels = []
     for name in REPLACES:

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import compress as C
 from repro_torch.core.tree import Tree
+from repro_torch.kernels.ensemble_traversal import pack_nodes
 
 ENSEMBLE_FIELDS = ("feature", "split_bin", "threshold", "default_left",
                    "leaf_value", "is_leaf", "gain")
@@ -22,7 +23,9 @@ ENSEMBLE_FIELDS = ("feature", "split_bin", "threshold", "default_left",
 @dataclasses.dataclass(frozen=True)
 class Ensemble:
     """Stacked tree arenas, leading axis n_trees. Multiclass trees are laid
-    out round-robin: tree t predicts class t % n_classes."""
+    out round-robin: tree t predicts class t % n_classes. `nodes` is the
+    arenas packed for raw-row prediction (`pack_nodes`), once, when the
+    Ensemble is built."""
 
     feature: torch.Tensor  # (t, a) int32
     split_bin: torch.Tensor  # (t, a) int32
@@ -33,6 +36,11 @@ class Ensemble:
     gain: torch.Tensor  # (t, a) float32, -inf = not a split
     n_classes: int = 1
     base_score: float = 0.0
+    nodes: torch.Tensor = dataclasses.field(init=False, repr=False)  # (t, a + a % 2, 2) int32
+
+    def __post_init__(self):
+        object.__setattr__(self, "nodes", pack_nodes(
+            self.feature, self.threshold, self.default_left, self.leaf_value, self.is_leaf))
 
     @property
     def n_trees(self) -> int:

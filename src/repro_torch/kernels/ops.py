@@ -13,7 +13,11 @@ from repro_torch.core import quantile as Q
 from repro_torch.core.compress import PackedBins
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decompress import decompress
-from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
+from repro_torch.kernels.ensemble_traversal import (
+    ensemble_margins_kernel,
+    node_fields,
+    pack_nodes,
+)
 from repro_torch.kernels.histogram import (
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
@@ -96,17 +100,15 @@ def decompress_op(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
 def compute_cuts_op(x: torch.Tensor, max_bins: int) -> torch.Tensor:
     """Per-feature cut points (F, max_bins - 2) f32, ascending, +inf tail:
     missing values filled with +inf, each column sorted with `torch.sort`,
-    then the cut-selection kernel (its plain version on the CPU) and the
-    ascending re-sort that moves its +inf dedup markers to the tail."""
+    then the cut-selection kernel (its plain version on the CPU), which
+    returns the ascending cuts."""
     x = x.to(torch.float32)
     finite = torch.isfinite(x)
     srt = torch.sort(torch.where(finite, x, float("inf")), dim=0).values
     n_valid = finite.sum(dim=0, dtype=torch.int32)
     if srt.is_cuda:
-        cand = quantile_cuts_from_sorted(srt.contiguous(), n_valid, max_bins)
-    else:
-        cand = R.quantile_cuts_ref(srt, n_valid, max_bins)
-    return torch.sort(cand, dim=-1).values
+        return quantile_cuts_from_sorted(srt.contiguous(), n_valid, max_bins)
+    return R.quantile_cuts_ref(srt, n_valid, max_bins)
 
 
 def quantize_op(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
@@ -132,12 +134,35 @@ def split_scan_op(hist: torch.Tensor, parent_sum: torch.Tensor,
     return split_scan(hist, parent_sum, reg_lambda, min_child_weight)[..., [0, 1, 2, 4]]
 
 
+def ensemble_margins_nodes_op(nodes: torch.Tensor, x: torch.Tensor, n_classes: int,
+                              max_depth: int) -> torch.Tensor:
+    """(N, n_classes) margins of raw rows over all trees of a packed model
+    (`Ensemble.nodes`), without base_score. A packed internal node holds its
+    threshold, not a leaf value, so arenas deeper than `max_depth` raise:
+    `ensemble_margins_op` cuts such a model at `max_depth` first."""
+    if nodes.shape[1] > 2 ** (max_depth + 1):
+        raise ValueError(f"packed arenas of {nodes.shape[1]} nodes are deeper than "
+                         f"max_depth={max_depth}")
+    if x.is_cuda:
+        return ensemble_margins_kernel(nodes, x.contiguous(), n_classes, max_depth)
+    value, feature, default_left, is_leaf = node_fields(nodes)
+    return R.ensemble_margins_ref(feature, value, default_left, value, is_leaf, x,
+                                  n_classes, max_depth)
+
+
 def ensemble_margins_op(feature, threshold, default_left, leaf_value, is_leaf,
                         x: torch.Tensor, n_classes: int, max_depth: int) -> torch.Tensor:
-    """(N, n_classes) margins of raw rows over all trees, without base_score."""
-    if x.is_cuda:
-        return ensemble_margins_kernel(
-            feature, threshold.contiguous(), default_left, leaf_value.contiguous(),
-            is_leaf, x.contiguous(), n_classes, max_depth)
-    return R.ensemble_margins_ref(feature, threshold, default_left, leaf_value,
-                                  is_leaf, x, n_classes, max_depth)
+    """(N, n_classes) margins of raw rows over all trees, without base_score,
+    from the arena fields (the reference's signature): packed, then
+    traversed. A model that predicts often packs once (`Ensemble.nodes`).
+    As in the reference, a walk that has not reached a leaf after
+    `max_depth` levels takes the leaf value of the node it stands on: arenas
+    deeper than that are cut there, the last level kept made leaves."""
+    keep = 2 ** (max_depth + 1) - 1
+    if feature.shape[1] > keep:
+        feature, threshold, default_left, leaf_value = (
+            t[:, :keep] for t in (feature, threshold, default_left, leaf_value))
+        last = torch.arange(keep, device=is_leaf.device) >= 2 ** max_depth - 1
+        is_leaf = is_leaf[:, :keep].to(torch.bool) | last
+    nodes = pack_nodes(feature, threshold, default_left, leaf_value, is_leaf)
+    return ensemble_margins_nodes_op(nodes, x, n_classes, max_depth)

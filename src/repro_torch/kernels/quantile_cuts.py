@@ -1,8 +1,8 @@
 """Wrapper of the cut-selection CUDA kernel (`csrc/quantile_cuts.cu`).
 
-Counterpart of `repro.kernels.quantile_cuts.quantile_cuts_from_sorted`. It
-returns the PRE-SORT candidate cuts; `ops.compute_cuts_op` re-sorts them
-with `torch.sort`, as the reference's caller does. No row cap.
+Counterpart of `repro.kernels.quantile_cuts.quantile_cuts_from_sorted`: the
+ascending cuts with a +inf tail, in one launch (the kernel compacts the
+deduplicated candidates in order instead of sorting them). No row cap.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ def quantile_cuts_from_sorted(
     n_valid: torch.Tensor,  # (F,) finite count per column
     max_bins: int,
 ) -> torch.Tensor:
-    """(F, max_bins - 2) f32 candidates, bit-identical to `ref.quantile_cuts_ref`."""
+    """(F, max_bins - 2) f32 ascending cuts, +inf tail, bit-identical to
+    `ref.quantile_cuts_ref`."""
     B.expect(srt, "srt", torch.float32, 2)
     n_valid = n_valid.to(torch.int32).contiguous()
     B.expect(n_valid, "n_valid", torch.int32, 1)

@@ -127,10 +127,13 @@ def quantile_cuts_ref(
     n_valid: torch.Tensor,  # (F,) finite count per column
     max_bins: int,
 ) -> torch.Tensor:
-    """Plain version of the cut-selection kernel: the PRE-SORT candidate
-    cuts (F, max_bins - 2), arithmetic of `repro.core.quantile`
-    (`select_cuts_from_sorted`) operation for operation, with true f32
-    division for the rank fractions."""
+    """Plain version of the cut-selection kernel: the ascending cuts (F,
+    max_bins - 2) with a +inf tail that `repro.kernels.quantile_cuts.
+    quantile_cuts_from_sorted` returns. The candidates follow the arithmetic
+    of `repro.core.quantile` (`select_cuts_from_sorted`) operation for
+    operation, with true f32 division for the rank fractions; a candidate
+    not above its predecessor becomes +inf, and `torch.sort` moves those
+    markers to the tail."""
     n = srt.shape[0]
     nvb = max_bins - 1
     ranks = torch.arange(1, nvb, dtype=torch.float32, device=srt.device)
@@ -150,7 +153,7 @@ def quantile_cuts_ref(
     inf = torch.full_like(cand, float("inf"))
     cand = torch.where(torch.isfinite(cand), cand, inf)
     prev = torch.cat([torch.full_like(cand[:, :1], float("-inf")), cand[:, :-1]], dim=1)
-    return torch.where(cand > prev, cand, inf)
+    return torch.sort(torch.where(cand > prev, cand, inf), dim=-1).values
 
 
 def ensemble_leaves_ref(
@@ -188,9 +191,10 @@ def ensemble_margins_ref(
     n_classes: int,
     max_depth: int,
 ) -> torch.Tensor:
-    """Plain version of the ensemble-traversal kernel: margins (N, K)
-    without base_score. Tree t feeds class t % K; each class sums its
-    leaves in tree order, as each kernel thread does."""
+    """Plain version of the ensemble-traversal kernel, on the arena fields
+    (the kernel reads them packed): margins (N, K) without base_score. Tree
+    t feeds class t % K; each class sums its leaves in tree order, as each
+    kernel thread does."""
     leaves = ensemble_leaves_ref(feature, threshold, default_left, leaf_value,
                                  is_leaf, x, max_depth)
     n_trees, n_rows = leaves.shape

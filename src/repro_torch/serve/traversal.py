@@ -2,8 +2,9 @@
 (`predict_margins_fused`).
 
 All trees over all rows in one launch of the ensemble-traversal kernel on
-the card (its plain version on the CPU): x <= threshold goes left, NaN takes
-the node's default direction, tree t feeds class t % n_classes.
+the card (its plain version on the CPU), over the model's packed nodes
+(`Ensemble.nodes`, packed once when the model is built): x <= threshold goes
+left, NaN takes the node's default direction, tree t feeds class t % n_classes.
 """
 from __future__ import annotations
 
@@ -15,7 +16,5 @@ from repro_torch.kernels import ops
 
 def predict_margins_fused(ens: Ensemble, x: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Margins (n_rows, n_classes) from raw float32 rows, base_score included."""
-    m = ops.ensemble_margins_op(ens.feature, ens.threshold, ens.default_left,
-                                ens.leaf_value, ens.is_leaf, x, ens.n_classes,
-                                max_depth)
-    return m + ens.base_score
+    return ops.ensemble_margins_nodes_op(ens.nodes, x, ens.n_classes, max_depth) \
+        + ens.base_score

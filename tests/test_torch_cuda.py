@@ -19,7 +19,7 @@ from repro_torch.core import compress as TC
 from repro_torch.core import quantile as TQ
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decompress import decompress
-from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel
+from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, pack_nodes
 from repro_torch.kernels.histogram import (
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
@@ -53,9 +53,9 @@ def _split_inputs(rng, n_nodes, f, b):
     return hist, hist[:, 0].sum(axis=1)
 
 
-def _random_ensemble(rng, n_trees, depth, n_features):
+def _random_ensemble(rng, n_trees, depth, n_features, leaf_share=0.2):
     a = 2 ** (depth + 1) - 1
-    is_leaf = rng.random((n_trees, a)) < 0.2
+    is_leaf = rng.random((n_trees, a)) < leaf_share
     is_leaf[:, 2**depth - 1:] = True  # the last level is all leaves
     threshold = rng.normal(size=(n_trees, a)).astype(np.float32)
     threshold[is_leaf] = np.inf
@@ -233,36 +233,74 @@ def test_cut_selection_kernel_on_card(rng):
         np.testing.assert_array_equal(got, want)  # same operations, same order
 
 
-@pytest.mark.cuda
-def test_traversal_kernel_on_card(rng):
-    dev = _cuda()
-    for n, f, n_trees, depth, k in [(1000, 5, 6, 3, 1), (333, 4, 30, 6, 3),
-                                    (70, 28, 500, 6, 1)]:
-        arena = [torch.from_numpy(a).to(dev) for a in _random_ensemble(rng, n_trees, depth, f)]
+def _check_traversal(rng, dev, shapes, leaf_share=0.2):
+    """The kernel on packed nodes against the plain walk over the arena
+    fields, bit for bit (each class summed in tree order)."""
+    for n, f, n_trees, depth, k in shapes:
+        arena = [torch.from_numpy(a).to(dev)
+                 for a in _random_ensemble(rng, n_trees, depth, f, leaf_share)]
         x = rng.normal(size=(n, f)).astype(np.float32)
         x[rng.random((n, f)) < 0.2] = np.nan
         xt = torch.from_numpy(x).to(dev)
-        got = ensemble_margins_kernel(*arena, xt, k, depth).cpu().numpy()
+        got = ensemble_margins_kernel(pack_nodes(*arena), xt, k, depth).cpu().numpy()
         want = ref.ensemble_margins_ref(*arena, xt, k, depth).cpu().numpy()
-        np.testing.assert_array_equal(got, want)  # each class summed in tree order
+        assert got.shape == (n, k)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cut_selection_kernel_sorts_on_card(rng):
+    """The kernel's in-order compaction of the deduplicated candidates is bit
+    for bit `torch.sort` of the plain candidates (+inf markers in place), on
+    tied, constant and all-missing columns and one with one valid value."""
+    dev = _cuda()
+    for n, max_bins in [(5000, 256), (777, 64), (20, 1024)]:
+        x = rng.normal(size=(n, 11)).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.nan
+        x[:, 1] = np.round(x[:, 1])  # ties
+        x[:, 2] = np.round(x[:, 2] * 20) / 4  # ties, more values
+        x[:, 3] = 0.5  # constant
+        x[:, 4] = np.nan  # all missing
+        x[:, 5] = np.nan
+        x[n // 3, 5] = -2.0  # one valid value
+        srt = torch.from_numpy(np.sort(np.where(np.isnan(x), np.inf, x), axis=0)).to(dev)
+        nv = torch.isfinite(srt).sum(dim=0, dtype=torch.int32)
+        got = quantile_cuts_from_sorted(srt, nv, max_bins)
+        cand = ref.quantile_cuts_ref(srt, nv, max_bins)  # candidates, then torch.sort
+        assert torch.equal(got, cand)
+        assert torch.equal(got, torch.sort(got, dim=-1).values)
+
+
+@pytest.mark.cuda
+def test_traversal_kernel_on_card(rng):
+    """Staged arenas with the rows read from global memory (few trees) and
+    from the row tile; tree counts that leave a short group of the four
+    trees a thread walks at once; 1000 features, whose rows do not fit a
+    tile."""
+    _check_traversal(rng, _cuda(), [(1000, 5, 6, 3, 1), (333, 4, 30, 6, 3),
+                                    (70, 28, 500, 6, 1), (300, 1000, 41, 5, 1)])
 
 
 @pytest.mark.cuda
 def test_traversal_kernel_any_depth_on_card(rng):
-    """Models past the staged route: a depth-14 arena (459 KB) and depth 13
-    beside 4 classes read the arenas through L2; 300 classes tile over the
-    grid. Bit-identical to the plain version, as the staged route is."""
+    """Models past the staged route: a depth-14 arena (256 KB packed) and
+    depth 13 beside 4 classes read the arenas through L2, with the rows
+    from global memory or, at 20 trees, from the row tile; 300 classes tile
+    over the grid. Bit-identical to the plain version, as the staged route
+    is."""
+    _check_traversal(rng, _cuda(), [(2000, 6, 4, 14, 1), (1000, 6, 8, 13, 4),
+                                    (700, 6, 20, 14, 1), (500, 6, 600, 6, 300)])
+
+
+@pytest.mark.cuda
+def test_traversal_kernel_served_size_on_card(rng):
+    """A served model's tree counts: 500 trees at depth 8 (four 4 KB arenas
+    a stage, many tree blocks double-buffered), 7 classes x 100 rounds at
+    depth 6 (per-class sums in registers), and 500 trees at depth 6 whose
+    every walk goes the full depth (leaves only at the last level)."""
     dev = _cuda()
-    for n, f, n_trees, depth, k in [(2000, 6, 4, 14, 1), (1000, 6, 8, 13, 4),
-                                    (500, 6, 600, 6, 300)]:
-        arena = [torch.from_numpy(a).to(dev) for a in _random_ensemble(rng, n_trees, depth, f)]
-        x = rng.normal(size=(n, f)).astype(np.float32)
-        x[rng.random((n, f)) < 0.2] = np.nan
-        xt = torch.from_numpy(x).to(dev)
-        got = ensemble_margins_kernel(*arena, xt, k, depth).cpu().numpy()
-        want = ref.ensemble_margins_ref(*arena, xt, k, depth).cpu().numpy()
-        assert got.shape == (n, k)
-        np.testing.assert_array_equal(got, want)
+    _check_traversal(rng, dev, [(3000, 28, 500, 8, 1), (2000, 54, 700, 6, 7)])
+    _check_traversal(rng, dev, [(3000, 28, 500, 6, 1)], leaf_share=0.0)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,9 @@ Tolerances and their reasons:
   * cut selection and `compute_cuts_op`: +inf pattern exact, values by the
     rank-flip model (the reference's jitted rank fractions are not true
     division); the finite cuts ascend once the +inf tail is masked.
+  * packed nodes: exact round trip; the walk over them bit-identical to the
+    walk over the arena fields (the same comparisons, leaves summed per
+    class in the same order).
   * `quantize_op`: exact, given the reference's cuts.
   * traversal: 1e-5 — leaves summed per class in another order.
 
@@ -37,9 +40,16 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import DeviceLimits
 from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import (
+    BARRIER_BYTES,
+    KREG,
     NODE_BYTES,
+    ROW_TILE_TREES,
+    SMEM_TARGET,
     THREADS,
+    WALK_TREES,
     ensemble_margins_kernel,
+    node_fields,
+    pack_nodes,
     traversal_plan,
 )
 from repro_torch.kernels.histogram import (
@@ -235,10 +245,42 @@ def test_cut_selection_plain_vs_reference(rng, n, f, max_bins):
     srt = np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
     n_valid = np.isfinite(srt).sum(axis=0).astype(np.int32)
     want = np.asarray(j_cuts_from_sorted(jnp.asarray(srt), jnp.asarray(n_valid), max_bins))
-    cand = ref.quantile_cuts_ref(torch.from_numpy(srt), torch.from_numpy(n_valid), max_bins)
-    got = torch.sort(cand, dim=-1).values.numpy()  # ascending, as compute_cuts_op
+    got = ref.quantile_cuts_ref(torch.from_numpy(srt), torch.from_numpy(n_valid),
+                                max_bins).numpy()
     assert got.shape == (f, max_bins - 2)
     assert_cuts_close(got, want, x)
+
+
+@pytest.mark.parametrize("n,max_bins", [(1000, 16), (513, 256), (64, 256), (2000, 64)])
+def test_cut_selection_plain_returns_the_reference_cuts(rng, n, max_bins):
+    """The plain version returns what the reference's function returns, the
+    ascending cuts with a +inf tail, with no sort after it: on a
+    low-cardinality column (duplicate candidates become +inf markers inside
+    the row before the sort), a constant column, an all-missing column and a
+    column with one valid value."""
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[:, 1] = np.round(x[:, 1])  # low cardinality
+    x[:, 2] = 0.5  # constant
+    x[:, 3] = np.nan  # all missing
+    x[:, 4] = np.nan
+    x[n // 2, 4] = 1.25  # n_valid = 1
+    srt = np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
+    n_valid = np.isfinite(srt).sum(axis=0).astype(np.int32)
+    assert n_valid[3] == 0 and n_valid[4] == 1
+    want = np.asarray(j_cuts_from_sorted(jnp.asarray(srt), jnp.asarray(n_valid), max_bins))
+    got = ref.quantile_cuts_ref(torch.from_numpy(srt), torch.from_numpy(n_valid),
+                                max_bins).numpy()
+    assert got.shape == want.shape == (6, max_bins - 2)
+    assert_cuts_close(got, want, x)
+    assert np.isfinite(got[1]).sum() > 1  # several cuts, deduplicated
+    for row in got:  # ascending, then the +inf tail
+        fin = np.isfinite(row)
+        assert not np.any(fin[1:] & ~fin[:-1])
+        assert np.all(np.diff(row[fin]) > 0)
+    np.testing.assert_array_equal(got[2][:2], [0.5, np.inf])
+    assert np.all(np.isinf(got[3]))
+    np.testing.assert_array_equal(got[4][:2], [1.25, np.inf])
 
 
 def _cuts_data(rng, n, f):
@@ -302,6 +344,92 @@ def test_traversal_plain_vs_reference(rng, n, f, n_trees, depth, k):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,f,n_trees,depth,k", [
+    (300, 5, 6, 3, 1), (129, 4, 9, 4, 3), (50, 2, 1, 1, 1), (257, 7, 40, 6, 2),
+    (100, 3, 7, 0, 7),
+])
+def test_packed_nodes_round_trip_and_walk(rng, n, f, n_trees, depth, k):
+    """`pack_nodes` keeps every field the traversal reads, bit for bit, in
+    the layout the kernel reads, and `node_fields` gives them back; odd
+    arenas are padded with an unreached leaf. A walk over the packed words
+    alone, as the kernel walks them (one node's two words a level, each
+    class summed in tree order), equals the plain version over the arena
+    fields bit for bit, and so does `ops` on the CPU."""
+    arena = _random_ensemble(rng, n_trees, depth, f)
+    feature, threshold, dl, leaf, is_leaf = arena
+    nodes = pack_nodes(*map(torch.from_numpy, arena))
+    a = feature.shape[1]
+    assert nodes.dtype == torch.int32 and nodes.shape == (n_trees, a + a % 2, 2)
+    words = nodes.numpy().view(np.uint32)
+    meta = words[:, :a, 1]
+    np.testing.assert_array_equal(meta >> 31, is_leaf)
+    np.testing.assert_array_equal((meta >> 30) & 1, dl)
+    np.testing.assert_array_equal(meta & (2**30 - 1), np.where(is_leaf, 0, feature))
+    np.testing.assert_array_equal(words[:, :a, 0],
+                                  np.where(is_leaf, leaf, threshold).view(np.uint32))
+    if a % 2:
+        np.testing.assert_array_equal(words[:, a], [[0, 2**31]] * n_trees)
+    value, feat, left, leaf_flag = (t[:, :a].numpy() for t in node_fields(nodes))
+    np.testing.assert_array_equal(leaf_flag, is_leaf)
+    np.testing.assert_array_equal(left, dl)
+    np.testing.assert_array_equal(feat, np.where(is_leaf, 0, feature))
+    np.testing.assert_array_equal(value.view(np.uint32),
+                                  np.where(is_leaf, leaf, threshold).view(np.uint32))
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.2] = np.nan
+    got = np.zeros((n, k), np.float32)
+    rows = np.arange(n)
+    for t in range(n_trees):
+        node = np.zeros(n, np.int64)
+        for _ in range(depth):
+            m = words[t, node, 1]
+            v = x[rows, m & (2**30 - 1)]
+            left = np.where(np.isnan(v), ((m >> 30) & 1) == 1,
+                            v <= words[t, node, 0].view(np.float32))
+            node = np.where((m >> 31) == 0, 2 * node + np.where(left, 1, 2), node)
+        got[:, t % k] += words[t, node, 0].view(np.float32)
+    xt = torch.from_numpy(x)
+    want = ref.ensemble_margins_ref(*map(torch.from_numpy, arena), xt, k, depth)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert torch.equal(ops.ensemble_margins_nodes_op(nodes, xt, k, depth), want)
+
+
+@pytest.mark.parametrize("n,f,n_trees,depth,max_depth,k", [
+    (200, 5, 6, 5, 2, 1), (129, 4, 9, 4, 0, 3), (100, 3, 8, 6, 3, 2),
+])
+def test_traversal_truncated_walk_vs_reference(rng, n, f, n_trees, depth, max_depth, k):
+    """Arenas deeper than `max_depth`: as in the reference, a walk that has
+    not reached a leaf after `max_depth` levels takes the leaf value of the
+    node it stands on (`ensemble_margins_op` cuts the model there; the
+    random arenas hold leaf values on internal nodes too). Packed
+    arenas deeper than `max_depth` raise, since a packed internal node holds
+    no leaf value."""
+    arena = _random_ensemble(rng, n_trees, depth, f)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.2] = np.nan
+    want = np.asarray(JO.ensemble_margins_op(*map(jnp.asarray, arena), jnp.asarray(x),
+                                             k, max_depth))
+    got = ops.ensemble_margins_op(*map(torch.from_numpy, arena), torch.from_numpy(x), k,
+                                  max_depth).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    nodes = pack_nodes(*map(torch.from_numpy, arena))
+    with pytest.raises(ValueError, match="deeper than max_depth"):
+        ops.ensemble_margins_nodes_op(nodes, torch.from_numpy(x), k, max_depth)
+
+
+def test_pack_nodes_rejects_wide_feature_indices():
+    """An internal node's feature index takes 30 bits of the node word; a
+    leaf's is not stored."""
+    feature = torch.tensor([[2**30, 0, 0]], dtype=torch.int32)
+    fields = (torch.zeros(1, 3), torch.zeros(1, 3, dtype=torch.bool), torch.ones(1, 3))
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        pack_nodes(feature, *fields, torch.tensor([[False, True, True]]))
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        pack_nodes(-feature, *fields, torch.tensor([[False, True, True]]))
+    leaves = pack_nodes(feature, *fields, torch.ones(1, 3, dtype=torch.bool))
+    assert int(leaves[0, 0, 1]) == -(2**31)  # leaf bit, feature 0
+
+
 def test_wrappers_take_only_cuda_tensors():
     """On a CPU tensor a wrapper raises; only ops picks the plain version."""
     cpu = torch.zeros(4, 2)
@@ -318,9 +446,7 @@ def test_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         quantile_cuts_from_sorted(cpu, torch.zeros(2, dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="CUDA"):
-        ensemble_margins_kernel(torch.zeros(1, 3, dtype=torch.int32), torch.zeros(1, 3),
-                                torch.zeros(1, 3, dtype=torch.bool), torch.zeros(1, 3),
-                                torch.ones(1, 3, dtype=torch.bool), cpu, 1, 1)
+        ensemble_margins_kernel(torch.zeros(1, 4, 2, dtype=torch.int32), cpu, 1, 1)
 
 
 @pytest.mark.parametrize("n_nodes,max_bins", [(1, 256), (8, 256), (32, 256), (200, 256),
@@ -364,32 +490,51 @@ def test_private_histogram_launch_plan(n_nodes):
 
 
 def test_traversal_trees_per_block():
-    """Small models stage all classes and as many arenas as fit the target."""
-    assert traversal_plan(10, 127, 1, H100_SMEM) == (1, 10)
-    assert traversal_plan(1000, 127, 1, H100_SMEM) == (1, (48 * 1024 - 1024) // (127 * 14))
-    assert traversal_plan(30, 127, 3, H100_SMEM) == (3, (48 * 1024 - 3 * 1024) // (127 * 14))
+    """Stages of a multiple of four packed arenas (1 KB at depth 6, 4 KB at
+    depth 8) beside the 28-feature row tile, within the target; few trees
+    read the rows from global memory, and so do rows too wide for a tile."""
+    row_tile = THREADS * 28 * 4
+    fit = (SMEM_TARGET - BARRIER_BYTES - row_tile) // (2 * 128 * NODE_BYTES)
+    assert fit == 13
+    assert traversal_plan(10, 128, 1, 28, H100_SMEM) == (1, 10, 0)
+    assert traversal_plan(1000, 128, 1, 28, H100_SMEM) == (1, 12, 1)
+    assert traversal_plan(30, 128, 3, 28, H100_SMEM) == (3, 12, 1)
+    assert traversal_plan(700, 128, 7, 28, H100_SMEM) == (7, 12, 1)  # sums in registers
+    # Depth 8: three arenas a stage fit the target, four (a whole walk) are taken.
+    assert traversal_plan(500, 512, 1, 28, H100_SMEM) == (1, WALK_TREES, 1)
+    assert traversal_plan(ROW_TILE_TREES - 1, 128, 1, 28, H100_SMEM)[2] == 0
+    assert traversal_plan(ROW_TILE_TREES, 128, 1, 28, H100_SMEM)[2] == 1
+    # Rows too wide for a tile beside two arenas: read from global memory.
+    assert traversal_plan(1000, 128, 1, 1000, H100_SMEM) == (1, 24, 0)
 
 
 @pytest.mark.parametrize("depth,n_classes", [
     (14, 1), (13, 4), (6, 300), (6, 226), (13, 1), (20, 3), (6, 1), (4, 1000),
 ])
-def test_traversal_plan_serves_every_model(depth, n_classes):
-    """Models the staged route could not hold (an arena of depth 14, depth 13
-    beside 4 classes, 226 or more classes): the plan tiles the classes and
-    reads arenas from global memory, within a block's shared memory, and
-    never raises."""
-    arena = 2 ** (depth + 1) - 1
-    n_trees = 2 * n_classes
-    tile, trees_blk = traversal_plan(n_trees, arena, n_classes, H100_SMEM)
+@pytest.mark.parametrize("rounds", [2, 40])
+def test_traversal_plan_serves_every_model(depth, n_classes, rounds):
+    """Models the staged route cannot hold (an arena of depth 13 or more,
+    226 or more classes): the plan tiles the classes and reads arenas
+    through L2, within a block's shared memory, and never raises."""
+    arena = 2 ** (depth + 1)  # packed, padded to even
+    n_trees = rounds * n_classes
+
+    def sums(tile):
+        return 0 if tile <= KREG else tile * THREADS * 4
+
+    tile, trees_blk, row_tile = traversal_plan(n_trees, arena, n_classes, 28, H100_SMEM)
     assert 1 <= tile <= n_classes
-    acc = tile * THREADS * 4
-    assert acc + trees_blk * arena * NODE_BYTES <= H100_SMEM
-    assert 0 <= trees_blk <= n_trees // n_classes * tile
-    if trees_blk == 0:  # arenas read through L2 only where one would not fit
-        assert acc + arena * NODE_BYTES > H100_SMEM
-    if n_classes * THREADS * 4 + arena * NODE_BYTES <= H100_SMEM:
+    assert BARRIER_BYTES + sums(tile) + 2 * trees_blk * arena * NODE_BYTES \
+        + row_tile * THREADS * 28 * 4 <= H100_SMEM
+    assert 0 <= trees_blk <= rounds * tile
+    if trees_blk == 0:  # arenas read through L2 only where two would not fit
+        assert BARRIER_BYTES + sums(tile) + 2 * arena * NODE_BYTES > H100_SMEM
+    if row_tile:
+        assert rounds * tile >= ROW_TILE_TREES
+    if BARRIER_BYTES + sums(n_classes) + 2 * arena * NODE_BYTES <= H100_SMEM:
         assert tile == n_classes  # all classes in one block while they fit
     if (depth, n_classes) in ((14, 1), (13, 4)):
-        assert (tile, trees_blk) == (n_classes, 0)
+        assert (tile, trees_blk, row_tile) == (n_classes, 0, int(rounds * n_classes >= 16))
     if (depth, n_classes) == (6, 300):
-        assert trees_blk > 0 and tile * THREADS * 4 <= 48 * 1024
+        assert trees_blk >= WALK_TREES and row_tile == 1
+        assert tile * THREADS * 4 <= SMEM_TARGET // 2
