@@ -28,8 +28,10 @@ Phases, each printing one JSON line:
                 the kernel-path fit, alternating which runs first: the two
                 growths end to end, like for like.
   5. ops      — the path the reference gives `histogram_packed` and
-                `decompress`: `ops.histogram_packed_op` and `ops.decompress_op`
-                on the training matrix's words, counts reset just before.
+                `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
+                and the matrix's own `CompressedMatrix.unpack()` on the
+                training matrix's words, counts reset just before
+                (`histogram_packed` 1, `decompress` 2).
   6. check    — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
@@ -43,7 +45,11 @@ Phases, each printing one JSON line:
                 bit for bit; the traversal at the serving shapes (SERVING:
                 500 trees at depth 6 and 8, 700 trees x 7 classes, and 500
                 trees at depth 6 whose every walk goes the full depth, over
-                the 1M training rows), bit for bit.
+                the 1M training rows), bit for bit; decompress bit for bit on
+                the training matrix, on 4-bit symbols packed from known bins
+                and on random words at every shape of DECOMPRESS_SHAPES (the
+                plain version on word-aligned slices of the rows; past 2^31
+                output elements, on the rows past element 2^31).
   7. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
@@ -61,7 +67,11 @@ Phases, each printing one JSON line:
                 plan's; the traversal at each serving shape,
                 its bound counting the levels the run's rows visit; the cut
                 selection by events and back to back, beside
-                `compute_cuts_op` and the candidate sort it no longer runs.
+                `compute_cuts_op` and the candidate sort it no longer runs;
+                decompress by events and back to back at the main shape and
+                at each timed shape of DECOMPRESS_SHAPES, beside its bound
+                and `copy_` of as many bytes read and written (what the card
+                reaches on the same traffic; no port code calls it).
 Then the kernels line, the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
@@ -103,6 +113,18 @@ DEEP_TRAVERSALS = ((4, 14, 1, HELD_OUT), (8, 13, 4, HELD_OUT), (600, 6, 300, 20_
 # a model fitted on 1M rows splits every node it reaches above its last
 # level, which share 0.0 gives: every walk takes the full depth.
 SERVING = ((500, 6, 1, 0.2), (500, 8, 1, 0.2), (700, 6, 7, 0.2), (500, 6, 1, 0.0))
+# decompress beyond the training matrix, on random words made on the card
+# (any words are valid input: each field is masked): (name, rows, features,
+# bits, timed). The main shape at its other widths, the Bosch-shaped matrix
+# (`DATASETS["bosch"]`), the paper's 11M-row Higgs run, and one past 2^31
+# output elements (77M x 28, 8.6 GB out), checked on the rows past element
+# 2^31 and not timed.
+DECOMPRESS_SHAPES = (("bits_4", 1_000_000, 28, 4, True), ("bits_9", 1_000_000, 28, 9, True),
+                     ("bits_32", 1_000_000, 28, 32, True),
+                     ("bosch", 1_183_747, 968, 8, True),
+                     ("higgs_11m", 11_000_000, 28, 8, True),
+                     ("past_2_31", 77_000_000, 28, 8, False))
+DECOMPRESS_CHECK_ELEMENTS = 1 << 26  # elements a slice of decompress's plain check
 
 # Where each kernel's TPU original lives (file:line of its pallas_call). The
 # row-id histogram extends the privatised kernel to the function the
@@ -461,18 +483,21 @@ def main() -> int:
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
+    bins_unpacked = dtrain.matrix.unpack()
     torch.cuda.synchronize()
     ops_launches = ops.launches()
     want_hp = ref.histogram_packed_ref(packed, gh, levels[32], 32, MAX_BINS, bits)
     hp_ok = bool(((hp - want_hp).abs() <= counts_and_tolerance(
         ref.histogram_packed_ref, packed, gh, levels[32], 32, MAX_BINS, bits)).all())
-    bins_exact = bool(torch.equal(bins, ref.decompress_ref(packed, bits, n)))
+    bins_exact = bool(torch.equal(bins, dense))
+    unpack_exact = bool(torch.equal(bins_unpacked, dense))
     emit({"phase": "ops", "launches": ops_launches, "histogram_packed_op_ok": hp_ok,
-          "decompress_op_exact": bins_exact, "bins_shape": list(bins.shape)})
-    expect_launches("ops path", ops_launches, {"histogram_packed": 1, "decompress": 1})
-    if not hp_ok or not bins_exact or bins.shape != (n, f):
+          "decompress_op_exact": bins_exact, "matrix_unpack_exact": unpack_exact,
+          "bins_shape": list(bins.shape)})
+    expect_launches("ops path", ops_launches, {"histogram_packed": 1, "decompress": 2})
+    if not (hp_ok and bins_exact and unpack_exact) or bins.shape != (n, f):
         raise SystemExit("the ops path's histogram or bins disagree with the plain versions")
-    del bins
+    del bins, bins_unpacked
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
@@ -710,22 +735,53 @@ def main() -> int:
     if err != 0.0:
         raise SystemExit(f"ensemble_traversal kernel disagrees: {err}")
 
+    def decompress_err(words, b, rows, got, first_row=0) -> int:
+        """Largest |kernel - plain| over the rows from `first_row` on, the
+        plain version on word-aligned slices (its int64 intermediates of a
+        whole Bosch-shaped matrix would take tens of GB)."""
+        spw_ = 32 // b
+        step = max(1, DECOMPRESS_CHECK_ELEMENTS // words.shape[0] // spw_) * spw_
+        err_, r0 = 0, first_row // spw_ * spw_
+        while r0 < rows:
+            r1 = min(rows, r0 + step)
+            want_ = ref.decompress_ref(words[:, r0 // spw_:-(-r1 // spw_)], b, r1 - r0)
+            err_ = max(err_, int((got[r0:r1].to(torch.int64) - want_).abs().max()))
+            r0 = r1
+        return err_
+
     # decompress: the training matrix (8-bit symbols) and 4-bit symbols at an
-    # odd row count, against the plain unpack and against the bins packed.
+    # odd row count, against the plain unpack and against the bins packed;
+    # then random words at DECOMPRESS_SHAPES.
     n_odd = n - 1 if n % 2 == 0 else n
     bins4 = torch.randint(0, 16, (n_odd, f), device=dev, generator=gen, dtype=torch.int32)
-    packed4 = pack(bins4, 4)
-    dec_err = 0
-    for words, b, rows, truth in ((packed, bits, n, None), (packed4, 4, n_odd, bins4)):
+    dec_checked = []
+    for name_d, words, b, rows in (("main", packed, bits, n), ("bins_4", pack(bins4, 4), 4,
+                                                                n_odd)):
         got = decompress(words, b, rows)
-        want = ref.decompress_ref(words, b, rows)
-        dec_err = max(dec_err, int((got - want).abs().max()))
-        if truth is not None:
-            dec_err = max(dec_err, int((got - truth).abs().max()))
-    results["decompress"] = {"max_abs_err": float(dec_err), "tolerance": "exact"}
+        err_d = decompress_err(words, b, rows, got)
+        if name_d == "bins_4":
+            err_d = max(err_d, int((got - bins4).abs().max()))
+        dec_checked.append({"shape": name_d, "rows": rows, "features": f, "bits": b,
+                            "max_abs_err": float(err_d)})
+    del bins4, got
+    dec_words = {}  # the random words of the timed shapes, kept for the time phase
+    for name_d, rows, feats, b, timed in DECOMPRESS_SHAPES:
+        words = torch.randint(-2**31, 2**31, (feats, -(-rows // (32 // b))), device=dev,
+                              generator=gen, dtype=torch.int32)
+        got = decompress(words, b, rows)
+        first = 0 if timed else 2**31 // feats  # the rows past element 2^31
+        dec_checked.append({"shape": name_d, "rows": rows, "features": feats, "bits": b,
+                            "checked_from_row": first,
+                            "max_abs_err": float(decompress_err(words, b, rows, got, first))})
+        del got
+        if timed:
+            dec_words[name_d] = (words, rows, b)
+        del words
+        torch.cuda.empty_cache()
+    dec_err = max(r["max_abs_err"] for r in dec_checked)
+    results["decompress"] = {"max_abs_err": dec_err, "tolerance": "exact", "shapes": dec_checked}
     if dec_err != 0:
-        raise SystemExit(f"decompress kernel disagrees: {dec_err}")
-    del bins4, packed4, got, want
+        raise SystemExit(f"decompress kernel disagrees: {dec_checked}")
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
     # --- 7. times -------------------------------------------------------------
@@ -958,7 +1014,6 @@ def main() -> int:
             "library_ms": None,
         },
         "decompress": {
-            "ms": time_ms(lambda: decompress(packed, bits, n)),
             "plain_ms": time_ms(lambda: ref.decompress_ref(packed, bits, n), iters=5),
             "library_ms": None,
         },
@@ -969,10 +1024,30 @@ def main() -> int:
     times["quantile_cuts"].update(bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = traversal_bound(ens.nodes, xte, ens.n_classes, DEPTH)
     times["ensemble_traversal"].update(bound_ms=b_ms, bound_by=b_by)
-    # The words read once, one int32 written per (row, feature); a shift and
-    # a mask per element.
-    b_ms, b_by = bound(f * w * 4 + n * f * 4, 2 * n * f)
-    times["decompress"].update(bound_ms=b_ms, bound_by=b_by)
+
+    def decompress_times(words_, rows_, b) -> dict:
+        """Events and back to back, beside the bound (the words read once, one
+        int32 written per (row, feature); a shift and a mask per element) and
+        `copy_` of a tensor whose reads and writes together are as many
+        bytes."""
+        feats, n_words = words_.shape
+        nbytes = feats * n_words * 4 + rows_ * feats * 4
+        b_ms_, b_by_ = bound(nbytes, 2 * rows_ * feats)
+        src = torch.empty(nbytes // 16, dtype=torch.int64, device=dev)
+        dst = torch.empty_like(src)
+        row = {"rows": rows_, "features": feats, "bits": b,
+               "ms": time_ms(lambda: decompress(words_, b, rows_)),
+               "back_to_back_ms": back_to_back_ms(lambda: decompress(words_, b, rows_)),
+               "bound_ms": b_ms_, "bound_by": b_by_,
+               "copy_ms": time_ms(lambda: dst.copy_(src)),
+               "copy_back_to_back_ms": back_to_back_ms(lambda: dst.copy_(src))}
+        del src, dst
+        torch.cuda.empty_cache()
+        return row
+
+    times["decompress"].update(decompress_times(packed, n, bits))
+    dec_rows = {name_d: decompress_times(*v) for name_d, v in dec_words.items()}
+    del dec_words
 
     emit({"phase": "time", "quantile_cuts": {
         "shape": list(srt.shape),
@@ -996,6 +1071,7 @@ def main() -> int:
         **{f"{k}_ms": time_ms(lambda: traversal_at(ens.nodes, xte, ens.n_classes, DEPTH, v),
                               iters=50) for k, v in route_plans.items()}},
         "ensemble_traversal_deep_and_wide": deep, "ensemble_traversal_serving": serving})
+    emit({"phase": "time", "decompress_shapes": {"main": times["decompress"], **dec_rows}})
     counted = {**launches, **{k: ops_launches[k] for k in ("histogram_packed", "decompress")}}
     kernels = []
     for name in REPLACES:

@@ -91,6 +91,13 @@ class CompressedMatrix:
     def n_features(self) -> int:
         return self.packed.shape[0]
 
+    def unpack(self) -> torch.Tensor:
+        """(n_rows, n_features) int32 bins: the decompress kernel on the
+        card, its plain version (`unpack`) on the CPU."""
+        from repro_torch.kernels import ops  # ops imports this module
+
+        return ops.decompress_op(self.packed, self.bits, self.n_rows)
+
     def nbytes_compressed(self) -> int:
         return self.packed.numel() * 4
 

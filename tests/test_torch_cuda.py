@@ -188,15 +188,49 @@ def test_histograms_past_the_plan_cap_on_card(rng, skew, constant):
 
 
 @pytest.mark.cuda
-def test_decompress_kernel_on_card(rng):
+@pytest.mark.parametrize("n,f,bits,n_packed", [
+    (1001, 5, 4, 1001), (777, 28, 8, 777), (4096, 3, 8, 4096), (333, 2, 5, 333),
+    (65, 1, 32, 65),
+    # rows not a multiple of a tile (32 * spw rows), F across the feature
+    # tiles (33: the second 32 features' shifted shared rows; 65 and 130:
+    # tiles of 64 features and a ragged last one), F % 4 != 0 (element by
+    # element), bits 1, 3, 9, 17 and 32
+    (3001, 1, 1, 3001), (2000, 33, 3, 2000), (1500, 65, 9, 1500), (999, 130, 17, 999),
+    (517, 64, 32, 517), (1000, 968, 8, 1000),
+    # fewer rows than the words hold: the words past them are never read
+    (870, 7, 8, 1000),
+    # more tiles than the persistent grid has blocks (132 SMs x 8 blocks)
+    (40_001, 3, 32, 40_001), (200_003, 28, 8, 200_003),
+])
+def test_decompress_kernel_on_card(rng, n, f, bits, n_packed):
+    """Bit for bit against the plain version and against the bins packed;
+    at 32 bits the symbols span every uint32 (int32 bit patterns)."""
     dev = _cuda()
-    for n, f, bits in [(1001, 5, 4), (777, 28, 8), (4096, 3, 8), (333, 2, 5), (65, 1, 32)]:
-        bins = torch.from_numpy(rng.integers(0, 2**min(bits, 31), size=(n, f)).astype(np.int32))
-        packed = TC.pack(bins, bits).to(dev)
-        got = decompress(packed, bits, n)
-        np.testing.assert_array_equal(got.cpu().numpy(), ref.decompress_ref(packed, bits, n)
-                                      .cpu().numpy())
-        np.testing.assert_array_equal(got.cpu().numpy(), bins.numpy())
+    bins = torch.from_numpy(rng.integers(0, 2**bits, size=(n_packed, f), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    packed = TC.pack(bins, bits).to(dev)
+    got = decompress(packed, bits, n)
+    assert got.shape == (n, f) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.decompress_ref(packed, bits, n).cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), bins[:n].numpy())
+
+
+@pytest.mark.cuda
+def test_compressed_matrix_unpack_launches_decompress(rng):
+    """`CompressedMatrix.unpack()` on the card is one decompress launch, and
+    gives the bins that quantising with the matrix's cuts gives."""
+    from repro_torch.core import DeviceDMatrix
+
+    _cuda()
+    x = rng.normal(size=(3001, 7)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    d = DeviceDMatrix(x, max_bins=64)
+    ops.reset_launches()
+    got = d.matrix.unpack()
+    assert ops.launches()["decompress"] == 1
+    want = TQ.quantize(torch.from_numpy(x), d.cuts.cpu())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
 @pytest.mark.cuda

@@ -164,8 +164,11 @@ def test_histogram_rows_plain_vs_reference(rng, n, f, max_bins, n_nodes, m):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("bits,n,f", [(4, 1001, 5), (8, 777, 11), (8, 2048, 3), (5, 333, 2)])
+@pytest.mark.parametrize("bits,n,f", [(4, 1001, 5), (8, 777, 11), (8, 2048, 3), (5, 333, 2),
+                                      (1, 1001, 3), (9, 1000, 7), (16, 333, 4), (32, 65, 2)])
 def test_decompress_plain_vs_reference(rng, bits, n, f):
+    """At 32 bits the symbols span every uint32; int32 holds their bit
+    patterns on both sides."""
     bins = rng.integers(0, 2**bits, size=(n, f)).astype(np.int32)
     packed = np.asarray(JC.pack(jnp.asarray(bins), bits))
     want = np.asarray(JO.decompress_op(jnp.asarray(packed), bits, n))

@@ -107,6 +107,19 @@ def test_dmatrix_matches_reference_with_shared_cuts(rng):
     assert d.compression_ratio() == pytest.approx(jd.compression_ratio())
 
 
+@pytest.mark.parametrize("max_bins", [4, 16, 256])
+def test_compressed_matrix_unpack_matches_reference(rng, max_bins):
+    """`CompressedMatrix.unpack()` is the reference's method: the port's
+    matrix and the reference's, at the same cuts, unpack to the same bins."""
+    x = _data(rng)
+    jd = JDMatrix(x, max_bins=max_bins)
+    d = DeviceDMatrix(x, max_bins=max_bins, cuts=np.asarray(jd.cuts), device="cpu")
+    got = d.matrix.unpack()
+    want = np.asarray(jd.matrix.unpack())
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_dmatrix_ref_shares_cuts(rng):
     x = _data(rng)
     xv = _data(rng, n=257)
