@@ -27,12 +27,37 @@ Phases, each printing one JSON line:
                 gate. Then FIT_PAIRS warm, untraced pairs of the default and
                 the kernel-path fit, alternating which runs first: the two
                 growths end to end, like for like.
-  5. ops      — the path the reference gives `histogram_packed` and
+  5. dense    — the uncompressed-matrix fits on the same matrix
+                (`compress_matrix=False`: one `CompressedMatrix.unpack()`, i.e.
+                one decompress launch, before the first round), default and
+                kernel path, each with its own counts: decompress 1, and
+                privatised histogram 0 / row-id 0 / split scan 60 (the default
+                growth's histograms are plain-torch scatters on dense bins) and
+                60 / 0 / 60. Each must beat 0.7; its accuracy gap to the packed
+                fit of the same growth and the share of trees whose structure
+                matches that fit are readings. Then DENSE_PAIRS warm alternating
+                pairs of the dense and the packed default fit.
+  6. evals    — a fit of at most EVAL_ROUNDS rounds with the held-out rows as
+                an eval set (`DeviceDMatrix(..., ref=dtrain)`), logloss and auc,
+                early stopping after EARLY_STOP rounds: best_iteration, rounds
+                run and kept, fit_s beside a fit of as many rounds without
+                evals, its launches (the default growth's per round, no
+                traversal, no decompress: eval margins update in bin space).
+                Gates: the history's valid_auc at best_iteration equals
+                `eval` of the model of best_iteration + 1 rounds (the final
+                model when early stopping cut it there) within 1e-5, and
+                `predict(iteration_range=ITERATION_RANGE)` of the main model is
+                bit for bit the plain traversal of the sliced arenas. Readings:
+                fit(6) + update(4) against the main fit(10) (structure share,
+                largest margin gap), and the synchronising calls the evals add
+                (`torch.cuda.set_sync_debug_mode("warn")`; the design reads
+                metrics once a chunk).
+  7. ops      — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  6. check    — each kernel against its plain PyTorch version on the same
+  8. check    — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -50,7 +75,7 @@ Phases, each printing one JSON line:
                 and on random words at every shape of DECOMPRESS_SHAPES (the
                 plain version on word-aligned slices of the rows; past 2^31
                 output elements, on the rows past element 2^31).
-  7. time     — CUDA-event ms of each kernel, its plain version and, where one
+  9. time     — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -72,18 +97,26 @@ Phases, each printing one JSON line:
                 at each timed shape of DECOMPRESS_SHAPES, beside its bound
                 and `copy_` of as many bytes read and written (what the card
                 reaches on the same traffic; no port code calls it).
-Then the kernels line, the `nvidia-smi` line and, last,
+With --profile, four further fits are traced after the evals phase, each
+printing its device busy time, idle share, launches and top kernels: the
+default, the dense default, and EVAL_ROUNDS rounds with and without the
+evals (tables profile_{fit,dense,evals,no_evals}.txt in the output directory).
+Then the kernels line (each kernel's launches on the path that runs it:
+the main path's, histogram_packed's in the ops phase, decompress's in the
+dense default fit), the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -146,6 +179,9 @@ FITS = {
     "kernel": {"use_kernel_histograms": True},
     "lossguide": {"growth": "lossguide", "max_leaves": 32},
 }
+DENSE_PAIRS = 3  # warm alternating pairs of the dense and the packed default fit
+EVAL_ROUNDS, EARLY_STOP = 40, 5  # the evals fit: at most 40 rounds, chunks of 5
+ITERATION_RANGE = (2, 7)  # rounds of the main model predicted alone
 
 
 def emit(obj: dict) -> None:
@@ -178,14 +214,34 @@ def ptxas_summary(report: str) -> list[dict]:
     return rows
 
 
-def path_launches(use_kernel_histograms: bool = False) -> dict[str, int]:
+def path_launches(use_kernel_histograms: bool = False, dense: bool = False) -> dict[str, int]:
     """Launches of the growth kernels in one fit of ROUNDS trees, DEPTH levels
     each: every level scans its splits; the default growth histograms the
     root in full and every level below by the row-id kernel, the kernel path
-    every level in full."""
+    every level in full. On dense bins (`compress_matrix=False`) the default
+    growth's histograms are plain-torch scatters, no kernel."""
     full = ROUNDS * (DEPTH if use_kernel_histograms else 1)
-    return {"histogram_private": full, "histogram_rows": ROUNDS * DEPTH - full,
-            "split_scan": ROUNDS * DEPTH}
+    rows = ROUNDS * DEPTH - full
+    if dense and not use_kernel_histograms:
+        full = rows = 0
+    return {"histogram_private": full, "histogram_rows": rows, "split_scan": ROUNDS * DEPTH}
+
+
+def count_syncs(fn) -> int:
+    """Synchronising calls that `fn` makes, as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
 
 
 def expect_launches(where: str, got: dict[str, int], want: dict[str, int]) -> None:
@@ -194,18 +250,22 @@ def expect_launches(where: str, got: dict[str, int], want: dict[str, int]) -> No
         raise SystemExit(f"{where}: launches (got, expected) {wrong}")
 
 
-def profile_fit(dtrain) -> None:
-    """A second fit, traced: device time by kernel, device busy time against
-    the fit's wall time."""
+def profile_fit(dtrain, name: str = "fit", knobs: dict | None = None,
+                fit_kw: dict | None = None) -> None:
+    """A further fit (Booster knobs `knobs`, fit keywords `fit_kw`), traced:
+    device time by kernel, device busy time against the fit's wall time;
+    the table in profile_{name}.txt of the output directory."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Booster
 
+    knobs = {"n_rounds": ROUNDS, **(knobs or {})}
+
     def fit():
-        Booster(n_rounds=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS,
-                objective="binary:logistic").fit(dtrain)
+        Booster(max_depth=DEPTH, max_bins=MAX_BINS, objective="binary:logistic",
+                **knobs).fit(dtrain, **(fit_kw or {}))
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -233,9 +293,10 @@ def profile_fit(dtrain) -> None:
     ours = [e for e in kernels if re.search(r"(histogram|split_scan)_?\w*_kernel", e.key)]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_fit.txt").write_text(
+    (out / f"profile_{name}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60))
-    emit({"phase": "profile", "fit_s_untraced": untraced, "fit_s_traced": traced,
+    emit({"phase": "profile", "fit": name, **knobs, "fit_s_untraced": untraced,
+          "fit_s_traced": traced,
           "device_busy_s": busy, "idle_share_untraced": 1 - busy / untraced,
           "device_kernel_launches": sum(e.count for e in kernels),
           "top": [{"name": e.key[:90], "device_ms": device_us(e) / 1e3,
@@ -251,9 +312,10 @@ def main() -> int:
                     help="training rows (the paper's Higgs run has 11,000,000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a second fit with torch.profiler: device time "
-                         "by kernel and the device's idle share "
-                         "(table in chiprun_out/profile_fit.txt)")
+                    help="also trace further fits with torch.profiler (the default, "
+                         "the dense default, 40 rounds with and without the evals): "
+                         "device time by kernel and the device's idle share "
+                         "(tables profile_*.txt in the output directory)")
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -268,6 +330,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Booster, DeviceDMatrix
     from repro_torch.core.compress import pack, unpack
+    from repro_torch.core.predict import slice_rounds, truncate_rounds
     from repro_torch.core.tree import _histograms_by_subtraction
     from repro_torch.core.histogram import node_sums
     from repro_torch.data import make_dataset
@@ -372,6 +435,17 @@ def main() -> int:
 
     # --- 4. further fits on the same matrix -----------------------------------
     ens = bst.ensemble
+
+    def same_structure(a, b) -> float:
+        """Share of trees whose structure is the same in two models: rounding
+        in another order may flip a near-tied split, and the trees after it
+        follow other gradients."""
+        same = torch.ones(a.n_trees, dtype=torch.bool, device=dev)
+        for fld in ("feature", "split_bin", "default_left", "is_leaf"):
+            same &= (getattr(a, fld) == getattr(b, fld)).all(dim=1)
+        return float(same.float().mean())
+
+    fitted = {"default": (bst, acc)}
     for name, knobs in FITS.items():
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -382,13 +456,9 @@ def main() -> int:
         line = {"phase": "fit", "fit": name, **knobs, "fit_s": fit_s,
                 "held_out_accuracy": accuracy(other.predict(x_te)),
                 "launches": fit_launches}
+        fitted[name] = (other, line["held_out_accuracy"])
         if name == "kernel":
-            # Subtraction rounds differently from a full build, so a near-tied
-            # split may flip and the trees after it follow other gradients.
-            same = torch.ones(ens.n_trees, dtype=torch.bool, device=dev)
-            for f in ("feature", "split_bin", "default_left", "is_leaf"):
-                same &= (getattr(ens, f) == getattr(other.ensemble, f)).all(dim=1)
-            line["trees_same_structure_as_main"] = float(same.float().mean())
+            line["trees_same_structure_as_main"] = same_structure(ens, other.ensemble)
         elif name == "lossguide":
             leaves = other.ensemble.is_leaf.sum(dim=1)
             line["leaves_per_tree_max"] = int(leaves.max())
@@ -414,8 +484,111 @@ def main() -> int:
           "default_slower_in_pairs": sum(d > k for d, k in zip(pair_s["default"],
                                                                pair_s["kernel"]))})
 
+    # --- 5. the dense fit (compress_matrix=False) ----------------------------
+    dense_launches = {}
+    for name in ("default", "kernel"):
+        knobs = {"compress_matrix": False, **FITS.get(name, {})}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        other = Booster(**booster_kw, **knobs).fit(dtrain)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        dense_launches[name] = ops.launches()
+        packed_bst, packed_acc = fitted[name]
+        line = {"phase": "dense", "fit": name, **knobs, "fit_s": fit_s,
+                "held_out_accuracy": accuracy(other.predict(x_te)),
+                "launches": dense_launches[name]}
+        line["accuracy_minus_packed"] = line["held_out_accuracy"] - packed_acc
+        line["trees_same_structure_as_packed"] = same_structure(packed_bst.ensemble,
+                                                                other.ensemble)
+        emit(line)
+        if line["held_out_accuracy"] <= 0.7:
+            raise SystemExit(f"dense {name} fit: held-out accuracy does not beat 0.7")
+        expect_launches(f"dense {name} fit", dense_launches[name],
+                        {**path_launches(name == "kernel", dense=True), "decompress": 1})
+
+    dense_s: dict[str, list[float]] = {"dense": [], "packed": []}
+    for i in range(DENSE_PAIRS):
+        for name in ("dense", "packed") if i % 2 == 0 else ("packed", "dense"):
+            t0 = time.perf_counter()
+            Booster(**booster_kw, compress_matrix=name == "packed").fit(dtrain)
+            torch.cuda.synchronize()
+            dense_s[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[DENSE_PAIRS // 2] for k, v in dense_s.items()}
+    emit({"phase": "dense_pairs", "fit_s": dense_s, "median_dense_s": med["dense"],
+          "median_packed_s": med["packed"], "dense_over_packed": med["dense"] / med["packed"]})
+
+    # --- 6. evals, early stopping, iteration_range, update ---------------------
+    dvalid = DeviceDMatrix(x_te, label=y_te, ref=dtrain)
+    eval_kw = dict(evals=[(dvalid, "valid")], eval_metric=["logloss", "auc"],
+                   early_stopping_rounds=EARLY_STOP)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    es = Booster(**{**booster_kw, "n_rounds": EVAL_ROUNDS}).fit(dtrain, **eval_kw)
+    torch.cuda.synchronize()
+    es_s = time.perf_counter() - t0
+    es_launches = ops.launches()
+    ran = len(es.history)  # every round run is recorded, kept or not
+    t0 = time.perf_counter()
+    Booster(**{**booster_kw, "n_rounds": ran}).fit(dtrain)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # The history's reading at the best round against an independent eval
+    # of the model of best_iteration + 1 rounds: the final model when early
+    # stopping cut it there.
+    best = es.best_iteration
+    at_best = copy.copy(es)
+    at_best.ensemble = truncate_rounds(es.ensemble, best + 1)
+    eval_auc = at_best.eval(dvalid, "valid", metrics=["auc"])["valid_auc"]
+    hist_auc = es.history[best]["valid_auc"]
+    # Host reads that the evals add: synchronising calls of a fit with the
+    # evals less those of the same rounds without them.
+    syncs_evals = count_syncs(lambda: Booster(**{**booster_kw, "n_rounds": EVAL_ROUNDS})
+                              .fit(dtrain, **eval_kw))
+    syncs_plain = count_syncs(lambda: Booster(**{**booster_kw, "n_rounds": ran}).fit(dtrain))
+    # predict(iteration_range=) against the plain traversal of the sliced
+    # model on the same rows: the same leaves summed in the same order.
+    xte_dev = torch.as_tensor(x_te, device=dev)
+    part = slice_rounds(bst.ensemble, *ITERATION_RANGE)
+    plain_part = ref.ensemble_margins_ref(part.feature, part.threshold, part.default_left,
+                                          part.leaf_value, part.is_leaf, xte_dev,
+                                          part.n_classes, DEPTH) + part.base_score
+    ops.reset_launches()
+    got_part = bst.predict_margins(x_te, iteration_range=ITERATION_RANGE)
+    range_launches = ops.launches()["ensemble_traversal"]
+    range_exact = bool(torch.equal(got_part, plain_part)) and bool(torch.equal(
+        bst.predict(x_te, iteration_range=ITERATION_RANGE), torch.sigmoid(plain_part[:, 0])))
+    # update: fit(6) + update(4) beside fit(10), which differ on the card
+    # only by the atomics' order.
+    cont = Booster(**{**booster_kw, "n_rounds": 6}).fit(dtrain).update(dtrain, 4)
+    emit({"phase": "evals", "rounds_max": EVAL_ROUNDS, "early_stopping_rounds": EARLY_STOP,
+          "rounds_run": ran, "stopped": es.n_rounds_trained < ran,
+          "best_iteration": best, "n_rounds_trained": es.n_rounds_trained,
+          "best_score": es.best_score, "fit_s": es_s, "fit_s_same_rounds_no_evals": plain_s,
+          "evals_overhead_s": es_s - plain_s, "launches": es_launches,
+          "history_valid_auc_at_best": hist_auc, "eval_valid_auc_at_best": eval_auc,
+          "syncs_with_evals": syncs_evals, "syncs_without_evals": syncs_plain,
+          "syncs_added": syncs_evals - syncs_plain,
+          "chunks": -(-ran // EARLY_STOP),
+          "iteration_range": list(ITERATION_RANGE), "iteration_range_exact": range_exact,
+          "iteration_range_traversal_launches": range_launches,
+          "update_trees_same_structure_as_one_fit": same_structure(cont.ensemble, ens),
+          "update_margin_max_abs_gap": float((cont.margins - bst.margins).abs().max())})
+    if abs(hist_auc - eval_auc) > 1e-5:
+        raise SystemExit(f"history's valid_auc {hist_auc} at the best round differs from "
+                         f"eval's {eval_auc}")
+    if not range_exact or range_launches != 1:
+        raise SystemExit("predict(iteration_range=) differs from the plain traversal "
+                         "of the sliced model")
+    expect_launches("evals fit", es_launches, {
+        **{k: v * ran // ROUNDS for k, v in path_launches().items()},
+        "ensemble_traversal": 0, "decompress": 0})
+
     if args.profile:
         profile_fit(dtrain)
+        profile_fit(dtrain, "dense", {"compress_matrix": False})
+        profile_fit(dtrain, "evals", {"n_rounds": EVAL_ROUNDS}, eval_kw)
+        profile_fit(dtrain, "no_evals", {"n_rounds": EVAL_ROUNDS})
 
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -479,7 +652,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 5. the ops path of histogram_packed and decompress -----------------
+    # --- 7. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -546,7 +719,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 6. kernels against their plain versions ---------------------------
+    # --- 8. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -784,7 +957,7 @@ def main() -> int:
         raise SystemExit(f"decompress kernel disagrees: {dec_checked}")
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 7. times -------------------------------------------------------------
+    # --- 9. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1072,7 +1245,10 @@ def main() -> int:
                               iters=50) for k, v in route_plans.items()}},
         "ensemble_traversal_deep_and_wide": deep, "ensemble_traversal_serving": serving})
     emit({"phase": "time", "decompress_shapes": {"main": times["decompress"], **dec_rows}})
-    counted = {**launches, **{k: ops_launches[k] for k in ("histogram_packed", "decompress")}}
+    # Each kernel's launches on the path that runs it: the main path's, the
+    # ops phase's histogram_packed, and the dense default fit's decompress.
+    counted = {**launches, "histogram_packed": ops_launches["histogram_packed"],
+               "decompress": dense_launches["default"]["decompress"]}
     kernels = []
     for name in REPLACES:
         kernels.append({

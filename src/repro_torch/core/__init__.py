@@ -1,4 +1,30 @@
-"""Core of the port: the packed matrix, tree growth and boosting."""
+"""Core of the port: the packed matrix, tree growth, boosting and metrics."""
 from repro_torch.core.booster import Booster, BoosterConfig
 from repro_torch.core.convert import booster_from_numpy
 from repro_torch.core.dmatrix import DeviceDMatrix
+from repro_torch.core.metrics import Metric, get_metric, register_metric
+from repro_torch.core.objectives import Objective, get_objective
+from repro_torch.core.predict import (
+    Ensemble,
+    concat_ensembles,
+    predict_binned,
+    predict_binned_packed,
+    truncate_rounds,
+)
+
+__all__ = [
+    "Booster",
+    "BoosterConfig",
+    "DeviceDMatrix",
+    "booster_from_numpy",
+    "Metric",
+    "Objective",
+    "get_metric",
+    "get_objective",
+    "register_metric",
+    "Ensemble",
+    "concat_ensembles",
+    "truncate_rounds",
+    "predict_binned",
+    "predict_binned_packed",
+]

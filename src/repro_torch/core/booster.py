@@ -1,12 +1,16 @@
 """Gradient boosting — the Figure 1 pipeline; counterpart of `repro.core.booster`.
 
     dtrain = DeviceDMatrix(x, label=y)                  # cuda by default
-    bst = Booster(n_rounds=10, objective="binary:logistic").fit(dtrain)
+    dvalid = DeviceDMatrix(x_valid, label=y_valid, ref=dtrain)
+    bst = Booster(n_rounds=100, objective="binary:logistic")
+    bst.fit(dtrain, evals=[(dvalid, "valid")], eval_metric=["logloss", "auc"],
+            early_stopping_rounds=10)
     p = bst.predict(x_new)                              # raw rows, NaN = missing
+    bst.update(dtrain, 20)                              # 20 more rounds
 
 Training is a Python loop over rounds (the reference compiles the whole run
 into one `lax.scan`). Each round: gradients -> one tree per output grown
-from the packed matrix -> incremental margin update in bin space. The
+from the training matrix -> incremental margin update in bin space. The
 Booster runs on its training matrix's device; `predict` moves raw rows
 there and runs the ensemble-traversal kernel on the card.
 
@@ -14,22 +18,42 @@ Trees grow as the reference's do: depthwise or lossguide (`growth`,
 `max_leaves`); with the default `use_kernel_histograms=False` by the
 subtraction trick (the privatised histogram kernel at the root, the row-id
 kernel below it); with `use_kernel_histograms=True` every level in full
-through the privatised kernel.
+through the privatised kernel. With `compress_matrix=False` the rounds
+grow from the dense bins that `dtrain.matrix.unpack()` gives once a fit
+(one decompress launch on the card): plain-torch scatters build the
+default growth's histograms, and the kernel path packs the bins at
+`bits_needed(max_bins - 1)` for the privatised kernel every level, as the
+reference does.
 
-Not ported yet: evals, metrics and early stopping, `update`, checkpoints,
-sampling (`subsample`, `colsample_*`, `sampling_method`), monotone
-constraints, the numeric sentinel (`numeric_check`), the uncompressed
-matrix (`compress_matrix=False`), multi-device fits. Their knobs keep the
-reference's names and defaults; a non-default value raises
-NotImplementedError naming the knob.
+Evaluation sets (DeviceDMatrix built with `ref=dtrain`) keep their margins
+next to the training margins, updated each round from the round's trees in
+the training matrix's representation. Every requested metric of the
+training set and of every eval set is a 0-d tensor a round, left on the
+device. The rounds run in the reference's chunks, one ending at each
+multiple of `early_stopping_rounds` and one at the end of the run, and a
+chunk's metrics are read on the host once, stacked: never once a round.
+Early stopping reads the LAST metric of the LAST eval set, in the
+direction that metric declares, and truncates the model to
+`best_iteration + 1` rounds.
+
+Not ported yet: checkpoints (`save`/`load`, `checkpoint_every`, `resume`),
+custom objectives (`fit(obj=)`), sampling (`subsample`, `colsample_*`,
+`sampling_method`), monotone constraints, the numeric sentinel
+(`numeric_check`), external memory (`on_oom`), multi-device fits (`mesh=`
+and its keywords). Their knobs and keywords keep the reference's names and
+defaults; a non-default value raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.core import compress as C
+from repro_torch.core import metrics as M
 from repro_torch.core import objectives as O
 from repro_torch.core import predict as PR
 from repro_torch.core import quantile as Q
@@ -47,8 +71,9 @@ class BoosterConfig:
 
     `use_kernel_histograms=False` grows with the subtraction trick, `True`
     builds every level in full through the privatised histogram kernel, as
-    the reference's kernel path does. `hist_block_rows` has no effect: the
-    kernels need no dense tile.
+    the reference's kernel path does. `compress_matrix=False` grows from the
+    dense bins. `hist_block_rows` has no effect: the kernels need no dense
+    tile.
     """
 
     n_rounds: int = 100
@@ -83,7 +108,6 @@ class BoosterConfig:
             "subsample": 1.0, "colsample_bytree": 1.0, "colsample_bylevel": 1.0,
             "colsample_bynode": 1.0, "monotone_constraints": None,
             "sampling_method": "uniform", "numeric_check": "off",
-            "compress_matrix": True,
         }
         for knob, default in unported.items():
             if getattr(self, knob) != default:
@@ -97,12 +121,32 @@ class BoosterConfig:
         return S.SplitParams(self.reg_lambda, self.gamma, self.min_child_weight)
 
 
+# Keywords of the reference's fit/update that this port lacks, with their
+# defaults: any other value raises NotImplementedError naming the keyword.
+_UNPORTED_KEYWORDS = {
+    "obj": None, "mesh": None, "data_axes": ("data",), "collective": "psum",
+    "compression": None, "comm_tolerance": 0.05, "checkpoint_every": None,
+    "checkpoint_path": None, "on_oom": "raise",
+}
+
+
+def _refuse_unported(**given) -> None:
+    for kw, value in given.items():
+        default = _UNPORTED_KEYWORDS[kw]
+        if (tuple(value) if kw == "data_axes" else value) != default:
+            raise NotImplementedError(
+                f"{kw}={value!r} is not ported yet (only {kw}={default!r})")
+
+
 class Booster:
     """Gradient-boosted model (XGBoost's `Booster` noun).
 
     After `fit`: `ensemble` (stacked tree arenas, learning rate baked into
-    the leaves), `cuts`, `base_score`, `margins` (training margins),
-    `n_rounds_trained`, `device`.
+    the leaves), `cuts`, `base_score`, `margins` (training margins; None
+    after an early-stopped fit truncated the model), `history` (per-round
+    records keyed `train_{metric}` and `{set}_{metric}`),
+    `best_iteration`/`best_score` (when early stopping ran),
+    `n_rounds_trained`, `device`. `update(dtrain, n)` continues training.
     """
 
     def __init__(self, cfg: BoosterConfig | None = None, **params):
@@ -114,68 +158,350 @@ class Booster:
         self.ensemble: PR.Ensemble | None = None
         self.cuts: torch.Tensor | None = None
         self.base_score: float = 0.0
+        self.history: list[dict] = []
+        self.best_iteration: int | None = None
+        self.best_score: float | None = None
         self.n_rounds_trained: int = 0
         self.device: torch.device | None = None
         self.margins: torch.Tensor | None = None
+        self._train_dmat: DeviceDMatrix | None = None  # the matrix `margins` are of
+        self._metrics: tuple[M.Metric, ...] | None = None
 
     @property
     def obj(self) -> O.Objective:
         return O.get_objective(self.cfg.objective)
 
-    def fit(self, dtrain: DeviceDMatrix) -> "Booster":
-        """Train cfg.n_rounds rounds from scratch on dtrain's device."""
-        cfg, obj = self.cfg, self.obj
+    def num_boosted_rounds(self) -> int:
+        return self.n_rounds_trained
+
+    def _require_fitted(self):
+        if self.ensemble is None:
+            raise RuntimeError("Booster is not fitted yet — call fit() first")
+
+    # --- training ----------------------------------------------------------
+    def _resolve_metrics(self, eval_metric, custom_metric) -> tuple[M.Metric, ...]:
+        """eval_metric: one spec or a sequence of specs (registry names,
+        Metric objects, callables, (name, fn[, maximize]) tuples);
+        custom_metric: a single extra spec appended LAST, so with early
+        stopping it drives the stop. Defaults to the objective's metric."""
+        metrics = M.resolve_metrics(eval_metric)
+        if custom_metric is not None:
+            metrics = metrics + (M.get_metric(custom_metric),)
+        if not metrics:
+            metrics = (M.get_metric(self.obj.default_metric),)
+        return metrics
+
+    def fit(
+        self,
+        dtrain: DeviceDMatrix,
+        evals: Sequence = (),
+        *,
+        obj=None,
+        eval_metric=None,
+        custom_metric=None,
+        early_stopping_rounds: int | None = None,
+        verbose_every: int = 0,
+        callback: Callable[[int, dict], None] | None = None,
+        mesh=None,
+        data_axes: Sequence[str] = ("data",),
+        collective="psum",
+        compression: str | None = None,
+        comm_tolerance: float = 0.05,
+        checkpoint_every: int | None = None,
+        checkpoint_path: str | None = None,
+        on_oom: str = "raise",
+    ) -> "Booster":
+        """Train cfg.n_rounds rounds from scratch on dtrain's device.
+
+        evals: sequence of (DeviceDMatrix, name) pairs (or bare matrices,
+          named eval0, eval1, ...) built with `ref=dtrain`; their metrics are
+          computed every round. With `early_stopping_rounds`, the LAST
+          metric of the LAST eval set drives stopping (direction = that
+          metric's `maximize`) and the model is truncated to
+          best_iteration + 1 rounds.
+        eval_metric: metric spec or list of specs (names like "logloss",
+          "auc", "ndcg@10", Metric objects, callables); defaults to the
+          objective's default metric.
+        custom_metric: one extra metric spec, appended after eval_metric.
+        verbose_every: record every this many rounds in `history` (the last
+          round always); with 0, every round when evals or a callback are
+          given, else none.
+        callback: called as callback(round, record) for each recorded round,
+          once the chunk holding it has been read.
+        The other keywords are the reference's and not ported yet: a
+        non-default value raises NotImplementedError.
+        """
+        _refuse_unported(obj=obj, mesh=mesh, data_axes=data_axes, collective=collective,
+                         compression=compression, comm_tolerance=comm_tolerance,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_path=checkpoint_path, on_oom=on_oom)
+        self.ensemble = None
+        self.history = []
+        self.best_iteration = self.best_score = None
+        self.n_rounds_trained = 0
+        self.margins = self._train_dmat = None
         if dtrain.label is None:
             raise ValueError("dtrain must be constructed with label= to fit")
+        self._metrics = self._resolve_metrics(eval_metric, custom_metric)
+        self.device = dtrain.device
+        self.cuts = dtrain.cuts
+        self.base_score = float(self.obj.init_base_score(dtrain.label))
+        self._run_rounds(dtrain, self.cfg.n_rounds, evals, early_stopping_rounds,
+                         verbose_every, callback)
+        return self
+
+    def update(
+        self,
+        dtrain: DeviceDMatrix,
+        n_rounds: int,
+        evals: Sequence = (),
+        *,
+        eval_metric=None,
+        custom_metric=None,
+        early_stopping_rounds: int | None = None,
+        verbose_every: int = 0,
+        callback: Callable[[int, dict], None] | None = None,
+        mesh=None,
+        data_axes: Sequence[str] = ("data",),
+        collective="psum",
+        compression: str | None = None,
+        comm_tolerance: float = 0.05,
+        checkpoint_every: int | None = None,
+        checkpoint_path: str | None = None,
+    ) -> "Booster":
+        """Continue training for n_rounds more rounds (warm start).
+
+        If `dtrain` is the DeviceDMatrix the booster last trained on, the
+        rounds continue from its cached margins; otherwise the margins are
+        rebuilt by bin-space prediction (`predict_binned_packed`). On the
+        CPU fit(a) + update(b) is bit for bit one fit of a + b rounds (the
+        plain versions add in a fixed order). On the card it agrees with
+        that fit only within the fits' tolerance: the histogram kernels add
+        floats with atomics in no fixed order, so a near-tied split may
+        fall the other way. The objective is fixed at fit time; metrics may
+        be changed per update.
+        """
+        _refuse_unported(mesh=mesh, data_axes=data_axes, collective=collective,
+                         compression=compression, comm_tolerance=comm_tolerance,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_path=checkpoint_path)
+        self._require_fitted()
+        if dtrain.label is None:
+            raise ValueError("dtrain must be constructed with label= to update")
+        if not cuts_equal(self.cuts, dtrain.cuts):
+            raise ValueError(
+                "dtrain was quantised with different cuts than this booster; "
+                "build it with ref= the original training matrix"
+            )
+        if eval_metric is not None or custom_metric is not None or self._metrics is None:
+            self._metrics = self._resolve_metrics(eval_metric, custom_metric)
+        self._run_rounds(dtrain, n_rounds, evals, early_stopping_rounds,
+                         verbose_every, callback)
+        return self
+
+    def _initial_margins(self, dmat: DeviceDMatrix) -> torch.Tensor:
+        """Margins to (re-)enter training with: base score if unfitted, else
+        bin-space prediction of the current ensemble."""
+        if self.ensemble is None:
+            k = self.obj.n_outputs(self.cfg.n_classes)
+            return torch.full((dmat.n_rows, k), self.base_score, dtype=torch.float32,
+                              device=dmat.device)
+        return PR.predict_binned_packed(self.ensemble, dmat.matrix.packed, dmat.bits,
+                                        dmat.n_rows, self.cfg.max_bins - 1,
+                                        self.cfg.max_depth)
+
+    def _normalise_evals(self, evals, dtrain: DeviceDMatrix) -> list:
+        out = []
+        for i, e in enumerate(evals):
+            d, name = e if isinstance(e, (tuple, list)) else (e, f"eval{i}")
+            if not isinstance(d, DeviceDMatrix):
+                raise TypeError(
+                    "evals entries must be DeviceDMatrix (or (matrix, name)), "
+                    f"got {type(d)}; build with ref=dtrain"
+                )
+            if d.label is None:
+                raise ValueError(f"eval set '{name}' has no label")
+            if not dtrain.same_cuts(d):
+                raise ValueError(
+                    f"eval set '{name}' was quantised with different cuts; "
+                    "build it with DeviceDMatrix(x, label=y, ref=dtrain)"
+                )
+            out.append((d, name))
+        return out
+
+    def _bins(self, dmat: DeviceDMatrix):
+        """The representation the rounds read: the packed words, or with
+        compress_matrix=False the dense bins (one decompress on the card)."""
+        return dmat.packed_bins() if self.cfg.compress_matrix else dmat.matrix.unpack()
+
+    def _add_trees(self, trees: list[T.Tree], data, margins: torch.Tensor) -> torch.Tensor:
+        """Add one round's trees (unscaled leaves, tree c feeding output c)
+        to margins, by bin-space traversal of `data`."""
+        mb, depth = self.cfg.max_bins - 1, self.cfg.max_depth
+        if isinstance(data, C.PackedBins):
+            def leaves(tr):
+                return PR.traverse_tree_packed(
+                    tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
+                    data.packed, data.bits, data.n_rows, mb, depth)
+        else:
+            def leaves(tr):
+                return PR.traverse_tree_binned(
+                    tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
+                    data, mb, depth)
+        return margins + self.cfg.learning_rate * torch.stack([leaves(tr) for tr in trees],
+                                                              dim=1)
+
+    def _run_rounds(self, dtrain: DeviceDMatrix, n_rounds: int, evals,
+                    early_stopping_rounds, verbose_every, callback) -> None:
+        if n_rounds <= 0:
+            raise ValueError(f"n_rounds must be positive, got {n_rounds}")
+        cfg, obj = self.cfg, self.obj
+        if early_stopping_rounds and not evals:
+            raise ValueError(
+                "early_stopping_rounds requires at least one eval set "
+                "(pass evals=[(DeviceDMatrix(..., ref=dtrain), name)])"
+            )
         if dtrain.max_bins != cfg.max_bins:
             raise ValueError(
                 f"DeviceDMatrix was quantised with max_bins={dtrain.max_bins} "
                 f"but this booster expects max_bins={cfg.max_bins}"
             )
-        if cfg.n_rounds <= 0:
-            raise ValueError(f"n_rounds must be positive, got {cfg.n_rounds}")
-        self.device = dtrain.device
-        self.cuts = dtrain.cuts
-        y = dtrain.label
-        self.base_score = float(obj.init_base_score(y))
+        if dtrain.device != self.device:
+            raise ValueError(f"DeviceDMatrix lives on {dtrain.device}, the "
+                             f"booster on {self.device}")
+        evals = self._normalise_evals(evals, dtrain)
+        record_every = verbose_every or (1 if (callback or evals) else 0)
+        metrics = self._metrics if record_every > 0 else ()
+        extra = O.config_kwargs(cfg)
         k = obj.n_outputs(cfg.n_classes)
-        data = dtrain.packed_bins()
-        margins = torch.full((dtrain.n_rows, k), self.base_score,
-                             dtype=torch.float32, device=self.device)
-        hist_builder = (KO.build_histograms_kernel_packed if cfg.use_kernel_histograms
-                        else None)
-        trees: list[T.Tree] = []
-        for _ in range(cfg.n_rounds):
-            gh_all = obj.grad(margins, y)  # (n, k, 2), round-start gradients
-            round_trees = [
-                T.grow_tree(data, gh_all[:, c, :].contiguous(), dtrain.cuts,
-                            cfg.max_depth, cfg.max_bins, cfg.split_params,
-                            growth=cfg.growth,
-                            max_leaves=cfg.max_leaves or 2**cfg.max_depth,
-                            hist_builder=hist_builder)
-                for c in range(k)
-            ]
-            deltas = torch.stack([
-                PR.traverse_tree_packed(
-                    tr.feature, tr.split_bin, tr.default_left, tr.leaf_value,
-                    tr.is_leaf, data.packed, data.bits, data.n_rows,
-                    cfg.max_bins - 1, cfg.max_depth)
-                for tr in round_trees
-            ], dim=1)
-            margins = margins + cfg.learning_rate * deltas
-            trees.extend(round_trees)
-        self.ensemble = PR.stack_trees(trees, k, self.base_score,
-                                       leaf_scale=cfg.learning_rate)
-        self.margins = margins
-        self.n_rounds_trained = cfg.n_rounds
-        return self
 
-    def predict_margins(self, data) -> torch.Tensor:
+        y = dtrain.label
+        data = self._bins(dtrain)
+        eval_data = [self._bins(d) for d, _ in evals]
+        if self._train_dmat is dtrain and self.margins is not None:
+            margins = self.margins  # exact continuation, same matrix
+        else:
+            margins = self._initial_margins(dtrain)
+        eval_margins = [self._initial_margins(d) for d, _ in evals]
+        hist_builder = None
+        if cfg.use_kernel_histograms:
+            hist_builder = (KO.build_histograms_kernel_packed if cfg.compress_matrix
+                            else KO.build_histograms_kernel)
+        rounds_before = self.n_rounds_trained
+        es_on = bool(early_stopping_rounds)
+        e = int(early_stopping_rounds) if es_on else None
+        eval_names = [name for _, name in evals]
+        run_trees: list[T.Tree] = []
+        es_history: list[float] = []
+        best_round: int | None = None
+        stopped = False
+        last_chunk = None  # (start, tr_host, ev_host) for the final record
+        done = 0
+        while done < n_rounds and not stopped:
+            # A chunk ends at the next multiple of e and at the end of the run.
+            nxt = min(n_rounds, (done // e + 1) * e) if es_on else n_rounds
+            length = nxt - done
+            chunk_metrics = []  # a round's metrics, stacked: train, then each set
+            for _ in range(length):
+                gh_all = obj.grad(margins, y)  # (n, k, 2), round-start gradients
+                trees = [
+                    T.grow_tree(data, gh_all[:, c, :].contiguous(), self.cuts,
+                                cfg.max_depth, cfg.max_bins, cfg.split_params,
+                                growth=cfg.growth,
+                                max_leaves=cfg.max_leaves or 2**cfg.max_depth,
+                                hist_builder=hist_builder)
+                    for c in range(k)
+                ]
+                margins = self._add_trees(trees, data, margins)
+                run_trees.extend(trees)
+                values = [m.fn(margins, y, **extra) for m in metrics]
+                for j, (d, _) in enumerate(evals):
+                    eval_margins[j] = self._add_trees(trees, eval_data[j], eval_margins[j])
+                    values += [m.fn(eval_margins[j], d.label, **extra) for m in metrics]
+                if values:
+                    chunk_metrics.append(torch.stack([
+                        torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                        for v in values]))
+            if metrics:
+                # The chunk's one host read: (length, 1 + n_evals, n_metrics).
+                host = torch.stack(chunk_metrics).reshape(
+                    length, 1 + len(evals), len(metrics)).cpu().numpy()
+                tr_host = host[:, 0, :].T  # (n_metrics, length)
+                ev_host = [host[:, 1 + s, :].T for s in range(len(evals))]
+                self._record_history(done, length, tr_host, ev_host, metrics, eval_names,
+                                     rounds_before, record_every, callback)
+                last_chunk = (done, tr_host, ev_host)
+            if es_on:
+                # The LAST metric of the LAST eval set drives stopping, in
+                # the direction that METRIC declares.
+                es_history.extend(ev_host[-1][-1].tolist())
+                if nxt % e == 0 or nxt == n_rounds:
+                    arr = np.asarray(es_history)
+                    best_round = int(np.argmax(arr) if metrics[-1].maximize
+                                     else np.argmin(arr))
+                    if (len(arr) - 1 - best_round) >= e:
+                        stopped = True
+            done = nxt
+
+        # Deferred final history record: the cadence records round r when
+        # r % record_every == 0, the last trained round unconditionally.
+        if last_chunk is not None:
+            start, tr_host, ev_host = last_chunk
+            final_r = done - 1
+            if final_r % record_every != 0:
+                self._emit_record(final_r, final_r - start, tr_host, ev_host, metrics,
+                                  eval_names, rounds_before, callback)
+
+        # Early stopped: keep best_iteration + 1 rounds of this run. The
+        # Ensemble (and its packed nodes) is built once, here.
+        keep = best_round + 1 if stopped else done
+        run_ens = PR.stack_trees(run_trees[:keep * k], k, self.base_score,
+                                 leaf_scale=cfg.learning_rate)
+        self.ensemble = (run_ens if self.ensemble is None
+                         else PR.concat_ensembles(self.ensemble, run_ens))
+        self.n_rounds_trained = rounds_before + keep
+        if es_on and best_round is not None:
+            self.best_iteration = rounds_before + best_round
+            self.best_score = float(es_history[best_round])
+        if keep == done:
+            self.margins, self._train_dmat = margins, dtrain
+        else:  # model truncated: the margins would be stale
+            self.margins = self._train_dmat = None
+
+    def _record_history(self, start, length, tr_host, ev_host, metrics, eval_names,
+                        rounds_before, record_every, callback):
+        for i in range(length):
+            r = start + i
+            if r % record_every:
+                continue
+            self._emit_record(r, i, tr_host, ev_host, metrics, eval_names,
+                              rounds_before, callback)
+
+    def _emit_record(self, r, i, tr_host, ev_host, metrics, eval_names,
+                     rounds_before, callback):
+        rec: dict[str, Any] = {"round": rounds_before + r}
+        for j, m in enumerate(metrics):
+            rec[f"train_{m.name}"] = float(tr_host[j][i])
+        for name, vals in zip(eval_names, ev_host):
+            for j, m in enumerate(metrics):
+                rec[f"{name}_{m.name}"] = float(vals[j][i])
+        self.history.append(rec)
+        if callback:
+            callback(rounds_before + r, rec)
+
+    # --- inference ---------------------------------------------------------
+    def predict_margins(self, data, iteration_range: tuple[int, int] = (0, 0)) -> torch.Tensor:
         """Margins (n_rows, n_outputs) of raw rows (numpy or torch, NaN =
         missing; moved to the booster's device) or of a DeviceDMatrix built
-        with ref= the training matrix (bin-space traversal)."""
-        if self.ensemble is None:
-            raise RuntimeError("Booster is not fitted yet — call fit() first")
+        with ref= the training matrix (bin-space traversal).
+
+        iteration_range=(a, b) restricts to boosting rounds [a, b), XGBoost
+        semantics (b=0 means "through the last round"); the default is the
+        whole model. The slice takes the model's packed nodes with it."""
+        self._require_fitted()
+        ens = self.ensemble
+        if tuple(iteration_range) != (0, 0):
+            ens = PR.slice_rounds(ens, *iteration_range)
         if isinstance(data, DeviceDMatrix):
             if data.device != self.device:
                 raise ValueError(f"DeviceDMatrix lives on {data.device}, the "
@@ -186,15 +512,63 @@ class Booster:
                     "booster; build it with ref= the training matrix"
                 )
             return PR.predict_binned_packed(
-                self.ensemble, data.matrix.packed, data.bits, data.n_rows,
+                ens, data.matrix.packed, data.bits, data.n_rows,
                 self.cfg.max_bins - 1, self.cfg.max_depth)
         x = as_tensor(data, self.device)
         if x.ndim != 2 or x.shape[1] != self.cuts.shape[0]:
             raise ValueError(f"x must be (n_rows, {self.cuts.shape[0]}), got "
                              f"{tuple(x.shape)}")
-        return ST.predict_margins_fused(self.ensemble, x, self.cfg.max_depth)
+        return ST.predict_margins_fused(ens, x, self.cfg.max_depth)
 
-    def predict(self, data, output_margin: bool = False) -> torch.Tensor:
+    def predict(self, data, output_margin: bool = False,
+                iteration_range: tuple[int, int] = (0, 0)) -> torch.Tensor:
         """Transformed predictions (values / probabilities / class ids)."""
-        m = self.predict_margins(data)
+        m = self.predict_margins(data, iteration_range=iteration_range)
         return m if output_margin else self.obj.transform(m)
+
+    def eval(self, dmat: DeviceDMatrix, name: str = "eval", metrics=None) -> dict:
+        """One-shot metrics on a labelled DeviceDMatrix.
+
+        metrics: optional spec or list of specs (as in fit's eval_metric);
+        defaults to the objective's default metric. Returns
+        {f"{name}_{metric}": value} for each metric.
+        """
+        self._require_fitted()
+        if dmat.label is None:
+            raise ValueError("eval requires a labelled DeviceDMatrix")
+        resolved = M.resolve_metrics(metrics) or (M.get_metric(self.obj.default_metric),)
+        margins = self.predict_margins(dmat)
+        extra = O.config_kwargs(self.cfg)
+        return {f"{name}_{m.name}": float(m.fn(margins, dmat.label, **extra))
+                for m in resolved}
+
+    def feature_importances(self, importance_type: str = "gain") -> np.ndarray:
+        """Per-feature importance over the fitted ensemble, from the split
+        gains stored in the tree arenas (a split node is any arena slot
+        with finite gain; leaves and inactive slots carry -inf).
+
+        importance_type:
+          * "gain"       — mean objective reduction per split on the feature;
+          * "total_gain" — summed objective reduction;
+          * "weight"     — number of splits on the feature.
+
+        Returns a float64 (n_features,) numpy vector (unnormalised).
+        """
+        self._require_fitted()
+        gain = self.ensemble.gain.cpu().numpy().astype(np.float64)
+        feat = self.ensemble.feature.cpu().numpy()
+        split = np.isfinite(gain)
+        n_features = self.cuts.shape[0]
+        counts = np.bincount(feat[split], minlength=n_features).astype(np.float64)
+        if importance_type == "weight":
+            return counts
+        if importance_type in ("gain", "total_gain"):
+            total = np.zeros(n_features, np.float64)
+            np.add.at(total, feat[split], gain[split])
+            if importance_type == "total_gain":
+                return total
+            return np.divide(total, counts, out=np.zeros_like(total), where=counts > 0)
+        raise ValueError(
+            f"importance_type must be 'gain', 'total_gain' or 'weight', "
+            f"got {importance_type!r}"
+        )

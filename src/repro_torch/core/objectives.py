@@ -5,7 +5,10 @@
   * binary:logistic    g = sigmoid(m) - y      h = p(1-p)        (eqs 1-2)
   * multi:softmax      g_k = p_k - [y=k]       h_k = p_k(1-p_k)
 
-`grad(margins, y)` returns (n, n_outputs, 2) stacked (g, h).
+`grad(margins, y)` returns (n, n_outputs, 2) stacked (g, h). Each objective
+names its default eval metric (`core/metrics.py`, where the direction
+lives); `config_kwargs(cfg)` gives the config's keywords for metric
+functions.
 """
 from __future__ import annotations
 
@@ -20,6 +23,13 @@ class Objective(NamedTuple):
     init_base_score: Callable[[torch.Tensor], float]  # y -> base score
     grad: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # -> (n, k, 2)
     transform: Callable[[torch.Tensor], torch.Tensor]  # margins -> predictions
+    default_metric: str  # metrics.py registry name (direction lives there)
+
+
+def config_kwargs(cfg) -> dict:
+    """Config-derived keywords forwarded to metric functions (alongside
+    dataset keywords like `group_ids`)."""
+    return {"quantile_alpha": cfg.quantile_alpha}
 
 
 def _sq_grad(margins, y):
@@ -41,15 +51,15 @@ def _softmax_grad(margins, y):
 OBJECTIVES: dict[str, Objective] = {
     "reg:squarederror": Objective(
         "reg:squarederror", lambda k: 1, lambda y: float(y.mean()),
-        _sq_grad, lambda m: m[:, 0],
+        _sq_grad, lambda m: m[:, 0], "rmse",
     ),
     "binary:logistic": Objective(
         "binary:logistic", lambda k: 1, lambda y: 0.0,
-        _logistic_grad, lambda m: torch.sigmoid(m[:, 0]),
+        _logistic_grad, lambda m: torch.sigmoid(m[:, 0]), "accuracy",
     ),
     "multi:softmax": Objective(
         "multi:softmax", lambda k: k, lambda y: 0.0,
-        _softmax_grad, lambda m: torch.argmax(m, dim=1),
+        _softmax_grad, lambda m: torch.argmax(m, dim=1), "accuracy",
     ),
 }
 

@@ -1,5 +1,5 @@
 """RepartitionInstances (paper §2.3, Algorithm 1); counterpart of
-`repro.core.partition.update_positions_packed`.
+`repro.core.partition.update_positions` and `update_positions_packed`.
 
 Arena indexing: complete binary tree, children of node k are 2k+1 / 2k+2.
 positions[i] = arena node id of row i, or -1 once the row rests in a leaf.
@@ -11,22 +11,45 @@ import torch
 from repro_torch.core import compress as C
 
 
-def update_positions_packed(
-    packed: torch.Tensor,  # (f, n_words) int32 bit-packed bins
+def _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
+           gather_bins) -> torch.Tensor:
+    """Send every row of a splitting node to a child; `gather_bins(f)` gives
+    each row's bin of feature f[i]. Missing values follow the learned
+    default direction."""
+    pos = torch.clamp(positions, min=0).to(torch.int64)
+    splits_here = split_mask[pos] & (positions >= 0)
+    b = gather_bins(feature[pos])
+    go_left = torch.where(b == missing_bin, default_left[pos], b <= split_bin[pos])
+    child = torch.where(go_left, 2 * pos + 1, 2 * pos + 2)
+    return torch.where(splits_here, child, -1).to(torch.int32)
+
+
+def update_positions(
+    bins: torch.Tensor,  # (n, f) int32 dense bins
     positions: torch.Tensor,  # (n,) int32 arena node ids, -1 = inactive
     split_mask: torch.Tensor,  # (n_arena,) bool — nodes that split this level
     feature: torch.Tensor,  # (n_arena,) int32
     split_bin: torch.Tensor,  # (n_arena,) int32
     default_left: torch.Tensor,  # (n_arena,) bool
     missing_bin: int,
+) -> torch.Tensor:
+    """Route rows on the dense bins (`compress_matrix=False`): a gather of
+    each row's split-feature column."""
+    return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
+                  lambda f: torch.gather(bins, 1, f[:, None].to(torch.int64))[:, 0])
+
+
+def update_positions_packed(
+    packed: torch.Tensor,  # (f, n_words) int32 bit-packed bins
+    positions: torch.Tensor,
+    split_mask: torch.Tensor,
+    feature: torch.Tensor,
+    split_bin: torch.Tensor,
+    default_left: torch.Tensor,
+    missing_bin: int,
     bits: int,
 ) -> torch.Tensor:
-    """Route every row of a splitting node to a child: the split-feature bin
-    comes straight from the packed words (one word gather + shift/mask per
-    row), missing values follow the learned default direction."""
-    pos = torch.clamp(positions, min=0).to(torch.int64)
-    splits_here = split_mask[pos] & (positions >= 0)
-    b = C.gather_feature_bins(packed, bits, feature[pos])
-    go_left = torch.where(b == missing_bin, default_left[pos], b <= split_bin[pos])
-    child = torch.where(go_left, 2 * pos + 1, 2 * pos + 2)
-    return torch.where(splits_here, child, -1).to(torch.int32)
+    """update_positions on the packed words: the split-feature bin comes
+    straight from them (one word gather + shift/mask per row)."""
+    return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
+                  lambda f: C.gather_feature_bins(packed, bits, f))

@@ -1,10 +1,13 @@
 """Ensemble arena and bin-space prediction (paper §2.4); counterpart of
 `repro.core.predict`.
 
-`traverse_tree_packed` is the training margin update: one tree over the
-packed training matrix in bin space, all rows one level per step (plain
-torch gathers; the reference runs it in XLA too). Raw-row prediction goes
-through the ensemble-traversal kernel in `serve/traversal.py`.
+`traverse_tree_packed` (packed words) and `traverse_tree_binned` (dense
+bins, `compress_matrix=False`) are the training margin update: one tree in
+bin space, all rows one level per step (plain torch gathers; the reference
+runs them in XLA too). Raw-row prediction goes through the
+ensemble-traversal kernel in `serve/traversal.py`. `concat_ensembles`,
+`truncate_rounds` and `slice_rounds` cut and join models round by round,
+their packed nodes with them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ class Ensemble:
     """Stacked tree arenas, leading axis n_trees. Multiclass trees are laid
     out round-robin: tree t predicts class t % n_classes. `nodes` is the
     arenas packed for raw-row prediction (`pack_nodes`), once, when the
-    Ensemble is built."""
+    Ensemble is built without them; a cut or joined model slices or joins
+    them along with the other fields (`_map_trees`)."""
 
     feature: torch.Tensor  # (t, a) int32
     split_bin: torch.Tensor  # (t, a) int32
@@ -36,11 +40,13 @@ class Ensemble:
     gain: torch.Tensor  # (t, a) float32, -inf = not a split
     n_classes: int = 1
     base_score: float = 0.0
-    nodes: torch.Tensor = dataclasses.field(init=False, repr=False)  # (t, a + a % 2, 2) int32
+    nodes: torch.Tensor | None = dataclasses.field(default=None, repr=False)  # (t, a + a % 2, 2) int32
 
     def __post_init__(self):
-        object.__setattr__(self, "nodes", pack_nodes(
-            self.feature, self.threshold, self.default_left, self.leaf_value, self.is_leaf))
+        if self.nodes is None:
+            object.__setattr__(self, "nodes", pack_nodes(
+                self.feature, self.threshold, self.default_left, self.leaf_value,
+                self.is_leaf))
 
     @property
     def n_trees(self) -> int:
@@ -56,19 +62,80 @@ def stack_trees(trees: list[Tree], n_classes: int = 1, base_score: float = 0.0,
     return Ensemble(**st, n_classes=n_classes, base_score=base_score)
 
 
+def _map_trees(fn, *ens: Ensemble) -> Ensemble:
+    """An Ensemble whose every per-tree field, `nodes` too, is `fn` of the
+    same field of each of `ens`; the metadata is the first's."""
+    return dataclasses.replace(
+        ens[0], **{f: fn(*(getattr(e, f) for e in ens)) for f in (*ENSEMBLE_FIELDS, "nodes")})
+
+
+def concat_ensembles(a: Ensemble, b: Ensemble) -> Ensemble:
+    """Append b's trees after a's (continued training). Static metadata must
+    agree — the two halves describe one model."""
+    if a.n_classes != b.n_classes or a.base_score != b.base_score:
+        raise ValueError("cannot concatenate ensembles with different metadata")
+    if a.feature.shape[1] != b.feature.shape[1]:
+        raise ValueError("cannot concatenate ensembles with different arenas")
+    return _map_trees(lambda x, y: torch.cat([x, y], dim=0), a, b)
+
+
+def truncate_rounds(ens: Ensemble, n_rounds: int) -> Ensemble:
+    """Keep only the first n_rounds boosting rounds (n_rounds * n_classes
+    trees, round-robin layout) — used by early stopping."""
+    keep = n_rounds * ens.n_classes
+    return _map_trees(lambda x: x[:keep], ens)
+
+
+def slice_rounds(ens: Ensemble, start: int, end: int) -> Ensemble:
+    """Keep boosting rounds [start, end) — XGBoost `iteration_range`
+    semantics (end=0 means "through the last round"). base_score is part of
+    the model, not of any round, so it survives the slice unchanged."""
+    n_rounds = ens.n_trees // ens.n_classes
+    if end == 0:
+        end = n_rounds
+    if not (0 <= start < end <= n_rounds):
+        raise ValueError(
+            f"iteration_range ({start}, {end}) out of range for a model "
+            f"with {n_rounds} rounds"
+        )
+    lo, hi = start * ens.n_classes, end * ens.n_classes
+    return _map_trees(lambda x: x[lo:hi], ens)
+
+
+def _traverse(leaf_value, is_leaf, n_rows: int, max_depth: int, go_left) -> torch.Tensor:
+    """Leaf outputs (n_rows,) of one tree, all rows one level per step;
+    `go_left(node)` routes each row from its node."""
+    node = torch.zeros(n_rows, dtype=torch.int64, device=leaf_value.device)
+    for _ in range(max_depth):
+        child = torch.where(go_left(node), 2 * node + 1, 2 * node + 2)
+        node = torch.where(is_leaf[node], node, child)
+    return leaf_value[node]
+
+
+def traverse_tree_binned(
+    feature, split_bin, default_left, leaf_value, is_leaf,
+    bins: torch.Tensor, missing_bin: int, max_depth: int,
+) -> torch.Tensor:
+    """Leaf outputs (n_rows,) of ONE tree arena over dense (n_rows, f) bins:
+    per level one gather of each row's split-feature column."""
+    def go_left(node):
+        b = torch.gather(bins, 1, feature[node].to(torch.int64)[:, None])[:, 0]
+        return torch.where(b == missing_bin, default_left[node], b <= split_bin[node])
+
+    return _traverse(leaf_value, is_leaf, bins.shape[0], max_depth, go_left)
+
+
 def traverse_tree_packed(
     feature, split_bin, default_left, leaf_value, is_leaf,
     packed: torch.Tensor, bits: int, n_rows: int, missing_bin: int, max_depth: int,
 ) -> torch.Tensor:
     """Leaf outputs (n_rows,) of ONE tree arena over the packed matrix: per
     level one word gather per row plus a shift/mask."""
-    node = torch.zeros(n_rows, dtype=torch.int64, device=packed.device)
-    for _ in range(max_depth):
+    def go_left(node):
         b = C.gather_feature_bins(packed, bits, feature[node])
-        go_left = torch.where(b == missing_bin, default_left[node], b <= split_bin[node])
-        child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
-        node = torch.where(is_leaf[node], node, child)
-    return leaf_value[node]
+        return torch.where(b == missing_bin, default_left[node], b <= split_bin[node])
+
+    return _traverse(leaf_value, is_leaf, n_rows, max_depth, go_left)
 
 
 def fold_classes(leaves: torch.Tensor, ens: Ensemble) -> torch.Tensor:
@@ -76,6 +143,18 @@ def fold_classes(leaves: torch.Tensor, ens: Ensemble) -> torch.Tensor:
     k = ens.n_classes
     per_class = leaves.reshape(-1, k, leaves.shape[1]).sum(dim=0)
     return per_class.t() + ens.base_score
+
+
+def predict_binned(ens: Ensemble, bins: torch.Tensor, missing_bin: int,
+                   max_depth: int) -> torch.Tensor:
+    """Margins (n_rows, n_classes) from the dense quantised matrix."""
+    leaves = torch.stack([
+        traverse_tree_binned(ens.feature[t], ens.split_bin[t], ens.default_left[t],
+                             ens.leaf_value[t], ens.is_leaf[t], bins, missing_bin,
+                             max_depth)
+        for t in range(ens.n_trees)
+    ])
+    return fold_classes(leaves, ens)
 
 
 def predict_binned_packed(ens: Ensemble, packed: torch.Tensor, bits: int,

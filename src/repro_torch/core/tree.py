@@ -1,16 +1,19 @@
 """Decision tree construction (paper §2.3, Algorithm 1); counterpart of
-`repro.core.tree` for single-device growth on the packed matrix.
+`repro.core.tree` for single-device growth on the packed matrix
+(`PackedBins`) or on dense (n, f) int32 bins (`compress_matrix=False`).
 
 The tree grows level-synchronously into a fixed arena of 2^(max_depth+1) - 1
-node slots. Every level: one histogram over all its nodes, built straight
-from the packed words, split evaluation (the split-scan kernel plus a small
-epilogue), then row repartition.
+node slots. Every level: one histogram over all its nodes, split evaluation
+(the split-scan kernel plus a small epilogue), then row repartition.
 
-Histograms, as in the reference: the root level is built in full (the
-privatised histogram kernel on the card); below it the subtraction trick
-builds only each parent's smaller child, over a compacted row buffer (the
-row-id histogram kernel), and derives the sibling as parent - child. A
-given `hist_builder` turns subtraction off and builds every level in full.
+Histograms, as in the reference: the root level is built in full (from the
+packed words by the privatised histogram kernel on the card; from dense
+bins by a plain-torch scatter, as the reference builds them in XLA); below
+it the subtraction trick builds only each parent's smaller child, over a
+compacted row buffer (the row-id histogram kernel on packed words, a
+scatter over the gathered dense rows otherwise), and derives the sibling as
+parent - child. A given `hist_builder` turns subtraction off and builds
+every level in full.
 
 Growth strategies: "depthwise" expands every node whose best gain > 0;
 "lossguide" spends a `max_leaves` budget, letting only the top-k gains of
@@ -58,7 +61,7 @@ def level_offset(level: int) -> int:
 
 
 def grow_tree(
-    bins: C.PackedBins,
+    bins: C.PackedBins | torch.Tensor,
     gh: torch.Tensor,  # (n, 2) float32
     cuts: torch.Tensor,  # (f, n_cuts) float32
     max_depth: int,
@@ -68,15 +71,17 @@ def grow_tree(
     max_leaves: int = 0,  # only used by lossguide
     hist_builder=None,  # optional builder (kernels.ops), every level in full
 ) -> Tree:
-    """Grow one tree from the packed matrix and the rows' (g, h) pairs.
-    `hist_builder(bins, gh, positions, n_nodes, max_bins)` receives the
-    packed matrix as given."""
+    """Grow one tree from the packed matrix or the dense (n, f) bins and
+    the rows' (g, h) pairs. `hist_builder(bins, gh, positions, n_nodes,
+    max_bins)` receives the matrix as given."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
-    if not isinstance(bins, C.PackedBins):
-        raise TypeError("grow_tree takes the packed matrix (compress.PackedBins)")
+    packed_mode = isinstance(bins, C.PackedBins)
+    if not packed_mode and not (isinstance(bins, torch.Tensor) and bins.ndim == 2):
+        raise TypeError("grow_tree takes the packed matrix (compress.PackedBins) "
+                        "or dense (n, f) bins")
     dev = gh.device
-    n = bins.n_rows
+    n = bins.n_rows if packed_mode else bins.shape[0]
     na = arena_size(max_depth)
     missing_bin = max_bins - 1
 
@@ -107,9 +112,11 @@ def grow_tree(
         local = torch.where(in_level, positions - off, n_nodes).to(torch.int32)
         if hist_builder is not None:
             hist = hist_builder(bins, gh, local, n_nodes, max_bins)
-        elif level == 0:
+        elif level == 0 and packed_mode:
             hist = H.build_histograms_packed(bins.packed, gh, local, n_nodes,
                                              max_bins, bins.bits)
+        elif level == 0:
+            hist = H.build_histograms(bins, gh, local, n_nodes, max_bins)
         else:
             hist = _histograms_by_subtraction(bins, gh, local, hist_prev,
                                               n_nodes, max_bins)
@@ -152,10 +159,14 @@ def grow_tree(
         # --- RepartitionInstances ------------------------------------------
         split_mask = torch.zeros(na, dtype=torch.bool, device=dev)
         split_mask[lvl] = will_split
-        positions = P.update_positions_packed(
-            bins.packed, positions, split_mask, feature, split_bin,
-            default_left, missing_bin, bins.bits,
-        )
+        if packed_mode:
+            positions = P.update_positions_packed(
+                bins.packed, positions, split_mask, feature, split_bin,
+                default_left, missing_bin, bins.bits,
+            )
+        else:
+            positions = P.update_positions(bins, positions, split_mask, feature,
+                                           split_bin, default_left, missing_bin)
 
     # Final level: every still-active node is a leaf.
     off, n_nodes = level_offset(max_depth), 2**max_depth
@@ -173,7 +184,7 @@ def grow_tree(
 
 
 def _histograms_by_subtraction(
-    bins: C.PackedBins,
+    bins: C.PackedBins | torch.Tensor,
     gh: torch.Tensor,  # (n, 2)
     local: torch.Tensor,  # (n,) int32 level-local child index, n_nodes = inactive
     hist_prev: torch.Tensor,  # (n_nodes/2, f, max_bins, 2) parents' full hist
@@ -223,9 +234,13 @@ def _histograms_by_subtraction(
     pos_c = parent_ext[torch.clamp(buf, max=n)]
     gh_c = gh[torch.clamp(buf, max=n - 1)]
     # Padding slots carry row id n; their position is the dump slot, so
-    # they contribute nothing and their rows are not read.
-    hist_small = H.build_histograms_packed_rows(
-        bins.packed, gh_c, pos_c, buf, n_par, max_bins, bins.bits)
+    # they contribute nothing (and their packed words are not read).
+    if isinstance(bins, C.PackedBins):
+        hist_small = H.build_histograms_packed_rows(
+            bins.packed, gh_c, pos_c, buf, n_par, max_bins, bins.bits)
+    else:
+        hist_small = H.build_histograms(bins[torch.clamp(buf, max=n - 1)], gh_c, pos_c,
+                                        n_par, max_bins)
 
     other = hist_prev - hist_small
     built_left = (small_bit == 0)[:, None, None, None]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quantile as Q
-from repro_torch.core.compress import PackedBins
+from repro_torch.core.compress import PackedBins, bits_needed, pack
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import (
@@ -76,6 +76,16 @@ def build_histograms_kernel_packed(data: PackedBins, gh: torch.Tensor,
     matrix's packed words straight to the privatised kernel, every level."""
     return histogram_private_op(data.packed, gh, positions, n_nodes, max_bins,
                                 data.bits)
+
+
+def build_histograms_kernel(bins: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
+                            n_nodes: int, max_bins: int) -> torch.Tensor:
+    """The `hist_builder` of `use_kernel_histograms=True` on dense (n, f)
+    bins (`compress_matrix=False`): packs them at `bits_needed(max_bins - 1)`
+    (plain torch, as the reference packs them outside its kernel) and calls
+    the privatised kernel."""
+    bits = bits_needed(max_bins - 1)
+    return histogram_private_op(pack(bins, bits), gh, positions, n_nodes, max_bins, bits)
 
 
 def histogram_rows(packed: torch.Tensor, gh_sel: torch.Tensor, pos_sel: torch.Tensor,

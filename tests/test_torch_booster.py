@@ -192,7 +192,6 @@ def test_predict_at_depth_14_matches_reference():
     ("subsample", 0.5), ("colsample_bytree", 0.5), ("colsample_bylevel", 0.5),
     ("colsample_bynode", 0.5), ("monotone_constraints", (1, 0)),
     ("sampling_method", "goss"), ("numeric_check", "raise"),
-    ("compress_matrix", False),
 ])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):

@@ -363,3 +363,79 @@ def test_compute_cuts_and_fit_on_card(rng):
         "split_scan": 12, "quantile_cuts": 1, "ensemble_traversal": 1, "decompress": 0}
     binned = bst.predict_margins(DeviceDMatrix(x, ref=d))
     np.testing.assert_allclose(raw.cpu().numpy(), binned.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_build_histograms_kernel_on_card(rng):
+    """`ops.build_histograms_kernel` (dense bins packed at
+    bits_needed(max_bins - 1), then #1) against the dense scatter
+    `core.histogram.build_histograms` on the same bins: exact on dyadic
+    (g, h), within the atomics' tolerance on real-valued ones."""
+    from repro_torch.core.histogram import build_histograms
+
+    dev = _cuda()
+    for n, f, max_bins, n_nodes in [(1001, 5, 256, 1), (4096, 28, 256, 32), (777, 3, 16, 4)]:
+        bins = torch.from_numpy(rng.integers(0, max_bins, size=(n, f)).astype(np.int32)).to(dev)
+        pos = torch.from_numpy(rng.integers(0, n_nodes + 1, size=n).astype(np.int32)).to(dev)
+        dyadic = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 9, n) / 8], axis=1)
+        real = np.stack([rng.normal(size=n), rng.random(n)], axis=1)
+        for gh, tol in ((dyadic, dict(rtol=0, atol=0)), (real, dict(rtol=1e-5, atol=2e-5))):
+            gh = torch.from_numpy(gh.astype(np.float32)).to(dev)
+            ops.reset_launches()
+            got = ops.build_histograms_kernel(bins, gh, pos, n_nodes, max_bins)
+            assert ops.launches()["histogram_private"] == 1
+            want = build_histograms(bins, gh, pos, n_nodes, max_bins)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("use_kernel_histograms", [False, True])
+@pytest.mark.cuda
+def test_dense_fit_on_card(rng, use_kernel_histograms):
+    """`compress_matrix=False` on the card: one decompress a fit, before the
+    first round; the default growth's histograms are plain-torch scatters
+    (no #1, no row-id kernel), the kernel path's #1 at every level; the
+    split scan every level. Both fits, dense and packed, fit the task."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x = rng.normal(size=(3000, 6)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + np.nan_to_num(x[:, 1]) > 0).astype(np.float32)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    kw = dict(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic",
+              use_kernel_histograms=use_kernel_histograms)
+    ops.reset_launches()
+    dense = Booster(**kw, compress_matrix=False).fit(d)
+    got = ops.launches()
+    assert (got["decompress"], got["histogram_private"], got["histogram_rows"],
+            got["split_scan"]) == (1, 12 if use_kernel_histograms else 0, 0, 12)
+    for bst in (dense, Booster(**kw).fit(d)):
+        assert float(((bst.predict(x) > 0.5).cpu().numpy() == y).mean()) > 0.9
+
+
+@pytest.mark.cuda
+def test_iteration_range_on_card(rng):
+    """`predict(iteration_range=)` on the card slices the model's packed
+    nodes with it and is bit for bit the plain traversal of the sliced
+    arenas; `eval` reads the same margins as `predict_margins`."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.core.predict import slice_rounds
+
+    dev = _cuda()
+    x = rng.normal(size=(2000, 6)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) - np.nan_to_num(x[:, 2]) > 0).astype(np.float32)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    bst = Booster(n_rounds=8, max_depth=4, max_bins=64, objective="binary:logistic").fit(d)
+    xd = torch.from_numpy(x).to(dev)
+    for lo, hi in ((2, 7), (0, 1), (5, 0)):
+        ens = slice_rounds(bst.ensemble, lo, hi)
+        plain = ref.ensemble_margins_ref(ens.feature, ens.threshold, ens.default_left,
+                                         ens.leaf_value, ens.is_leaf, xd, 1, 4) + ens.base_score
+        ops.reset_launches()
+        got = bst.predict_margins(x, iteration_range=(lo, hi))
+        assert ops.launches()["ensemble_traversal"] == 1
+        assert torch.equal(got, plain)
+    dv = DeviceDMatrix(x, label=y, ref=d)
+    auc = bst.eval(dv, metrics="auc")["eval_auc"]
+    assert auc > 0.9
