@@ -51,13 +51,49 @@ Phases, each printing one JSON line:
                 fit(6) + update(4) against the main fit(10) (structure share,
                 largest margin gap), and the synchronising calls the evals add
                 (`torch.cuda.set_sync_debug_mode("warn")`; the design reads
-                metrics once a chunk).
-  7. ops      — the path the reference gives `histogram_packed` and
+                metrics once a chunk). Then early stopping that fires: ES_KNOBS
+                on the first ES_ROWS rows, the held-out rows as eval set,
+                logloss, patience ES_PATIENCE; gates: it stops before its last
+                round, keeps best_iteration + 1 rounds (trees and packed nodes),
+                drops its margins, and predicts bit for bit as the plain
+                traversal of the truncated model.
+  7. objectives — 10-round fits of reg:quantile (alpha QUANTILE_ALPHA),
+                reg:pseudohubererror and count:poisson on a regression target
+                made from the seed (counts for Poisson), each with the default
+                growth's launches; gate: each beats its constant baseline (its
+                base score) on its own metric for the held-out rows. Then a
+                registered copy of binary:logistic's gradient through
+                `fit(obj=)`: its gradient bit for bit the built-in's on the
+                main fit's margins, the main fit's launches, accuracy within
+                0.003. Readings: fit_s of each, and the share of its trees
+                with the main fit's structure (atomics may flip a near-tied
+                split, so it is read, not gated).
+  8. persist  — the main model saved and loaded onto the card: predictions
+                bit for bit, save -> load -> save the same bytes; the
+                checkpoint the JAX package wrote (REFERENCE_CKPT) predicts its
+                stored rows within REFERENCE_ATOL; a copy with one payload byte
+                flipped raises CheckpointError; the model through XGBoost JSON
+                (export, import onto the card) predicts bit for bit. Readings:
+                file bytes, save and load seconds.
+  9. serve    — a SERVED_ROUNDS-round fit saved and loaded, behind a
+                `PredictEngine` with DEFAULT_BUCKETS, warmed up; SERVE_SIZES
+                from the held-out rows, three times. Gates: every output bit
+                for bit `Booster.predict`; one graph capture a bucket at warmup
+                (trace_count and the traversal's launches both equal the
+                buckets) and none, and no launch, during the stream;
+                `output_margin=True` and `iteration_range=SERVE_RANGE` engines
+                bit for bit the same `Booster.predict`; ±inf raises. Readings:
+                p50/p99 ms and rows/s per size (SERVE_REPEATS calls) beside a
+                warm `Booster.predict`, the 100k rows' copy to the card from
+                pageable and from pinned memory, the engine's validation pass
+                and staging copies of a 100k request; again for the 10-round
+                main model (the kernel's share).
+  10. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  8. check    — each kernel against its plain PyTorch version on the same
+  11. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -75,7 +111,7 @@ Phases, each printing one JSON line:
                 and on random words at every shape of DECOMPRESS_SHAPES (the
                 plain version on word-aligned slices of the rows; past 2^31
                 output elements, on the rows past element 2^31).
-  9. time     — CUDA-event ms of each kernel, its plain version and, where one
+  12. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -182,6 +218,23 @@ FITS = {
 DENSE_PAIRS = 3  # warm alternating pairs of the dense and the packed default fit
 EVAL_ROUNDS, EARLY_STOP = 40, 5  # the evals fit: at most 40 rounds, chunks of 5
 ITERATION_RANGE = (2, 7)  # rounds of the main model predicted alone
+# A fit whose held-out logloss turns within a few rounds, so early stopping
+# fires: a high learning rate and deep trees on a slice of the rows.
+ES_ROWS, ES_PATIENCE = 50_000, 3
+ES_KNOBS = {"n_rounds": 40, "learning_rate": 1.0, "max_depth": 8}
+QUANTILE_ALPHA = 0.9  # reg:quantile's alpha in the objectives phase
+# The checkpoint the JAX package wrote (tools/make_reference_checkpoint.py),
+# its rows and predictions beside it; the CPU test of the same load states
+# the tolerance: float32 rounding of the leaf sums and the sigmoid.
+REFERENCE_CKPT = ROOT / "tests" / "data" / "repro_booster_v2.ckpt"
+REFERENCE_ATOL = 1e-6
+# Serving: a served model's size, the request sizes of the stream (each
+# bucket edge and past it, and a request of many top-bucket slices), the
+# calls a size for the latency readings, and a staged engine's rounds.
+SERVED_ROUNDS = 500
+SERVE_SIZES = (1, 3, 16, 17, 100, 1_000, 8_192, 8_193, HELD_OUT)
+SERVE_REPEATS = 30
+SERVE_RANGE = (0, 100)
 
 
 def emit(obj: dict) -> None:
@@ -327,8 +380,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs only on the card", file=sys.stderr)
         return 1
+    import numpy as np
+
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import CheckpointError
     from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.core import metrics as M
+    from repro_torch.core import objectives as O
     from repro_torch.core.compress import pack, unpack
     from repro_torch.core.predict import slice_rounds, truncate_rounds
     from repro_torch.core.tree import _histograms_by_subtraction
@@ -356,6 +414,8 @@ def main() -> int:
     )
     from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
     from repro_torch.kernels.split_scan import split_scan
+    from repro_torch.serve import PredictEngine, export_xgboost_json, import_xgboost_json
+    from repro_torch.serve.engine import DEFAULT_BUCKETS
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -584,6 +644,232 @@ def main() -> int:
         **{k: v * ran // ROUNDS for k, v in path_launches().items()},
         "ensemble_traversal": 0, "decompress": 0})
 
+    # Early stopping that fires (the repair of a stop never seen on the
+    # card): a high learning rate on a slice of the rows overfits within a
+    # few rounds, so the held-out logloss turns and the fit stops early.
+    d_es = DeviceDMatrix(x_tr[:ES_ROWS], label=y_tr[:ES_ROWS])
+    dv_es = DeviceDMatrix(x_te, label=y_te, ref=d_es)
+    es2 = Booster(**{**booster_kw, **ES_KNOBS}).fit(
+        d_es, evals=[(dv_es, "valid")], eval_metric="logloss",
+        early_stopping_rounds=ES_PATIENCE)
+    es2_ran, es2_kept = len(es2.history), es2.num_boosted_rounds()
+    es2_ens = es2.ensemble
+    plain_es = ref.ensemble_margins_ref(es2_ens.feature, es2_ens.threshold,
+                                        es2_ens.default_left, es2_ens.leaf_value,
+                                        es2_ens.is_leaf, xte_dev, 1,
+                                        ES_KNOBS["max_depth"]) + es2_ens.base_score
+    es2_exact = (bool(torch.equal(es2.predict_margins(x_te), plain_es))
+                 and bool(torch.equal(es2.predict(x_te), torch.sigmoid(plain_es[:, 0]))))
+    es2_line = {"phase": "evals", "early_stop": {**ES_KNOBS, "rows": ES_ROWS},
+                "patience": ES_PATIENCE, "rounds_run": es2_ran,
+                "best_iteration": es2.best_iteration, "rounds_kept": es2_kept,
+                "n_trees": es2_ens.n_trees, "nodes_trees": int(es2_ens.nodes.shape[0]),
+                "margins_dropped": es2.margins is None, "predict_exact": es2_exact,
+                "valid_logloss": [h["valid_logloss"] for h in es2.history]}
+    emit(es2_line)
+    if not (es2_kept < es2_ran and es2_kept == es2.best_iteration + 1
+            and es2_ens.n_trees == es2_ens.nodes.shape[0] == es2_kept
+            and es2.margins is None and es2_exact):
+        raise SystemExit(f"early stopping on the card: {es2_line}")
+    del d_es, dv_es
+
+    # --- 7. the objective registry --------------------------------------------
+    rng = np.random.default_rng(args.seed)
+    z = np.nan_to_num(x)
+    signal = z[:, 0] - 0.5 * z[:, 1] + 0.4 * z[:, 2] * z[:, 3] + 0.3 * z[:, 4]
+    targets = {
+        "reg:quantile": signal + (0.5 + np.abs(z[:, 5])) * rng.normal(size=len(z)),
+        "reg:pseudohubererror": signal + rng.standard_t(2, size=len(z)),
+        "count:poisson": rng.poisson(np.exp(np.clip(0.5 * signal, -4, 3))),
+    }
+    obj_lines = {}
+    for objective, target in targets.items():
+        yt = target.astype(np.float32)
+        d_obj = DeviceDMatrix(x_tr, label=yt[:args.rows], ref=dtrain)
+        knobs = {**booster_kw, "objective": objective, "quantile_alpha": QUANTILE_ALPHA}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        fitted_obj = Booster(**knobs).fit(d_obj)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        obj_launches = ops.launches()
+        metric = M.get_metric(O.get_objective(objective).default_metric)
+        y_held = torch.as_tensor(yt[args.rows:], device=dev)
+        held = fitted_obj.predict_margins(x_te)
+        const = torch.full_like(held, fitted_obj.base_score)
+        extra = O.config_kwargs(fitted_obj.cfg)
+        model_m = float(metric.fn(held, y_held, **extra))
+        const_m = float(metric.fn(const, y_held, **extra))
+        obj_lines[objective] = {"fit_s": fit_s, "metric": metric.name, "held_out": model_m,
+                                "constant": const_m, "base_score": fitted_obj.base_score,
+                                "launches": obj_launches}
+        if not model_m < const_m:
+            raise SystemExit(f"{objective}: held-out {metric.name} {model_m} does not beat "
+                             f"the constant baseline's {const_m}")
+        expect_launches(f"{objective} fit", obj_launches, path_launches())
+        del d_obj
+
+    def logistic_copy(margins, y):
+        p = torch.sigmoid(margins[:, 0])
+        return p - y, p * (1.0 - p)
+
+    custom = O.register_objective("smoke:logistic_copy", logistic_copy,
+                                  transform=lambda m: torch.sigmoid(m[:, 0]),
+                                  default_metric="accuracy", overwrite=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    bst_custom = Booster(**booster_kw).fit(dtrain, obj=custom)
+    torch.cuda.synchronize()
+    custom_s = time.perf_counter() - t0
+    custom_launches = ops.launches()
+    custom_acc = accuracy(bst_custom.predict(x_te))
+    custom_same = same_structure(ens, bst_custom.ensemble)
+    grad_exact = bool(torch.equal(custom.grad(bst.margins, dtrain.label),
+                                  O.logistic.grad(bst.margins, dtrain.label)))
+    emit({"phase": "objectives", "rounds": ROUNDS, "quantile_alpha": QUANTILE_ALPHA,
+          "main_fit_s": t2 - t1, **obj_lines,
+          "custom": {"objective": bst_custom.cfg.objective, "fit_s": custom_s,
+                     "grad_bit_for_bit": grad_exact,
+                     "held_out_accuracy": custom_acc, "main_accuracy": acc,
+                     "trees_same_structure_as_main": custom_same,
+                     "launches": custom_launches}})
+    if abs(custom_acc - acc) > 0.003 or not grad_exact:
+        raise SystemExit(f"the registered copy of binary:logistic: accuracy {custom_acc} "
+                         f"against {acc}, gradient bit for bit: {grad_exact}")
+    expect_launches("custom objective fit", custom_launches, path_launches())
+
+    # --- 8. persistence -------------------------------------------------------
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    path = str(work / "main.ckpt")
+    t0 = time.perf_counter()
+    bst.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Booster.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    persist_exact = bool(torch.equal(loaded.predict(x_te), prob))
+    loaded.save(str(work / "again.ckpt"))
+    same_bytes = (work / "again.ckpt").read_bytes() == Path(path).read_bytes()
+    ref_bst = Booster.load(str(REFERENCE_CKPT))
+    ref_rows = np.load(REFERENCE_CKPT.with_name(REFERENCE_CKPT.stem + "_rows.npy"))
+    ref_pred = np.load(REFERENCE_CKPT.with_name(REFERENCE_CKPT.stem + "_pred.npy"))
+    ref_err = float(np.abs(ref_bst.predict(ref_rows).cpu().numpy() - ref_pred).max())
+    raw = bytearray(Path(path).read_bytes())
+    raw[len(raw) // 2] ^= 0x01  # one payload byte flipped
+    (work / "corrupt.ckpt").write_bytes(bytes(raw))
+    try:
+        Booster.load(str(work / "corrupt.ckpt"))
+        corrupt_raises = False
+    except CheckpointError:
+        corrupt_raises = True
+    # The same model through XGBoost JSON: thresholds go one ulp up and come
+    # back, so the imported arenas predict bit for bit.
+    imported = import_xgboost_json(export_xgboost_json(bst))
+    ops.reset_launches()
+    json_exact = bool(torch.equal(imported.predict_margins(x_te), bst.predict_margins(x_te)))
+    json_launches = ops.launches()["ensemble_traversal"]
+    emit({"phase": "persist", "file_bytes": Path(path).stat().st_size, "save_s": save_s,
+          "load_s": load_s, "predict_exact_after_load": persist_exact,
+          "save_load_save_same_bytes": same_bytes,
+          "reference_checkpoint": REFERENCE_CKPT.name,
+          "reference_max_abs_err": ref_err, "reference_tolerance": REFERENCE_ATOL,
+          "corrupt_raises": corrupt_raises, "xgboost_json_exact": json_exact,
+          "xgboost_json_traversal_launches": json_launches})
+    if not (persist_exact and same_bytes and corrupt_raises and json_exact
+            and json_launches == 2):
+        raise SystemExit("persist phase failed (see its line)")
+    if ref_err > REFERENCE_ATOL:
+        raise SystemExit(f"the reference checkpoint predicts {ref_err} off its stored "
+                         f"predictions (tolerance {REFERENCE_ATOL})")
+
+    # --- 9. serving -------------------------------------------------------------
+    t0 = time.perf_counter()
+    served_fit = Booster(**{**booster_kw, "n_rounds": SERVED_ROUNDS}).fit(dtrain)
+    torch.cuda.synchronize()
+    served_fit_s = time.perf_counter() - t0
+    served_fit.save(str(work / "served.ckpt"))
+    served = Booster.load(str(work / "served.ckpt"))
+    del served_fit
+    pageable_s = [host_s(lambda: torch.as_tensor(x_te, device=dev)) for _ in range(20)]
+    pinned_x = torch.from_numpy(x_te).pin_memory()
+    pinned_s = [host_s(lambda: pinned_x.to(dev, non_blocking=True)) for _ in range(20)]
+    # The host's share of a 100k request in the engine: its validation pass
+    # and its copies into top-bucket staging.
+    top_rows = DEFAULT_BUCKETS[-1]
+    staging_np = torch.empty((top_rows, x_te.shape[1]), pin_memory=True).numpy()
+
+    def stage_all():
+        for s in range(0, HELD_OUT, top_rows):
+            part = x_te[s:s + top_rows]
+            np.copyto(staging_np[:len(part)], part, casting="unsafe")
+
+    isinf_s = sorted(host_s(lambda: np.isinf(x_te).any()) for _ in range(20))
+    stage_s = sorted(host_s(stage_all) for _ in range(20))
+    serve_lines = {}
+    for label, model in (("served", served), ("main", loaded)):
+        want = {n: model.predict(x_te[:n]).cpu().numpy() for n in SERVE_SIZES}
+        ops.reset_launches()
+        eng = PredictEngine(model).warmup()
+        warm_launches = ops.launches()["ensemble_traversal"]
+        warm_traces = eng.trace_count
+        eng.reset_stats()
+        ops.reset_launches()
+        exact = True
+        for _ in range(3):
+            for n in SERVE_SIZES:
+                exact &= bool(np.array_equal(eng.predict(x_te[:n]), want[n]))
+        stream_launches = ops.launches()["ensemble_traversal"]
+        stream_traces = eng.trace_count - warm_traces
+        per_size = {}
+        for n in SERVE_SIZES:
+            eng.reset_stats()
+            for _ in range(SERVE_REPEATS):
+                eng.predict(x_te[:n])
+            st = eng.stats()
+            bp = sorted(host_s(lambda: model.predict(x_te[:n]).cpu().numpy())
+                        for _ in range(SERVE_REPEATS))
+            per_size[n] = {"p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                           "rows_per_s": st["rows_per_s"],
+                           "booster_predict_p50_ms": bp[len(bp) // 2] * 1e3,
+                           "booster_predict_p99_ms": bp[int(0.99 * (len(bp) - 1))] * 1e3}
+        line = {"trees": model.ensemble.n_trees, "buckets": len(DEFAULT_BUCKETS),
+                "warmup_traversal_launches": warm_launches, "trace_count": warm_traces,
+                "stream_traversal_launches": stream_launches,
+                "stream_new_traces": stream_traces, "stream_exact": exact,
+                "per_size": per_size}
+        if label == "served":
+            variants = {}
+            for kw_e, kw_p in (({"output_margin": True}, {"output_margin": True}),
+                               ({"iteration_range": SERVE_RANGE},
+                                {"iteration_range": SERVE_RANGE})):
+                eng_v = PredictEngine(model, **kw_e)
+                variants[next(iter(kw_e))] = all(
+                    np.array_equal(eng_v.predict(x_te[:n]),
+                                   model.predict(x_te[:n], **kw_p).cpu().numpy())
+                    for n in (17, 8193, HELD_OUT))
+            bad = x_te[:4].copy()
+            bad[0, 0] = np.inf
+            try:
+                eng.predict(bad)
+                inf_raises = False
+            except ValueError as exc:
+                inf_raises = "infinite feature values" in str(exc)
+            line.update(fit_s=served_fit_s, variants_exact=variants, inf_raises=inf_raises)
+            exact &= all(variants.values()) and inf_raises
+        serve_lines[label] = line
+        if not (exact and warm_launches == warm_traces == len(DEFAULT_BUCKETS)
+                and stream_launches == 0 and stream_traces == 0):
+            raise SystemExit(f"serve phase ({label}) failed: {line}")
+        del eng
+    emit({"phase": "serve", "sizes": list(SERVE_SIZES), "repeats": SERVE_REPEATS,
+          "copy_100k_pageable_ms": sorted(pageable_s)[10] * 1e3,
+          "copy_100k_pinned_ms": sorted(pinned_s)[10] * 1e3,
+          "isinf_check_100k_ms": isinf_s[10] * 1e3, "staging_copies_100k_ms": stage_s[10] * 1e3,
+          **serve_lines})
+    del served, pinned_x, staging_np
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
@@ -652,7 +938,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 7. the ops path of histogram_packed and decompress -----------------
+    # --- 10. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -719,7 +1005,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 8. kernels against their plain versions ---------------------------
+    # --- 11. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -957,7 +1243,7 @@ def main() -> int:
         raise SystemExit(f"decompress kernel disagrees: {dec_checked}")
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 9. times -------------------------------------------------------------
+    # --- 12. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1256,8 +1542,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": counted[name],
             "max_abs_err": results[name]["max_abs_err"], **times[name],
         })
-    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.") for m in sys.modules):
-        raise SystemExit("the port imported JAX or the JAX package")
+    if "jax" in sys.modules or "msgpack" in sys.modules or any(
+            m == "repro" or m.startswith("repro.") for m in sys.modules):
+        raise SystemExit("the port imported JAX, the JAX package or msgpack")
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,12 +3,18 @@ from repro_torch.core.booster import Booster, BoosterConfig
 from repro_torch.core.convert import booster_from_numpy
 from repro_torch.core.dmatrix import DeviceDMatrix
 from repro_torch.core.metrics import Metric, get_metric, register_metric
-from repro_torch.core.objectives import Objective, get_objective
+from repro_torch.core.objectives import (
+    Objective,
+    as_objective,
+    get_objective,
+    register_objective,
+)
 from repro_torch.core.predict import (
     Ensemble,
     concat_ensembles,
     predict_binned,
     predict_binned_packed,
+    predict_raw,
     truncate_rounds,
 )
 
@@ -21,10 +27,13 @@ __all__ = [
     "Objective",
     "get_metric",
     "get_objective",
+    "as_objective",
+    "register_objective",
     "register_metric",
     "Ensemble",
     "concat_ensembles",
     "truncate_rounds",
     "predict_binned",
     "predict_binned_packed",
+    "predict_raw",
 ]

@@ -36,8 +36,15 @@ Early stopping reads the LAST metric of the LAST eval set, in the
 direction that metric declares, and truncates the model to
 `best_iteration + 1` rounds.
 
-Not ported yet: checkpoints (`save`/`load`, `checkpoint_every`, `resume`),
-custom objectives (`fit(obj=)`), sampling (`subsample`, `colsample_*`,
+The objective is pluggable: `fit(obj=)` takes a registry name, an
+`objectives.register_objective` result or a bare `(margins, y) -> (g, h)`
+callable; only the gradient is plain torch, the trees grow through the same
+kernels. `save(path)` / `Booster.load(path)` write and read the reference's
+self-describing checkpoint (`checkpoint/io.py`), so a model crosses between
+the two packages.
+
+Not ported yet: in-run checkpoints (`checkpoint_every`, `resume`),
+sampling (`subsample`, `colsample_*`,
 `sampling_method`), monotone constraints, the numeric sentinel
 (`numeric_check`), external memory (`on_oom`), multi-device fits (`mesh=`
 and its keywords). Their knobs and keywords keep the reference's names and
@@ -124,7 +131,7 @@ class BoosterConfig:
 # Keywords of the reference's fit/update that this port lacks, with their
 # defaults: any other value raises NotImplementedError naming the keyword.
 _UNPORTED_KEYWORDS = {
-    "obj": None, "mesh": None, "data_axes": ("data",), "collective": "psum",
+    "mesh": None, "data_axes": ("data",), "collective": "psum",
     "compression": None, "comm_tolerance": 0.05, "checkpoint_every": None,
     "checkpoint_path": None, "on_oom": "raise",
 }
@@ -146,7 +153,8 @@ class Booster:
     after an early-stopped fit truncated the model), `history` (per-round
     records keyed `train_{metric}` and `{set}_{metric}`),
     `best_iteration`/`best_score` (when early stopping ran),
-    `n_rounds_trained`, `device`. `update(dtrain, n)` continues training.
+    `n_rounds_trained`, `device`. `update(dtrain, n)` continues training;
+    `save(path)` and `Booster.load(path)` persist the model.
     """
 
     def __init__(self, cfg: BoosterConfig | None = None, **params):
@@ -165,11 +173,36 @@ class Booster:
         self.device: torch.device | None = None
         self.margins: torch.Tensor | None = None
         self._train_dmat: DeviceDMatrix | None = None  # the matrix `margins` are of
+        self._obj: O.Objective | None = None  # fit(obj=...) override
         self._metrics: tuple[M.Metric, ...] | None = None
 
     @property
     def obj(self) -> O.Objective:
+        if self._obj is not None and self._obj.name == self.cfg.objective:
+            return self._obj
         return O.get_objective(self.cfg.objective)
+
+    @property
+    def n_features(self) -> int | None:
+        """Features a row must have: the cuts' count, or `n_features_in_`
+        for a model that carries no cuts (imported from XGBoost JSON); None
+        when neither is known (an imported model reloaded from a
+        checkpoint)."""
+        if self.cuts is not None:
+            return int(self.cuts.shape[0])
+        nf = getattr(self, "n_features_in_", None)
+        return None if nf is None else int(nf)
+
+    def _check_rows(self, x: torch.Tensor) -> None:
+        """Raw rows must be 2-D with the model's features. A model that
+        knows neither count (an imported model reloaded from a checkpoint)
+        is refused: the traversal kernel would read past narrower rows."""
+        nf = self.n_features
+        if nf is None:
+            raise ValueError("this model carries neither cuts nor n_features_in_; set "
+                             "booster.n_features_in_ to the rows' feature count")
+        if x.ndim != 2 or x.shape[1] != nf:
+            raise ValueError(f"x must be (n_rows, {nf}), got {tuple(x.shape)}")
 
     def num_boosted_rounds(self) -> int:
         return self.n_rounds_trained
@@ -222,6 +255,9 @@ class Booster:
         eval_metric: metric spec or list of specs (names like "logloss",
           "auc", "ndcg@10", Metric objects, callables); defaults to the
           objective's default metric.
+        obj: override cfg.objective: a registry name, an Objective (e.g.
+          from objectives.register_objective), or a bare callable
+          `(margins, y) -> (g, h)`; cfg.objective takes its name.
         custom_metric: one extra metric spec, appended after eval_metric.
         verbose_every: record every this many rounds in `history` (the last
           round always); with 0, every round when evals or a callback are
@@ -231,7 +267,7 @@ class Booster:
         The other keywords are the reference's and not ported yet: a
         non-default value raises NotImplementedError.
         """
-        _refuse_unported(obj=obj, mesh=mesh, data_axes=data_axes, collective=collective,
+        _refuse_unported(mesh=mesh, data_axes=data_axes, collective=collective,
                          compression=compression, comm_tolerance=comm_tolerance,
                          checkpoint_every=checkpoint_every,
                          checkpoint_path=checkpoint_path, on_oom=on_oom)
@@ -240,12 +276,17 @@ class Booster:
         self.best_iteration = self.best_score = None
         self.n_rounds_trained = 0
         self.margins = self._train_dmat = None
+        if obj is not None:
+            resolved = O.as_objective(obj)
+            self._obj = resolved
+            self.cfg = dataclasses.replace(self.cfg, objective=resolved.name)
         if dtrain.label is None:
             raise ValueError("dtrain must be constructed with label= to fit")
         self._metrics = self._resolve_metrics(eval_metric, custom_metric)
         self.device = dtrain.device
         self.cuts = dtrain.cuts
-        self.base_score = float(self.obj.init_base_score(dtrain.label))
+        self.base_score = float(self.obj.init_base_score(dtrain.label,
+                                                         **O.config_kwargs(self.cfg)))
         self._run_rounds(dtrain, self.cfg.n_rounds, evals, early_stopping_rounds,
                          verbose_every, callback)
         return self
@@ -403,7 +444,7 @@ class Booster:
             length = nxt - done
             chunk_metrics = []  # a round's metrics, stacked: train, then each set
             for _ in range(length):
-                gh_all = obj.grad(margins, y)  # (n, k, 2), round-start gradients
+                gh_all = obj.grad(margins, y, **extra)  # (n, k, 2), round-start gradients
                 trees = [
                     T.grow_tree(data, gh_all[:, c, :].contiguous(), self.cuts,
                                 cfg.max_depth, cfg.max_bins, cfg.split_params,
@@ -515,9 +556,7 @@ class Booster:
                 ens, data.matrix.packed, data.bits, data.n_rows,
                 self.cfg.max_bins - 1, self.cfg.max_depth)
         x = as_tensor(data, self.device)
-        if x.ndim != 2 or x.shape[1] != self.cuts.shape[0]:
-            raise ValueError(f"x must be (n_rows, {self.cuts.shape[0]}), got "
-                             f"{tuple(x.shape)}")
+        self._check_rows(x)
         return ST.predict_margins_fused(ens, x, self.cfg.max_depth)
 
     def predict(self, data, output_margin: bool = False,
@@ -558,7 +597,7 @@ class Booster:
         gain = self.ensemble.gain.cpu().numpy().astype(np.float64)
         feat = self.ensemble.feature.cpu().numpy()
         split = np.isfinite(gain)
-        n_features = self.cuts.shape[0]
+        n_features = self.n_features or 0
         counts = np.bincount(feat[split], minlength=n_features).astype(np.float64)
         if importance_type == "weight":
             return counts
@@ -572,3 +611,64 @@ class Booster:
             f"importance_type must be 'gain', 'total_gain' or 'weight', "
             f"got {importance_type!r}"
         )
+
+    # --- persistence -------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Self-describing checkpoint (config + cuts + base score + trees) in
+        the reference's format (`checkpoint/io.py`): a file either package
+        writes, the other loads."""
+        self._require_fitted()
+        from repro_torch.checkpoint import io as CIO
+
+        CIO.save_booster(path, self)
+
+    @classmethod
+    def load(cls, path: str, *, device=None) -> "Booster":
+        """A Booster from a checkpoint, its tensors on `device` (the card
+        unless "cpu")."""
+        from repro_torch.checkpoint import io as CIO
+
+        return CIO.load_booster(path, device=device)
+
+
+# Deprecated alias kept from the reference: the old TrainState (ensemble /
+# margins / history attribute surface) is the Booster itself.
+TrainState = Booster
+
+
+def train(
+    x,
+    y,
+    cfg: BoosterConfig,
+    eval_set: tuple[Any, Any] | None = None,
+    group_ids=None,
+    verbose_every: int = 0,
+    callback: Callable[[int, dict], None] | None = None,
+    *,
+    device=None,
+) -> Booster:
+    """Deprecated one-shot shim over DeviceDMatrix + Booster.fit, on
+    `device` (the card unless "cpu"). It quantises x on every call: build a
+    DeviceDMatrix once and call `Booster.fit` to amortise that. `eval_set`
+    becomes the eval set named "valid". `group_ids` (ranking) is not ported
+    yet: any value but None raises."""
+    if group_ids is not None:
+        raise NotImplementedError("group_ids is not ported yet (only group_ids=None)")
+    dtrain = DeviceDMatrix(x, label=y, max_bins=cfg.max_bins, device=device)
+    evals = []
+    if eval_set is not None:
+        xv, yv = eval_set
+        evals.append((DeviceDMatrix(xv, label=yv, ref=dtrain), "valid"))
+    return Booster(cfg).fit(dtrain, evals=evals, verbose_every=verbose_every,
+                            callback=callback)
+
+
+def predict_margins(ens: PR.Ensemble, x, max_depth: int) -> torch.Tensor:
+    """Deprecated shim: raw-threshold margins of rows `x` on the model's
+    device. The single float32 conversion lives here."""
+    return PR.predict_raw(ens, as_tensor(x, ens.feature.device), max_depth)
+
+
+def predict(ens: PR.Ensemble, x, max_depth: int, objective: str) -> torch.Tensor:
+    """Deprecated shim: prefer Booster.predict (the model describes itself)."""
+    return O.get_objective(objective).transform(predict_margins(ens, x, max_depth))

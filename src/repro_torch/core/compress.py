@@ -68,10 +68,11 @@ class PackedBins:
 
 
 def gather_feature_bins(packed: torch.Tensor, bits: int, feat: torch.Tensor) -> torch.Tensor:
-    """bins[i, feat[i]] for every row i straight from the packed words: one
-    word gather plus a shift/mask per row. feat is (n,) int."""
+    """bins[i, feat[..., i]] for every row i straight from the packed words:
+    one word gather plus a shift/mask per row. feat is (n,) int, or (t, n)
+    for t trees at once."""
     spw = symbols_per_word(bits)
-    row = torch.arange(feat.shape[0], dtype=torch.int64, device=feat.device)
+    row = torch.arange(feat.shape[-1], dtype=torch.int64, device=feat.device)
     word = words_as_uint(packed[feat.to(torch.int64), row // spw])
     shift = (row % spw) * bits
     return ((word >> shift) & ((1 << bits) - 1)).to(torch.int32)

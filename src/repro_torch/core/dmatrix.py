@@ -132,6 +132,14 @@ class DeviceDMatrix:
     def n_features(self) -> int:
         return self.matrix.n_features
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes held: packed words + cut points + labels."""
+        total = self.matrix.nbytes_compressed() + self.cuts.numel() * 4
+        if self.label is not None:
+            total += self.label.shape[0] * 4
+        return total
+
     def packed_bins(self) -> C.PackedBins:
         return self.matrix.as_packed_bins()
 

@@ -4,10 +4,12 @@
 `traverse_tree_packed` (packed words) and `traverse_tree_binned` (dense
 bins, `compress_matrix=False`) are the training margin update: one tree in
 bin space, all rows one level per step (plain torch gathers; the reference
-runs them in XLA too). Raw-row prediction goes through the
-ensemble-traversal kernel in `serve/traversal.py`. `concat_ensembles`,
-`truncate_rounds` and `slice_rounds` cut and join models round by round,
-their packed nodes with them.
+runs them in XLA too). They and `traverse_trees_packed`, which walks t
+trees at once (`serve/traversal.py`), share one walk (`_traverse`).
+Raw-row prediction (`predict_raw`, and `serve/traversal.py`) goes through
+the ensemble-traversal kernel. `concat_ensembles`, `truncate_rounds` and
+`slice_rounds` cut and join models round by round, their packed nodes with
+them.
 """
 from __future__ import annotations
 
@@ -102,14 +104,18 @@ def slice_rounds(ens: Ensemble, start: int, end: int) -> Ensemble:
     return _map_trees(lambda x: x[lo:hi], ens)
 
 
-def _traverse(leaf_value, is_leaf, n_rows: int, max_depth: int, go_left) -> torch.Tensor:
-    """Leaf outputs (n_rows,) of one tree, all rows one level per step;
-    `go_left(node)` routes each row from its node."""
-    node = torch.zeros(n_rows, dtype=torch.int64, device=leaf_value.device)
+def _traverse(feature, split_bin, default_left, leaf_value, is_leaf, n_rows: int,
+              missing_bin: int, max_depth: int, bins_of) -> torch.Tensor:
+    """Leaf outputs (t, n_rows) of t tree arenas (t, a), all rows one level
+    per step; `bins_of(f)` gives each (tree, row)'s bin of feature f (t, n_rows)."""
+    node = torch.zeros((feature.shape[0], n_rows), dtype=torch.int64, device=feature.device)
     for _ in range(max_depth):
-        child = torch.where(go_left(node), 2 * node + 1, 2 * node + 2)
-        node = torch.where(is_leaf[node], node, child)
-    return leaf_value[node]
+        b = bins_of(torch.gather(feature, 1, node).to(torch.int64))
+        go_left = torch.where(b == missing_bin, torch.gather(default_left, 1, node),
+                              b <= torch.gather(split_bin, 1, node))
+        child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
+        node = torch.where(torch.gather(is_leaf, 1, node), node, child)
+    return torch.gather(leaf_value, 1, node)
 
 
 def traverse_tree_binned(
@@ -118,24 +124,30 @@ def traverse_tree_binned(
 ) -> torch.Tensor:
     """Leaf outputs (n_rows,) of ONE tree arena over dense (n_rows, f) bins:
     per level one gather of each row's split-feature column."""
-    def go_left(node):
-        b = torch.gather(bins, 1, feature[node].to(torch.int64)[:, None])[:, 0]
-        return torch.where(b == missing_bin, default_left[node], b <= split_bin[node])
+    row = torch.arange(bins.shape[0], device=bins.device)
+    return _traverse(*(a[None] for a in (feature, split_bin, default_left, leaf_value, is_leaf)),
+                     bins.shape[0], missing_bin, max_depth, lambda f: bins[row, f])[0]
 
-    return _traverse(leaf_value, is_leaf, bins.shape[0], max_depth, go_left)
+
+def traverse_trees_packed(
+    feature, split_bin, default_left, leaf_value, is_leaf,
+    packed: torch.Tensor, bits: int, n_rows: int, missing_bin: int, max_depth: int,
+) -> torch.Tensor:
+    """Leaf outputs (t, n_rows) of t tree arenas (t, a) over the packed
+    matrix: per level one word gather per (tree, row) plus a shift/mask; the
+    dense bins never exist."""
+    return _traverse(feature, split_bin, default_left, leaf_value, is_leaf, n_rows,
+                     missing_bin, max_depth, lambda f: C.gather_feature_bins(packed, bits, f))
 
 
 def traverse_tree_packed(
     feature, split_bin, default_left, leaf_value, is_leaf,
     packed: torch.Tensor, bits: int, n_rows: int, missing_bin: int, max_depth: int,
 ) -> torch.Tensor:
-    """Leaf outputs (n_rows,) of ONE tree arena over the packed matrix: per
-    level one word gather per row plus a shift/mask."""
-    def go_left(node):
-        b = C.gather_feature_bins(packed, bits, feature[node])
-        return torch.where(b == missing_bin, default_left[node], b <= split_bin[node])
-
-    return _traverse(leaf_value, is_leaf, n_rows, max_depth, go_left)
+    """Leaf outputs (n_rows,) of ONE tree arena over the packed matrix."""
+    return traverse_trees_packed(
+        *(a[None] for a in (feature, split_bin, default_left, leaf_value, is_leaf)),
+        packed, bits, n_rows, missing_bin, max_depth)[0]
 
 
 def fold_classes(leaves: torch.Tensor, ens: Ensemble) -> torch.Tensor:
@@ -143,6 +155,16 @@ def fold_classes(leaves: torch.Tensor, ens: Ensemble) -> torch.Tensor:
     k = ens.n_classes
     per_class = leaves.reshape(-1, k, leaves.shape[1]).sum(dim=0)
     return per_class.t() + ens.base_score
+
+
+def predict_raw(ens: Ensemble, x: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Margins (n_rows, n_classes) from raw float32 rows (NaN = missing),
+    base_score included: the traversal kernel over the model's packed nodes
+    on the card, its plain version on the CPU."""
+    from repro_torch.kernels import ops  # lazy: ops imports core modules
+
+    return ops.ensemble_margins_nodes_op(ens.nodes, x, ens.n_classes, max_depth) \
+        + ens.base_score
 
 
 def predict_binned(ens: Ensemble, bins: torch.Tensor, missing_bin: int,

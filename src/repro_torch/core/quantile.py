@@ -8,7 +8,10 @@ kernel (`kernels/csrc/quantile_cuts.cu`), on a CPU tensor in its plain
 version, bit-identical to it. Missing values (NaN) take the reserved last
 bin.
 
-The streaming sketch of the reference (external memory) is not ported yet.
+`select_cuts_from_sorted`, `compute_cuts_reference` and
+`quantize_reference` keep the reference's names for the selection stage
+and the oracles. The streaming sketch of the reference (external memory)
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +22,22 @@ import torch
 DEFAULT_MAX_BINS = 256
 
 
+def missing_bin_id(max_bins: int = DEFAULT_MAX_BINS) -> int:
+    return max_bins - 1
+
+
 def n_value_bins(max_bins: int = DEFAULT_MAX_BINS) -> int:
     return max_bins - 1
+
+
+def select_cuts_from_sorted(srt: torch.Tensor, n_valid: torch.Tensor,
+                            max_bins: int = DEFAULT_MAX_BINS) -> torch.Tensor:
+    """Selection stage of compute_cuts over column-sorted (n, F) float32
+    with a +inf tail and the (F,) finite counts: the cut-selection kernel on
+    the card, its plain version on the CPU."""
+    from repro_torch.kernels import ops  # lazy: ops imports core modules
+
+    return ops.select_cuts_op(srt, n_valid, max_bins)
 
 
 def compute_cuts(x: torch.Tensor, max_bins: int = DEFAULT_MAX_BINS) -> torch.Tensor:
@@ -39,6 +56,14 @@ def compute_cuts(x: torch.Tensor, max_bins: int = DEFAULT_MAX_BINS) -> torch.Ten
     return ops.compute_cuts_op(x, max_bins)
 
 
+def compute_cuts_reference(x: torch.Tensor, max_bins: int = DEFAULT_MAX_BINS) -> torch.Tensor:
+    """The cuts in plain torch on x's device (sort, then the selection's
+    plain version): the oracle of `compute_cuts`, bit-identical to it."""
+    from repro_torch.kernels import ops  # lazy: ops imports core modules
+
+    return ops.R.quantile_cuts_ref(*ops.sorted_columns(x), max_bins)
+
+
 def quantize(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     """Map raw features to bin ids (n_rows, n_features) int32.
 
@@ -50,3 +75,8 @@ def quantize(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     b = torch.searchsorted(cuts.contiguous(), xt, side="left").to(torch.int32)
     b = torch.where(torch.isnan(xt), torch.full_like(b, n_cuts + 1), b)
     return b.t().contiguous()
+
+
+# The reference keeps its all-device quantize as the oracle of its host
+# fast path; here quantize is plain torch on every device, its own oracle.
+quantize_reference = quantize

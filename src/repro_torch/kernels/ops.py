@@ -112,12 +112,25 @@ def compute_cuts_op(x: torch.Tensor, max_bins: int) -> torch.Tensor:
     missing values filled with +inf, each column sorted with `torch.sort`,
     then the cut-selection kernel (its plain version on the CPU), which
     returns the ascending cuts."""
+    return select_cuts_op(*sorted_columns(x), max_bins)
+
+
+def sorted_columns(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(column-sorted float32 with missing values as a +inf tail, the
+    (F,) int32 finite counts): the sort stage of the cuts."""
     x = x.to(torch.float32)
     finite = torch.isfinite(x)
     srt = torch.sort(torch.where(finite, x, float("inf")), dim=0).values
-    n_valid = finite.sum(dim=0, dtype=torch.int32)
+    return srt, finite.sum(dim=0, dtype=torch.int32)
+
+
+def select_cuts_op(srt: torch.Tensor, n_valid: torch.Tensor, max_bins: int) -> torch.Tensor:
+    """The selection stage alone: ascending cuts (F, max_bins - 2) from
+    column-sorted (n, F) float32 with a +inf tail and the (F,) finite
+    counts, through the cut-selection kernel on the card."""
     if srt.is_cuda:
-        return quantile_cuts_from_sorted(srt.contiguous(), n_valid, max_bins)
+        return quantile_cuts_from_sorted(srt.contiguous(),
+                                         n_valid.to(torch.int32).contiguous(), max_bins)
     return R.quantile_cuts_ref(srt, n_valid, max_bins)
 
 

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Booster as JBooster
 from repro.core import DeviceDMatrix as JDMatrix
@@ -210,7 +211,7 @@ def test_config_keeps_reference_fields_and_defaults():
 def test_fit_and_predict_errors(data):
     x, labels, _ = data
     with pytest.raises(NotImplementedError):
-        Booster(objective="reg:quantile").fit(
+        Booster(objective="rank:pairwise").fit(
             DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"))
     with pytest.raises(ValueError):
         Booster(objective="no:such").fit(
@@ -224,9 +225,33 @@ def test_fit_and_predict_errors(data):
         Booster().predict(x)
 
 
+def test_deprecated_shims_match_the_booster(data):
+    """The reference's module-level names: `train` is `Booster.fit` on a
+    fresh matrix (with its eval set as "valid"), `predict_margins` and
+    `predict` the booster's raw-row predictions, `TrainState` the Booster."""
+    from repro_torch.core import booster as TB
+
+    x, labels, x_new = data
+    y = labels["binary:logistic"]
+    cfg = BoosterConfig(n_rounds=3, max_depth=3, max_bins=32, objective="binary:logistic")
+    bst = TB.train(x[:1500], y[:1500], cfg, eval_set=(x[1500:], y[1500:]), device="cpu")
+    direct = Booster(cfg).fit(DeviceDMatrix(x[:1500], label=y[:1500], max_bins=32,
+                                            device="cpu"))
+    assert torch.equal(bst.ensemble.leaf_value, direct.ensemble.leaf_value)
+    assert [sorted(r) for r in bst.history[:1]] == [["round", "train_accuracy",
+                                                     "valid_accuracy"]]
+    assert torch.equal(TB.predict_margins(bst.ensemble, x_new, 3), bst.predict_margins(x_new))
+    assert torch.equal(TB.predict(bst.ensemble, x_new, 3, "binary:logistic"),
+                       bst.predict(x_new))
+    assert TB.TrainState is Booster
+    with pytest.raises(NotImplementedError, match="group_ids"):
+        TB.train(x, y, cfg, group_ids=np.zeros(len(x), np.int32), device="cpu")
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without JAX or
-    any module of the JAX package."""
+    """Every module of the port, and chip_smoke.py, import without JAX,
+    any module of the JAX package, or msgpack (the card's machine lacks it:
+    checkpoints go through the port's own codec)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -234,7 +259,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'msgpack' or m.startswith('msgpack.')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )

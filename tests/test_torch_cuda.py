@@ -439,3 +439,186 @@ def test_iteration_range_on_card(rng):
     dv = DeviceDMatrix(x, label=y, ref=d)
     auc = bst.eval(dv, metrics="auc")["eval_auc"]
     assert auc > 0.9
+
+
+def _binary_data(rng, n=3000, f=6):
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + np.nan_to_num(x[:, 1]) > 0).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.cuda
+def test_early_stopping_fires_on_card(rng):
+    """A fit whose held-out logloss turns (learning rate 1.0 and depth 6
+    overfit 2,000 rows; on the CPU it stops after 15 rounds, best 9) stops
+    on the card: the model keeps best_iteration + 1 rounds with their packed
+    nodes, drops its margins, and predicts bit for bit as the plain
+    traversal of the truncated model."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    dev = _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x[:2000], label=y[:2000], max_bins=64)
+    dv = DeviceDMatrix(x[2000:], label=y[2000:], ref=d)
+    bst = Booster(n_rounds=30, learning_rate=1.0, max_depth=6, max_bins=64,
+                  objective="binary:logistic").fit(d, evals=[(dv, "valid")],
+                                                   eval_metric="logloss",
+                                                   early_stopping_rounds=3)
+    kept, ens = bst.num_boosted_rounds(), bst.ensemble
+    assert kept == bst.best_iteration + 1 < len(bst.history) < 30
+    assert ens.n_trees == ens.nodes.shape[0] == kept and bst.margins is None
+    xd = torch.from_numpy(x).to(dev)
+    plain = ref.ensemble_margins_ref(ens.feature, ens.threshold, ens.default_left,
+                                     ens.leaf_value, ens.is_leaf, xd, 1, 6) + ens.base_score
+    assert torch.equal(bst.predict_margins(x), plain)
+    assert torch.equal(bst.predict(x), torch.sigmoid(plain[:, 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["reg:quantile", "reg:pseudohubererror",
+                                       "count:poisson", "custom"])
+def test_objectives_fit_on_card(rng, objective):
+    """Each new objective trains through the default growth's kernels and
+    beats its constant baseline (the base score) on its metric for held-out
+    rows; a registered copy of binary:logistic's gradient runs the same
+    launches as the built-in and reaches its accuracy."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.core import metrics as M
+    from repro_torch.core import objectives as O
+
+    dev = _cuda()
+    x, yb = _binary_data(rng, n=4000)
+    z = np.nan_to_num(x)
+    signal = z[:, 0] - 0.5 * z[:, 1] + 0.3 * z[:, 2] * z[:, 3]
+    kw = dict(n_rounds=5, max_depth=4, max_bins=64)
+    if objective == "custom":
+        name = "test:card_logistic"
+        try:
+            obj = O.register_objective(name, lambda m, y: (torch.sigmoid(m[:, 0]) - y,
+                                                           torch.sigmoid(m[:, 0])
+                                                           * (1 - torch.sigmoid(m[:, 0]))),
+                                       transform=lambda m: torch.sigmoid(m[:, 0]),
+                                       default_metric="accuracy")
+            d = DeviceDMatrix(x[:3000], label=yb[:3000], max_bins=64)
+            ops.reset_launches()
+            custom = Booster(**kw).fit(d, obj=obj)
+            got = ops.launches()
+            ops.reset_launches()
+            builtin = Booster(**kw, objective="binary:logistic").fit(d)
+            assert ops.launches() == got
+            accs = [float(((b.predict(x[3000:]) > 0.5).cpu().numpy() == yb[3000:]).mean())
+                    for b in (custom, builtin)]
+            assert abs(accs[0] - accs[1]) <= 0.01 and accs[0] > 0.9
+        finally:
+            O.OBJECTIVES.pop(name, None)
+        return
+    y = {"reg:quantile": signal + rng.normal(size=len(z)),
+         "reg:pseudohubererror": signal + rng.standard_t(2, size=len(z)),
+         "count:poisson": rng.poisson(np.exp(0.5 * signal))}[objective].astype(np.float32)
+    d = DeviceDMatrix(x[:3000], label=y[:3000], max_bins=64)
+    ops.reset_launches()
+    bst = Booster(**kw, objective=objective, quantile_alpha=0.8).fit(d)
+    assert ops.launches()["histogram_private"] == 5 and ops.launches()["split_scan"] == 20
+    metric = M.get_metric(bst.obj.default_metric)
+    held = bst.predict_margins(x[3000:])
+    yt = torch.from_numpy(y[3000:]).to(dev)
+    extra = O.config_kwargs(bst.cfg)
+    assert float(metric.fn(held, yt, **extra)) < float(
+        metric.fn(torch.full_like(held, bst.base_score), yt, **extra))
+
+
+@pytest.mark.cuda
+def test_save_load_on_card(rng, tmp_path):
+    """A model saved on the card loads onto the card and predicts bit for
+    bit; save -> load -> save gives the same bytes; loaded onto the CPU it
+    predicts the same margins through the plain traversal."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    bst = Booster(n_rounds=4, max_depth=4, max_bins=64, objective="binary:logistic").fit(
+        DeviceDMatrix(x, label=y, max_bins=64))
+    bst.save(str(tmp_path / "a.ckpt"))
+    back = Booster.load(str(tmp_path / "a.ckpt"))
+    assert back.ensemble.nodes.is_cuda and back.cuts.is_cuda
+    assert torch.equal(back.predict(x), bst.predict(x))
+    back.save(str(tmp_path / "b.ckpt"))
+    assert (tmp_path / "a.ckpt").read_bytes() == (tmp_path / "b.ckpt").read_bytes()
+    on_cpu = Booster.load(str(tmp_path / "a.ckpt"), device="cpu")
+    assert torch.equal(on_cpu.predict_margins(x), bst.predict_margins(x).cpu())
+
+
+@pytest.mark.cuda
+def test_reference_checkpoint_on_card():
+    """The checkpoint the JAX package wrote (tests/data, by
+    tools/make_reference_checkpoint.py) loads onto the card, with no JAX and
+    no msgpack, and predicts its stored rows within atol 1e-6 (float32
+    rounding of the leaf sums and the sigmoid)."""
+    from pathlib import Path
+
+    from repro_torch.core import Booster
+
+    _cuda()
+    data = Path(__file__).resolve().parent / "data"
+    bst = Booster.load(str(data / "repro_booster_v2.ckpt"))
+    rows = np.load(data / "repro_booster_v2_rows.npy")
+    pred = np.load(data / "repro_booster_v2_pred.npy")
+    ops.reset_launches()
+    got = bst.predict(rows).cpu().numpy()
+    assert ops.launches()["ensemble_traversal"] == 1
+    np.testing.assert_allclose(got, pred, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_engine_on_card(rng):
+    """PredictEngine on the card: one CUDA graph a bucket, captured once
+    (the traversal kernel's launches count at capture), replays only after
+    warmup, and every output bit for bit `Booster.predict`."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.serve import PredictEngine
+
+    _cuda()
+    x, y = _binary_data(rng, n=2500)
+    yk = (np.nan_to_num(x[:, 0]) > 0).astype(np.float32) + (np.nan_to_num(x[:, 1]) > 0.5)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    for bst in (Booster(n_rounds=6, max_depth=5, max_bins=64,
+                        objective="binary:logistic").fit(d),
+                Booster(n_rounds=3, max_depth=3, max_bins=64, objective="multi:softmax",
+                        n_classes=3).fit(DeviceDMatrix(x, label=yk, ref=d))):
+        want = {n: bst.predict(x[:n]).cpu().numpy() for n in (1, 31, 32, 33, 300, 2500)}
+        ops.reset_launches()
+        eng = PredictEngine(bst, buckets=(32, 64, 256)).warmup()
+        assert ops.launches()["ensemble_traversal"] == 3 == eng.trace_count
+        ops.reset_launches()
+        for _ in range(2):
+            for n, w in want.items():
+                assert np.array_equal(eng.predict(x[:n]), w), n
+        assert ops.launches()["ensemble_traversal"] == 0 and eng.trace_count == 3
+    margin = PredictEngine(bst, output_margin=True, iteration_range=(1, 3), buckets=(64,))
+    assert np.array_equal(margin.predict(x[:100]), bst.predict(
+        x[:100], output_margin=True, iteration_range=(1, 3)).cpu().numpy())
+    unstaged = PredictEngine(bst, host_staging=False, buckets=(64,))
+    assert np.array_equal(unstaged.predict(x[:200]), want[300][:200])
+    bad = x[:4].copy()
+    bad[1, 2] = np.inf
+    with pytest.raises(ValueError, match="infinite feature values"):
+        eng.predict(bad)
+
+
+@pytest.mark.cuda
+def test_imported_json_model_on_card(rng):
+    """A model exported to XGBoost JSON and imported onto the card predicts
+    bit for bit as the original, through the traversal kernel."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.serve import export_xgboost_json, import_xgboost_json
+
+    _cuda()
+    x, y = _binary_data(rng)
+    bst = Booster(n_rounds=4, max_depth=4, max_bins=64, objective="binary:logistic").fit(
+        DeviceDMatrix(x, label=y, max_bins=64))
+    imported = import_xgboost_json(export_xgboost_json(bst))
+    assert imported.ensemble.nodes.is_cuda and imported.cuts is None
+    ops.reset_launches()
+    assert torch.equal(imported.predict(x), bst.predict(x))
+    assert ops.launches()["ensemble_traversal"] == 2

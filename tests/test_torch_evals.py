@@ -271,7 +271,7 @@ def test_concat_truncate_slice_match_reference(n_classes):
 
 
 @pytest.mark.parametrize("keyword,value", [
-    ("obj", "binary:logistic"), ("mesh", object()), ("data_axes", ("rows",)),
+    ("mesh", object()), ("data_axes", ("rows",)),
     ("collective", "ring"), ("compression", "f16"), ("comm_tolerance", 0.1),
     ("checkpoint_every", 2), ("checkpoint_path", "model.ckpt"), ("on_oom", "external"),
 ])
@@ -280,7 +280,7 @@ def test_unported_keywords_raise(data, keyword, value):
     d = DeviceDMatrix(x[:200], label=y[:200], max_bins=32, device="cpu")
     with pytest.raises(NotImplementedError, match=keyword):
         Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
-    if keyword not in ("obj", "on_oom"):  # the reference's update lacks these two
+    if keyword != "on_oom":  # the reference's update lacks it
         bst = Booster(**dict(KW, n_rounds=1)).fit(d, data_axes=["data"])  # a list is the default
         with pytest.raises(NotImplementedError, match=keyword):
             bst.update(d, 1, **{keyword: value})

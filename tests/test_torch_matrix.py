@@ -170,3 +170,37 @@ def test_dmatrix_runs_on_the_card_unless_asked_for_the_cpu(rng):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DeviceDMatrix(x)
     assert DeviceDMatrix(x, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("max_bins", [16, 256])
+def test_quantile_reference_names(rng, max_bins):
+    """The reference's oracles and selection stage by name: the selection on
+    the reference's own sorted columns and the plain cuts close to the
+    reference's (the rank-flip model above), the plain cuts bit for bit the
+    dispatching `compute_cuts`, `quantize_reference` exact given the cuts."""
+    x = _data(rng)
+    assert TQ.missing_bin_id(max_bins) == JQ.missing_bin_id(max_bins) == max_bins - 1
+    xt = torch.from_numpy(x)
+    srt = np.sort(np.where(np.isfinite(x), x, np.inf), axis=0)
+    n_valid = np.isfinite(x).sum(axis=0).astype(np.int32)
+    got = TQ.select_cuts_from_sorted(torch.from_numpy(srt), torch.from_numpy(n_valid),
+                                     max_bins).numpy()
+    assert_cuts_close(got, np.asarray(JQ.select_cuts_from_sorted(
+        jnp.asarray(srt), jnp.asarray(n_valid), max_bins)), x)
+    plain = TQ.compute_cuts_reference(xt, max_bins)
+    assert torch.equal(plain, TQ.compute_cuts(xt, max_bins))
+    assert_cuts_close(plain.numpy(), np.asarray(JQ.compute_cuts_reference(
+        jnp.asarray(x), max_bins)), x)
+    np.testing.assert_array_equal(
+        TQ.quantize_reference(xt, plain).numpy(),
+        np.asarray(JQ.quantize_reference(jnp.asarray(x), jnp.asarray(plain.numpy()))))
+
+
+def test_dmatrix_nbytes_matches_reference(rng):
+    x = _data(rng)
+    y = rng.random(x.shape[0]).astype(np.float32)
+    jd = JDMatrix(x, label=y, max_bins=64)
+    for label in (y, None):
+        d = DeviceDMatrix(x, label=label, max_bins=64, cuts=np.asarray(jd.cuts), device="cpu")
+        want = JDMatrix(x, label=label, max_bins=64, cuts=np.asarray(jd.cuts)).nbytes
+        assert d.nbytes == want

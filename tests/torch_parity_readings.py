@@ -8,7 +8,13 @@ Run from the repository root (CPU, a few minutes):
 Prints one JSON line per reading: the split scan's |Δgain| / max(|gain|, 1) and
 hl error per shape over 60 seeds, then for each fit the atol it needs beside
 rtol 1e-5 on leaves, training margins and predicted margins, over data seeds
-0-9 of the booster fixture (null where the tree structure differs).
+0-9 of the booster fixture (null where the tree structure differs; there
+`tie` scores both packages' splits at the first slot that differs by the
+reference's gain, see `tie_witness`). With objective names as arguments,
+only those objectives' fit readings:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py \
+        reg:quantile reg:pseudohubererror count:poisson
 """
 import json
 
@@ -18,13 +24,17 @@ import torch
 
 from repro.core import Booster as JBooster
 from repro.core import DeviceDMatrix as JDMatrix
+from repro.core import objectives as JOBJ
 from repro.kernels import ops as JO
 from repro_torch.core import Booster, DeviceDMatrix
 from repro_torch.kernels import ops
 
 SCAN_SHAPES = [((1, 3, 8), 1.0, 0.5), ((3, 17, 64), 1.0, 1.0), ((8, 5, 256), 0.5, 2.0),
                ((2, 4, 33), 2.0, 0.0)]  # as in test_split_scan_plain_vs_reference
-OBJECTIVES = {"reg:squarederror": 1, "binary:logistic": 1, "multi:softmax": 3}
+OBJECTIVES = {"reg:squarederror": 1, "binary:logistic": 1, "multi:softmax": 3,
+              "reg:quantile": 1, "reg:pseudohubererror": 1, "count:poisson": 1}
+QUANTILE_ALPHA = 0.9  # reg:quantile's alpha in these fits
+STRUCTURE = ("feature", "split_bin", "default_left", "is_leaf")
 
 
 def split_scan_readings(n_seeds=60):
@@ -49,7 +59,79 @@ def split_scan_readings(n_seeds=60):
                "limit": 5 * shape[2] * 2.0**-24, "hl_err_over_max_hl_1": hl_err}
 
 
-def fit_readings(seeds=range(10)):
+def extra_labels(rng, sig, regression):
+    """Labels of the objectives added after the fixture: drawn after its
+    other arrays, so those stay as they were."""
+    return {"reg:quantile": regression, "reg:pseudohubererror": regression,
+            "count:poisson": rng.poisson(np.exp(np.clip(0.5 * sig, -3, 3))).astype(np.float32)}
+
+
+def first_difference(jb, tb):
+    """(tree, node) of the first arena slot whose structure differs between
+    the reference's model and the port's, or None."""
+    differ = np.zeros(tuple(tb.ensemble.feature.shape), bool)
+    for a in STRUCTURE:
+        differ |= getattr(tb.ensemble, a).numpy() != np.asarray(getattr(jb.ensemble, a))
+    return tuple(int(i) for i in np.argwhere(differ)[0]) if differ.any() else None
+
+
+def _split_gain(gh, bins, feature, split_bin, default_left, missing_bin, lam):
+    """The reference's gain formula for one split of a node's rows, in
+    float64: (gain, the sum of its terms' magnitudes, the smaller child's
+    hessian sum). gh (n, 2) and bins (n, f) are the node's rows."""
+    col = bins[:, feature]
+    left = np.where(col == missing_bin, default_left, col <= split_bin)
+    g, h = gh.sum(0)
+    gl, hl = gh[left].sum(0)
+    terms = (gl * gl / (hl + lam), (g - gl) ** 2 / (h - hl + lam), g * g / (h + lam))
+    return 0.5 * (terms[0] + terms[1] - terms[2]), 0.5 * sum(terms), float(min(hl, h - hl))
+
+
+def tie_witness(kw, jd, jb, tb, y):
+    """Where the port's structure first departs from the reference's (every
+    earlier slot equal, so both reach the node with the same rows): each
+    package's choice there, None for a leaf, else its split scored by the
+    reference's gain in float64 on the reference's own gradients at the
+    start of that tree's round. A flip that is only rounding scores both
+    alike. None when the structures agree."""
+    at = first_difference(jb, tb)
+    if at is None:
+        return None
+    tree, node = at
+    k, missing_bin = jb.ensemble.n_classes, kw["max_bins"] - 1
+    ref = {a: np.asarray(getattr(jb.ensemble, a))[tree] for a in STRUCTURE}
+    bins = np.asarray(jd.matrix.unpack())
+    row = np.arange(bins.shape[0])
+    pos = np.zeros(bins.shape[0], np.int64)  # each row's node on the shared path
+    for _ in range(int(np.log2(node + 1))):
+        col = bins[row, ref["feature"][pos]]
+        go_left = np.where(col == missing_bin, ref["default_left"][pos],
+                           col <= ref["split_bin"][pos])
+        pos = np.where(ref["is_leaf"][pos], pos, np.where(go_left, 2 * pos + 1, 2 * pos + 2))
+    rows = pos == node
+    rounds = tree // k
+    margins = (np.full((bins.shape[0], k), jb.base_score, np.float32) if rounds == 0
+               else np.asarray(JBooster(**{**kw, "n_rounds": rounds}).fit(jd).margins))
+    gh = np.asarray(JOBJ.get_objective(kw["objective"]).grad(
+        jnp.asarray(margins), jnp.asarray(y), quantile_alpha=QUANTILE_ALPHA))
+    gh = gh[rows, tree % k].astype(np.float64)
+    out = {"tree": tree, "node": node, "rows": int(rows.sum())}
+    for who, ens in (("ref", jb.ensemble), ("port", tb.ensemble)):
+        arena = {a: np.asarray(getattr(ens, a))[tree][node] for a in STRUCTURE}
+        if arena["is_leaf"]:
+            out[who] = None
+            continue
+        gain, scale, min_hess = _split_gain(gh, bins[rows], int(arena["feature"]),
+                                            int(arena["split_bin"]),
+                                            bool(arena["default_left"]), missing_bin,
+                                            jb.cfg.reg_lambda)
+        out[who] = {"feature": int(arena["feature"]), "split_bin": int(arena["split_bin"]),
+                    "default_left": bool(arena["default_left"]), "gain": float(gain),
+                    "terms": float(scale), "min_child_hess": min_hess}
+    return out
+
+
+def fit_readings(seeds=range(10), objectives=()):
     def atol(a, b):  # the least atol that passes beside rtol 1e-5
         return float(np.max(np.abs(a - b) - 1e-5 * np.abs(b)))
 
@@ -65,17 +147,20 @@ def fit_readings(seeds=range(10)):
                   "multi:softmax": np.digitize(sig, [-0.5, 0.5]).astype(np.float32)}
         x_new = rng.normal(size=(300, f)).astype(np.float32)
         x_new[rng.random(x_new.shape) < 0.1] = np.nan
+        labels.update(extra_labels(rng, sig, labels["reg:squarederror"]))
         for objective, k in OBJECTIVES.items():
-            kw = dict(n_rounds=4, max_depth=4, max_bins=32, objective=objective, n_classes=k)
+            if objectives and objective not in objectives:
+                continue
+            kw = dict(n_rounds=4, max_depth=4, max_bins=32, objective=objective, n_classes=k,
+                      quantile_alpha=QUANTILE_ALPHA)
             jd = JDMatrix(x, label=labels[objective], max_bins=32)
             jb = JBooster(**kw).fit(jd)
             tb = Booster(**kw).fit(DeviceDMatrix(x, label=labels[objective], max_bins=32,
                                                  cuts=np.asarray(jd.cuts), device="cpu"))
-            same = all(np.array_equal(getattr(tb.ensemble, a).numpy(),
-                                      np.asarray(getattr(jb.ensemble, a)))
-                       for a in ("feature", "split_bin", "default_left", "is_leaf"))
+            tie = tie_witness(kw, jd, jb, tb, labels[objective])
+            same = tie is None
             reading = {"fit_seed": seed, "objective": objective, "structure_same": same,
-                       "atol_needed": None}
+                       "atol_needed": None, "tie": tie}
             if same:
                 reading["atol_needed"] = max(
                     atol(tb.ensemble.leaf_value.numpy(), np.asarray(jb.ensemble.leaf_value)),
@@ -86,5 +171,9 @@ def fit_readings(seeds=range(10)):
 
 
 if __name__ == "__main__":
-    for line in (*split_scan_readings(), *fit_readings()):
+    import sys
+
+    # Objective names as arguments: only their fit readings.
+    chosen = tuple(sys.argv[1:])
+    for line in (*(() if chosen else split_scan_readings()), *fit_readings(objectives=chosen)):
         print(json.dumps(line), flush=True)
