@@ -88,12 +88,35 @@ Phases, each printing one JSON line:
                 pageable and from pinned memory, the engine's validation pass
                 and staging copies of a 100k request; again for the 10-round
                 main model (the kernel's share).
-  10. ops     — the path the reference gives `histogram_packed` and
+  10. rank    — an MSLR-WEB10K-shaped ranking fit at full width (RANK_ROWS
+                rows in RANK_QUERIES queries, RANK_FEATURES features, made from
+                --seed; query sizes, relevance shares and Σ g² printed), with a
+                held-out set of RANK_HELD_QUERIES queries built with ref= as its
+                eval set: rank:pairwise, 10 rounds, depth 6, 256 bins, default
+                growth, ndcg@10. Gates: launches private 10 / row-id 50 / split
+                scan 60 / pairwise 10; held-out ndcg@10 above the all-zero
+                model's; the history's last ndcg@10 equals `eval` of the model
+                within 1e-5, and ndcg@10 on the card equals the CPU's within
+                1e-6; the grouping adds no synchronising call to a fit, nor the
+                grouped metric any beyond a plain metric's (`count_syncs`,
+                against the main fit with and without an eval set); save ->
+                load -> predict bit for bit. Readings: build and fit seconds
+                beside the main fit's.
+  11. sklearn — the estimators on the card (HAVE_SKLEARN printed; without
+                sklearn the local base classes run): XGBClassifier(10 rounds)
+                on the main rows, predict_proba bit for bit its booster's
+                predict and, with serve=True, its own serve=False answer,
+                accuracy within 0.003 of the main fit's, launches 10/50/60;
+                XGBRanker on the rank data by qid=, predict bit for bit its
+                booster's, and group= sizes of the rows sorted by query giving
+                their qid= array; XGBRegressor on the objectives phase's
+                regression target, held-out RMSE below the constant's.
+  12. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  11. check   — each kernel against its plain PyTorch version on the same
+  13. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -110,8 +133,13 @@ Phases, each printing one JSON line:
                 the training matrix, on 4-bit symbols packed from known bins
                 and on random words at every shape of DECOMPRESS_SHAPES (the
                 plain version on word-aligned slices of the rows; past 2^31
-                output elements, on the rows past element 2^31).
-  12. time    — CUDA-event ms of each kernel, its plain version and, where one
+                output elements, on the rows past element 2^31); the pairwise
+                gradient on the rank fit's training scores after
+                RANK_CHECK_ROUNDS rounds, at PAIR_GROUPS' query sizes (1, 2,
+                120 and 1,251 rows, one query of 5,000, one of 50,000 rows), on
+                one relevance everywhere and on tied scores, within PAIR_RTOL
+                * (1 + each row's summed term magnitudes).
+  14. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -132,14 +160,18 @@ Phases, each printing one JSON line:
                 decompress by events and back to back at the main shape and
                 at each timed shape of DECOMPRESS_SHAPES, beside its bound
                 and `copy_` of as many bytes read and written (what the card
-                reaches on the same traffic; no port code calls it).
+                reaches on the same traffic; no port code calls it); the
+                pairwise kernel at the rank fit's shape by events and back to
+                back, beside its bound from this data's pairs, the bound of its
+                exps and reciprocals at the special-function units' rate, its
+                plain version, and `ops.query_groups`.
 With --profile, four further fits are traced after the evals phase, each
 printing its device busy time, idle share, launches and top kernels: the
 default, the dense default, and EVAL_ROUNDS rounds with and without the
 evals (tables profile_{fit,dense,evals,no_evals}.txt in the output directory).
 Then the kernels line (each kernel's launches on the path that runs it:
 the main path's, histogram_packed's in the ops phase, decompress's in the
-dense default fit), the `nvidia-smi` line and, last,
+dense default fit, pairwise_grad's in the rank fit), the `nvidia-smi` line and, last,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there is
 no CPU path. Runs from the root of a checkout of the repository.
 """
@@ -206,9 +238,11 @@ REPLACES = {
     "quantile_cuts": "src/repro/kernels/quantile_cuts.py:100",
     "ensemble_traversal": "src/repro/kernels/ensemble_traversal.py:175",
     "decompress": "src/repro/kernels/decompress.py:45",
+    "pairwise_grad": "src/repro/core/objectives.py:289",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/"
-           + ("histogram" if name.startswith("histogram") else name) + ".cu"
+           + ("histogram" if name.startswith("histogram") else
+              "pairwise" if name == "pairwise_grad" else name) + ".cu"
            for name in REPLACES}
 # Further fits on the main matrix: Booster knobs beside the main path's.
 FITS = {
@@ -235,6 +269,25 @@ SERVED_ROUNDS = 500
 SERVE_SIZES = (1, 3, 16, 17, 100, 1_000, 8_192, 8_193, HELD_OUT)
 SERVE_REPEATS = 30
 SERVE_RANGE = (0, 100)
+# Ranking: MSLR-WEB10K Fold 1's training set (Microsoft Learning to Rank
+# datasets) in shape: 723,412 rows in 6,000 queries, 136 features; query
+# sizes log-normal around its median and mean (90, ~120), clipped to its
+# largest query; relevance 0-4 at about its label shares. A held-out set of
+# RANK_HELD_QUERIES more queries. Made from --seed.
+RANK_ROWS, RANK_QUERIES, RANK_FEATURES = 723_412, 6_000, 136
+RANK_MEDIAN, RANK_SIGMA, RANK_MAX_QUERY = 90, 0.75, 1_251
+RANK_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)  # relevance 0, 1, 2, 3, 4
+RANK_HELD_QUERIES = 1_000
+RANK_CHECK_ROUNDS = 3  # the check's scores: after 3 rounds, not all at rho = 0.5
+# The pairwise kernel's other checked shapes: query sizes of (name, size,
+# rows) and of one query of all rows; tolerance 2e-6 * (1 + sum |term|).
+PAIR_GROUPS = (("groups_1", 1, 50_000), ("groups_2", 2, 50_000), ("groups_120", 120, 50_040),
+               ("groups_1251", 1_251, 50_040), ("one_5000", 5_000, 5_000),
+               ("one_all_rows", 50_000, 50_000))
+PAIR_RTOL = 2e-6
+# The special-function units of an H100 SXM: 16 exp2 or reciprocal results a
+# clock on each SM, at its 1,980 MHz boost clock.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 
 def emit(obj: dict) -> None:
@@ -359,6 +412,52 @@ def profile_fit(dtrain, name: str = "fit", knobs: dict | None = None,
                            for e in ours]})
 
 
+def mslr_shaped(rng, n_queries: int, total: int | None, first_qid: int, signal, thresholds):
+    """Rows of MSLR-WEB10K's shape from `rng`: query sizes log-normal (median
+    RANK_MEDIAN, sigma RANK_SIGMA), rounded, clipped to 1..RANK_MAX_QUERY and,
+    with `total`, moved a row at a time until they sum to it; RANK_FEATURES
+    standard normal features; relevance 0-4 from a hidden score (`signal`
+    weights on the features, a per-query offset, noise) cut at `thresholds`
+    (None: at the quantiles of RANK_SHARES, returned). Rows shuffled, so a
+    query's rows are not contiguous. Returns x, relevance, query ids, sizes,
+    thresholds."""
+    import numpy as np
+
+    sizes = np.clip(np.round(rng.lognormal(np.log(RANK_MEDIAN), RANK_SIGMA, n_queries)),
+                    1, RANK_MAX_QUERY).astype(np.int64)
+    while total is not None and sizes.sum() != total:
+        step = 1 if sizes.sum() < total else -1
+        pick = rng.permutation(n_queries)[:min(abs(total - int(sizes.sum())), n_queries)]
+        moved = sizes[pick] + step
+        sizes[pick] = np.where((moved >= 1) & (moved <= RANK_MAX_QUERY), moved, sizes[pick])
+    n = int(sizes.sum())
+    qid = np.repeat(np.arange(first_qid, first_qid + n_queries, dtype=np.int32), sizes)
+    x = rng.standard_normal((n, RANK_FEATURES), dtype=np.float32)
+    offset = rng.normal(size=n_queries).astype(np.float32)
+    hidden = x @ signal + 0.5 * np.repeat(offset, sizes) + 0.7 * rng.standard_normal(
+        n, dtype=np.float32)
+    if thresholds is None:
+        thresholds = np.quantile(hidden, np.cumsum(RANK_SHARES)[:-1])
+    rel = np.searchsorted(thresholds, hidden).astype(np.float32)
+    perm = rng.permutation(n)
+    return x[perm], rel[perm], qid[perm], sizes, thresholds
+
+
+def pair_counts(rel, qid) -> tuple[int, int]:
+    """(unordered pairs within the queries, sum of g (g - 1) / 2; unordered
+    pairs whose labels differ) of this data. One sigmoid of a pair gives
+    both rows' terms, so these are the function's counts, though the kernel,
+    one thread a row, computes each pair twice."""
+    import numpy as np
+
+    per_query = np.bincount(qid - qid.min()).astype(np.int64)
+    per_label = np.bincount((qid - qid.min()).astype(np.int64) * 5 + rel.astype(np.int64),
+                            minlength=per_query.shape[0] * 5).astype(np.int64)
+    pairs = int((per_query * (per_query - 1)).sum()) // 2
+    same = int((per_label * (per_label - 1)).sum()) // 2
+    return pairs, pairs - same
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000,
@@ -412,6 +511,7 @@ def main() -> int:
         launch_plan,
         occupancy,
     )
+    from repro_torch.kernels.pairwise import pairwise_grad
     from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
     from repro_torch.kernels.split_scan import split_scan
     from repro_torch.serve import PredictEngine, export_xgboost_json, import_xgboost_json
@@ -870,6 +970,132 @@ def main() -> int:
           **serve_lines})
     del served, pinned_x, staging_np
 
+    # --- 10. ranking: an MSLR-WEB10K-shaped rank:pairwise fit -------------------
+    rank_rng = np.random.default_rng(args.seed + 1)
+    signal = (rank_rng.normal(size=RANK_FEATURES) * (np.arange(RANK_FEATURES) < 24)
+              / np.sqrt(24)).astype(np.float32)
+    xr, yr, qr, sizes, cuts_r = mslr_shaped(rank_rng, RANK_QUERIES, RANK_ROWS, 0, signal, None)
+    xrv, yrv, qrv, sizes_v, _ = mslr_shaped(rank_rng, RANK_HELD_QUERIES, None, RANK_QUERIES,
+                                            signal, cuts_r)
+    pairs, differ = pair_counts(yr, qr)
+    t0 = time.perf_counter()
+    d_rank = DeviceDMatrix(xr, label=yr, group_ids=qr)
+    d_rank_v = DeviceDMatrix(xrv, label=yrv, group_ids=qrv, ref=d_rank)
+    torch.cuda.synchronize()
+    rank_build_s = time.perf_counter() - t0
+    rank_kw = {**booster_kw, "objective": "rank:pairwise"}
+    rank_evals = dict(evals=[(d_rank_v, "valid")], eval_metric=["ndcg@10"])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rank_bst = Booster(**rank_kw).fit(d_rank, **rank_evals)
+    torch.cuda.synchronize()
+    rank_fit_s = time.perf_counter() - t0
+    rank_launches = ops.launches()
+    t0 = time.perf_counter()
+    Booster(**rank_kw).fit(d_rank)
+    torch.cuda.synchronize()
+    rank_fit_no_evals_s = time.perf_counter() - t0
+    held_ndcg = rank_bst.eval(d_rank_v, "valid")["valid_ndcg@10"]
+    hist_ndcg = rank_bst.history[-1]["valid_ndcg@10"]
+    ndcg10 = M.get_metric("ndcg@10").fn
+    zero_ndcg = float(ndcg10(torch.zeros((d_rank_v.n_rows, 1), device=dev), d_rank_v.label,
+                             group_ids=d_rank_v.group_ids))
+    # ndcg@10 of the model's held-out margins on the card against the same
+    # sorts on the CPU.
+    held_m = rank_bst.predict_margins(d_rank_v)
+    ndcg_card = float(ndcg10(held_m, d_rank_v.label, group_ids=d_rank_v.group_ids))
+    ndcg_cpu = float(ndcg10(held_m.cpu(), d_rank_v.label.cpu(),
+                            group_ids=d_rank_v.group_ids.cpu()))
+    # The grouping adds no synchronising call to the round loop, and the
+    # grouped metric none beyond a plain metric's one read a chunk: against
+    # the main fit with and without one eval set.
+    syncs = {
+        "rank_evals": count_syncs(lambda: Booster(**rank_kw).fit(d_rank, **rank_evals)),
+        "rank": count_syncs(lambda: Booster(**rank_kw).fit(d_rank)),
+        "main_evals": count_syncs(lambda: Booster(**booster_kw).fit(
+            dtrain, evals=[(dvalid, "valid")], eval_metric=["logloss"])),
+        "main": count_syncs(lambda: Booster(**booster_kw).fit(dtrain)),
+    }
+    rank_bst.save(str(work / "rank.ckpt"))
+    rank_loaded = Booster.load(str(work / "rank.ckpt"))
+    rank_persist_exact = bool(torch.equal(rank_loaded.predict(xrv), rank_bst.predict(xrv)))
+    rank_line = {
+        "phase": "rank", "rows": int(len(yr)), "queries": RANK_QUERIES,
+        "features": RANK_FEATURES, "query_rows_min": int(sizes.min()),
+        "query_rows_mean": float(sizes.mean()), "query_rows_max": int(sizes.max()),
+        "sum_g2": int((sizes.astype(np.int64) ** 2).sum()), "pairs": pairs,
+        "pairs_labels_differ": differ,
+        "label_shares": np.bincount(yr.astype(np.int64), minlength=5).tolist(),
+        "held_out_rows": int(len(yrv)), "held_out_queries": RANK_HELD_QUERIES,
+        "build_s": rank_build_s, "fit_s": rank_fit_s, "fit_s_no_evals": rank_fit_no_evals_s,
+        "main_fit_s": t2 - t1, "main_warm_fit_s": sorted(pair_s["default"])[FIT_PAIRS // 2],
+        "launches": rank_launches, "held_out_ndcg10": held_ndcg,
+        "history_ndcg10": hist_ndcg, "all_zero_ndcg10": zero_ndcg,
+        "ndcg10_card_minus_cpu": ndcg_card - ndcg_cpu, "syncs": syncs,
+        "persist_exact": rank_persist_exact}
+    emit(rank_line)
+    expect_launches("rank fit", rank_launches, {**path_launches(), "pairwise_grad": ROUNDS,
+                                                "ensemble_traversal": 0, "decompress": 0})
+    if not held_ndcg > zero_ndcg:
+        raise SystemExit(f"held-out ndcg@10 {held_ndcg} does not beat the all-zero "
+                         f"model's {zero_ndcg}")
+    if abs(hist_ndcg - held_ndcg) > 1e-5 or abs(ndcg_card - ndcg_cpu) > 1e-6:
+        raise SystemExit(f"ndcg@10: history {hist_ndcg}, eval {held_ndcg}, card "
+                         f"{ndcg_card}, cpu {ndcg_cpu}")
+    if syncs["rank"] > syncs["main"] or (
+            syncs["rank_evals"] - syncs["rank"] > syncs["main_evals"] - syncs["main"]):
+        raise SystemExit(f"the rank fit adds synchronising calls: {syncs}")
+    if not rank_persist_exact:
+        raise SystemExit("the rank model predicts otherwise after save and load")
+    # The check phase's training scores: after RANK_CHECK_ROUNDS rounds.
+    rank_scores = Booster(**{**rank_kw, "n_rounds": RANK_CHECK_ROUNDS}).fit(
+        d_rank).margins[:, 0].contiguous()
+    del rank_loaded, held_m
+
+    # --- 11. the sklearn estimators ------------------------------------------
+    from repro_torch import sklearn as SK
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clf = SK.XGBClassifier(n_estimators=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS).fit(
+        x_tr, y_tr)
+    torch.cuda.synchronize()
+    clf_fit_s = time.perf_counter() - t0
+    clf_launches = ops.launches()
+    proba = clf.predict_proba(x_te)
+    clf_booster_exact = bool(np.array_equal(proba[:, 1],
+                                            clf.get_booster().predict(x_te).cpu().numpy()))
+    clf.set_params(serve=True)
+    clf_serve_exact = bool(np.array_equal(clf.predict_proba(x_te), proba))
+    clf_acc = float((clf.predict(x_te) == y_te).mean())
+    rk = SK.XGBRanker(n_estimators=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS).fit(
+        xr, yr, qid=qr)
+    rk_exact = bool(np.array_equal(rk.predict(xrv),
+                                   rk.get_booster().predict(xrv).cpu().numpy()))
+    # group= sizes of the rows sorted by query give those rows' qid= array.
+    q_sorted = np.sort(qr, kind="stable")
+    _, counts = np.unique(q_sorted, return_counts=True)
+    group_is_qid = bool(np.array_equal(SK.XGBRanker._qid(len(qr), None, counts), q_sorted))
+    y_reg = targets["reg:quantile"].astype(np.float32)
+    reg = SK.XGBRegressor(n_estimators=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS).fit(
+        x_tr, y_reg[:args.rows])
+    reg_rmse = float(np.sqrt(np.mean((reg.predict(x_te) - y_reg[args.rows:]) ** 2)))
+    const_rmse = float(np.sqrt(np.mean((y_reg[:args.rows].mean() - y_reg[args.rows:]) ** 2)))
+    sk_line = {"phase": "sklearn", "have_sklearn": SK.HAVE_SKLEARN,
+               "classifier": {"fit_s": clf_fit_s, "launches": clf_launches,
+                              "predict_proba_is_booster_predict": clf_booster_exact,
+                              "serve_equals_plain": clf_serve_exact,
+                              "held_out_accuracy": clf_acc, "main_accuracy": acc},
+               "ranker": {"predict_is_booster_predict": rk_exact,
+                          "group_sizes_give_qid": group_is_qid},
+               "regressor": {"held_out_rmse": reg_rmse, "constant_rmse": const_rmse}}
+    emit(sk_line)
+    expect_launches("XGBClassifier fit", clf_launches, {**path_launches(), "quantile_cuts": 1})
+    if not (clf_booster_exact and clf_serve_exact and abs(clf_acc - acc) <= 0.003
+            and rk_exact and group_is_qid and reg_rmse < const_rmse):
+        raise SystemExit(f"sklearn phase failed: {sk_line}")
+    del clf, rk, reg, xr, xrv
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
@@ -938,7 +1164,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 10. the ops path of histogram_packed and decompress -----------------
+    # --- 12. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -1005,7 +1231,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 11. kernels against their plain versions ---------------------------
+    # --- 13. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -1241,9 +1467,47 @@ def main() -> int:
     results["decompress"] = {"max_abs_err": dec_err, "tolerance": "exact", "shapes": dec_checked}
     if dec_err != 0:
         raise SystemExit(f"decompress kernel disagrees: {dec_checked}")
+    # The pairwise gradient: on the rank fit's training scores after
+    # RANK_CHECK_ROUNDS rounds, at PAIR_GROUPS' query sizes, and on queries of
+    # 120 rows with one relevance everywhere (every h exactly the 1e-6 floor)
+    # and with tied scores. Both sum float32 terms in float64, in two orders.
+    rank_grouping = ops.query_groups(d_rank.group_ids)
+
+    def pair_inputs(size, rows, labels=5, tied=False):
+        ids = torch.arange(rows, device=dev, dtype=torch.int32) // size
+        ids = ids[torch.randperm(rows, device=dev, generator=gen)] * 3 + 1
+        sc = torch.randn(rows, device=dev, generator=gen) * 2
+        lab = torch.randint(0, labels, (rows,), device=dev, generator=gen).to(torch.float32)
+        return (torch.round(sc) if tied else sc), lab, ops.query_groups(ids)
+
+    pair_sets = {"rank_scores": (rank_scores, d_rank.label, rank_grouping),
+                 **{name: pair_inputs(size, rows) for name, size, rows in PAIR_GROUPS},
+                 "equal_relevance": pair_inputs(120, 50_040, labels=1),
+                 "tied_scores": pair_inputs(120, 50_040, tied=True)}
+    pair_checked = []
+    for name_p, (sc, lab, grouping) in pair_sets.items():
+        got = pairwise_grad(sc, lab, *grouping)
+        terms = ref.pairwise_terms_ref(sc, lab, *grouping)
+        want = ref.pairwise_grad_ref(sc, lab, *grouping)
+        mag = torch.stack([terms[:, 0] + terms[:, 1], terms[:, 2]], dim=1)
+        diff = (got - want).abs()
+        row = {"input": name_p, "rows": int(sc.shape[0]),
+               "max_abs_err": float(diff.max()),
+               "max_err_over_1_plus_terms": float((diff / (1 + mag)).max()),
+               "ok": bool((diff <= PAIR_RTOL * (1 + mag)).all())}
+        if name_p == "equal_relevance":
+            row["ok"] &= bool((got[:, 0] == 0).all()) and bool((got[:, 1] == 1e-6).all())
+        pair_checked.append(row)
+        if not row["ok"]:
+            raise SystemExit(f"pairwise_grad disagrees with its plain version: {row}")
+    del pair_sets, terms, want, got
+    results["pairwise_grad"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in pair_checked),
+        "tolerance": f"{PAIR_RTOL} * (1 + the row's summed term magnitudes); h exactly "
+                     "1e-6 where no pair is comparable", "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 12. times -------------------------------------------------------------
+    # --- 14. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1531,10 +1795,34 @@ def main() -> int:
                               iters=50) for k, v in route_plans.items()}},
         "ensemble_traversal_deep_and_wide": deep, "ensemble_traversal_serving": serving})
     emit({"phase": "time", "decompress_shapes": {"main": times["decompress"], **dec_rows}})
+    # The pairwise kernel at the rank fit's shape: its bound counts this
+    # data's unordered pairs, as the function needs them (a label compare a
+    # pair; a pair whose labels differ a subtraction, exp, add, reciprocal,
+    # 1 - rho, rho (1 - rho) and four adds, to both rows' g and h), and 28
+    # bytes a row; beside it the bound of the pairs' exp and reciprocal at
+    # the special-function units' rate, and the grouping (and its sort alone).
+    pw_args = (rank_scores, d_rank.label, *rank_grouping)
+    b_ms, b_by = bound(28 * d_rank.n_rows, pairs + 10 * differ)
+    times["pairwise_grad"] = {
+        "ms": time_ms(lambda: pairwise_grad(*pw_args)),
+        "back_to_back_ms": back_to_back_ms(lambda: pairwise_grad(*pw_args), launches=20),
+        "plain_ms": time_ms(lambda: ref.pairwise_grad_ref(*pw_args), iters=2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "time", "pairwise_grad": {
+        "rows": d_rank.n_rows, "queries": RANK_QUERIES, "pairs": pairs,
+        "pairs_labels_differ": differ, **times["pairwise_grad"],
+        "sfu_bound_ms": 2 * differ / SFU_OPS_PER_S * 1e3,
+        "query_groups_ms": time_ms(lambda: ops.query_groups(d_rank.group_ids)),
+        "query_groups_back_to_back_ms": back_to_back_ms(
+            lambda: ops.query_groups(d_rank.group_ids), launches=20),
+        "group_sort_back_to_back_ms": back_to_back_ms(
+            lambda: torch.sort(d_rank.group_ids, stable=True), launches=20)}})
     # Each kernel's launches on the path that runs it: the main path's, the
-    # ops phase's histogram_packed, and the dense default fit's decompress.
+    # ops phase's histogram_packed, the dense default fit's decompress, and
+    # the rank fit's pairwise gradient.
     counted = {**launches, "histogram_packed": ops_launches["histogram_packed"],
-               "decompress": dense_launches["default"]["decompress"]}
+               "decompress": dense_launches["default"]["decompress"],
+               "pairwise_grad": rank_launches["pairwise_grad"]}
     kernels = []
     for name in REPLACES:
         kernels.append({

@@ -12,5 +12,10 @@ plain PyTorch version (`kernels/ref.py`).
     dtrain = DeviceDMatrix(x, label=y)            # cuda by default
     bst = Booster(n_rounds=10, objective="binary:logistic").fit(dtrain)
     p = bst.predict(x_new)
+
+Ranking: `DeviceDMatrix(x, label=rel, group_ids=qid)` with
+`objective="rank:pairwise"`. The sklearn estimators (`XGBRegressor`,
+`XGBClassifier`, `XGBRanker`) are in `repro_torch.sklearn`, which runs
+with or without scikit-learn installed.
 """
 from repro_torch.device import resolve_device

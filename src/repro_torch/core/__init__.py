@@ -1,5 +1,9 @@
 """Core of the port: the packed matrix, tree growth, boosting and metrics."""
-from repro_torch.core.booster import Booster, BoosterConfig
+# Function re-exports must not shadow submodule names (`predict`), as in
+# the reference: its `predict` shim is exported as predict_proba.
+from repro_torch.core.booster import Booster, BoosterConfig, TrainState
+from repro_torch.core.booster import predict_margins, train
+from repro_torch.core.booster import predict as predict_proba
 from repro_torch.core.convert import booster_from_numpy
 from repro_torch.core.dmatrix import DeviceDMatrix
 from repro_torch.core.metrics import Metric, get_metric, register_metric
@@ -21,6 +25,10 @@ from repro_torch.core.predict import (
 __all__ = [
     "Booster",
     "BoosterConfig",
+    "TrainState",
+    "train",
+    "predict_proba",
+    "predict_margins",
     "DeviceDMatrix",
     "booster_from_numpy",
     "Metric",

@@ -36,6 +36,11 @@ Early stopping reads the LAST metric of the LAST eval set, in the
 direction that metric declares, and truncates the model to
 `best_iteration + 1` rounds.
 
+Ranking: a DeviceDMatrix built with `group_ids=` hands its query groups
+to the objective, the base score and every metric (`_dataset_extra`), the
+training set's and each eval set's its own; `rank:pairwise` and `ndcg@k`
+group by them, so a metric sees a set's queries, never one query.
+
 The objective is pluggable: `fit(obj=)` takes a registry name, an
 `objectives.register_objective` result or a bare `(margins, y) -> (g, h)`
 callable; only the gradient is plain torch, the trees grow through the same
@@ -175,6 +180,7 @@ class Booster:
         self._train_dmat: DeviceDMatrix | None = None  # the matrix `margins` are of
         self._obj: O.Objective | None = None  # fit(obj=...) override
         self._metrics: tuple[M.Metric, ...] | None = None
+        self.comm_stats: dict | None = None  # the reference's single-device value
 
     @property
     def obj(self) -> O.Objective:
@@ -223,6 +229,15 @@ class Booster:
         if not metrics:
             metrics = (M.get_metric(self.obj.default_metric),)
         return metrics
+
+    def _dataset_extra(self, dmat: DeviceDMatrix) -> dict:
+        """Keywords forwarded to gradient, base-score and metric functions
+        for one dataset: the config's (`config_kwargs`) plus the dataset's
+        query groups when it has them."""
+        extra = dict(O.config_kwargs(self.cfg))
+        if dmat.group_ids is not None:
+            extra["group_ids"] = dmat.group_ids
+        return extra
 
     def fit(
         self,
@@ -286,7 +301,7 @@ class Booster:
         self.device = dtrain.device
         self.cuts = dtrain.cuts
         self.base_score = float(self.obj.init_base_score(dtrain.label,
-                                                         **O.config_kwargs(self.cfg)))
+                                                         **self._dataset_extra(dtrain)))
         self._run_rounds(dtrain, self.cfg.n_rounds, evals, early_stopping_rounds,
                          verbose_every, callback)
         return self
@@ -413,7 +428,8 @@ class Booster:
         evals = self._normalise_evals(evals, dtrain)
         record_every = verbose_every or (1 if (callback or evals) else 0)
         metrics = self._metrics if record_every > 0 else ()
-        extra = O.config_kwargs(cfg)
+        extra = self._dataset_extra(dtrain)
+        eval_extras = [self._dataset_extra(d) for d, _ in evals]
         k = obj.n_outputs(cfg.n_classes)
 
         y = dtrain.label
@@ -458,7 +474,8 @@ class Booster:
                 values = [m.fn(margins, y, **extra) for m in metrics]
                 for j, (d, _) in enumerate(evals):
                     eval_margins[j] = self._add_trees(trees, eval_data[j], eval_margins[j])
-                    values += [m.fn(eval_margins[j], d.label, **extra) for m in metrics]
+                    values += [m.fn(eval_margins[j], d.label, **eval_extras[j])
+                               for m in metrics]
                 if values:
                     chunk_metrics.append(torch.stack([
                         torch.as_tensor(v, dtype=torch.float32, device=self.device)
@@ -577,7 +594,7 @@ class Booster:
             raise ValueError("eval requires a labelled DeviceDMatrix")
         resolved = M.resolve_metrics(metrics) or (M.get_metric(self.obj.default_metric),)
         margins = self.predict_margins(dmat)
-        extra = O.config_kwargs(self.cfg)
+        extra = self._dataset_extra(dmat)
         return {f"{name}_{m.name}": float(m.fn(margins, dmat.label, **extra))
                 for m in resolved}
 
@@ -650,11 +667,10 @@ def train(
     """Deprecated one-shot shim over DeviceDMatrix + Booster.fit, on
     `device` (the card unless "cpu"). It quantises x on every call: build a
     DeviceDMatrix once and call `Booster.fit` to amortise that. `eval_set`
-    becomes the eval set named "valid". `group_ids` (ranking) is not ported
-    yet: any value but None raises."""
-    if group_ids is not None:
-        raise NotImplementedError("group_ids is not ported yet (only group_ids=None)")
-    dtrain = DeviceDMatrix(x, label=y, max_bins=cfg.max_bins, device=device)
+    becomes the eval set named "valid"; `group_ids` (ranking) become the
+    training matrix's query groups."""
+    dtrain = DeviceDMatrix(x, label=y, group_ids=group_ids, max_bins=cfg.max_bins,
+                           device=device)
     evals = []
     if eval_set is not None:
         xv, yv = eval_set

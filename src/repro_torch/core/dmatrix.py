@@ -8,6 +8,7 @@ bin-space traversal agrees exactly with raw-threshold traversal:
 
     dtrain = DeviceDMatrix(x_train, label=y_train)        # cuda by default
     dvalid = DeviceDMatrix(x_valid, label=y_valid, ref=dtrain)
+    drank = DeviceDMatrix(x, label=rel, group_ids=qid)   # rank:pairwise
 
 The batch constructors and the external-memory matrix are not ported yet.
 """
@@ -35,6 +36,9 @@ class DeviceDMatrix:
     Args:
       x: (n_rows, n_features) float array (numpy or torch), NaN = missing.
       label: optional (n_rows,) targets; required for `Booster.fit`.
+      group_ids: optional (n_rows,) int query-group ids (rank:pairwise and
+        ndcg@k), kept as an int32 tensor on the matrix's device. Ids need
+        not be contiguous or sorted.
       max_bins: total bins per feature incl. the reserved missing bin.
       ref: another DeviceDMatrix whose cut points, max_bins and device to
         reuse — required for evaluation and prediction sets.
@@ -49,6 +53,7 @@ class DeviceDMatrix:
         x,
         label=None,
         *,
+        group_ids=None,
         max_bins: int = Q.DEFAULT_MAX_BINS,
         ref: "DeviceDMatrix | None" = None,
         cuts=None,
@@ -111,6 +116,14 @@ class DeviceDMatrix:
                 "label contains non-finite values (NaN/inf); clean or drop "
                 "those rows before training"
             )
+        # Checked here, not left to the gradient: the pairwise kernel would
+        # read a short group_ids past its end.
+        self.group_ids = (None if group_ids is None
+                          else as_tensor(group_ids, dev, torch.int32).reshape(-1))
+        if self.group_ids is not None and self.group_ids.shape[0] != self.n_rows:
+            raise ValueError(
+                f"group_ids has {self.group_ids.shape[0]} rows, x has {self.n_rows}"
+            )
 
     @property
     def cuts(self) -> torch.Tensor:
@@ -134,10 +147,12 @@ class DeviceDMatrix:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held: packed words + cut points + labels."""
+        """Device bytes held: packed words + cut points + labels/groups."""
         total = self.matrix.nbytes_compressed() + self.cuts.numel() * 4
         if self.label is not None:
             total += self.label.shape[0] * 4
+        if self.group_ids is not None:
+            total += self.group_ids.shape[0] * 4
         return total
 
     def packed_bins(self) -> C.PackedBins:
@@ -153,5 +168,6 @@ class DeviceDMatrix:
         return (
             f"DeviceDMatrix({self.n_rows}x{self.n_features}, {self.bits}-bit, "
             f"max_bins={self.max_bins}, {self.device}"
-            f"{', labelled' if self.label is not None else ''})"
+            f"{', labelled' if self.label is not None else ''}"
+            f"{', grouped' if self.group_ids is not None else ''})"
         )

@@ -30,6 +30,8 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as KO
+
 
 class Metric(NamedTuple):
     name: str
@@ -253,13 +255,17 @@ def _pairwise_acc(margins, y, **_):
 
 
 def _make_ndcg(k: int) -> Metric:
-    """NDCG@k averaged over query groups, on the device.
+    """NDCG@k averaged over query groups, on the device, by sorts: no pair
+    mask, no host read.
 
-    Per-group ranks come from masked pair comparisons (O(group^2)), gains
-    are XGBoost's 2^rel - 1, and the group mean is a segment sum: each row
-    carries its group's DCG/IDCG and a 1/group_size weight. Groups with
-    zero ideal DCG score 1 (XGBoost's convention). Missing `group_ids`
-    treats the whole set as one query.
+    The reference's rank of row i in its group counts the rows j with a
+    larger key, or an equal key and j < i: exactly i's position after a
+    stable descending sort of the keys, then a stable sort by group
+    (`ops.query_groups`), less its group's start. Gains are XGBoost's
+    2^rel - 1; a group's DCG and ideal DCG are segment sums (float64 prefix
+    sums over the group-sorted rows), and the result is the mean over groups
+    of DCG / IDCG, with 1 for a group whose IDCG is 0 (XGBoost's
+    convention). Missing `group_ids` treats the whole set as one query.
     """
     if k <= 0:
         raise ValueError(f"ndcg@k needs k >= 1, got {k}")
@@ -269,31 +275,30 @@ def _make_ndcg(k: int) -> Metric:
         n = s.shape[0]
         if group_ids is None:
             group_ids = torch.zeros(n, dtype=torch.int32, device=s.device)
-        same = group_ids[:, None] == group_ids[None, :]
-        idx = torch.arange(n, device=s.device)
-        earlier = idx[None, :] < idx[:, None]  # deterministic tie-break
-
-        def within_group_rank(keys):
-            ahead = (keys[None, :] > keys[:, None]) | (
-                (keys[None, :] == keys[:, None]) & earlier
-            )
-            return (same & ahead).sum(dim=1)  # 0-based rank in group
-
-        def discount(rank):
-            return torch.where(rank < k, 1.0 / torch.log2(rank.to(torch.float32) + 2.0), 0.0)
-
+        pos = torch.arange(n, device=s.device)
         gain = torch.exp2(y) - 1.0
-        dcg_i = gain * discount(within_group_rank(s))
-        idcg_i = gain * discount(within_group_rank(y))
-        # Segment sums: row i receives its own group's totals.
-        dcg_g = torch.where(same, dcg_i[None, :], 0.0).sum(dim=1)
-        idcg_g = torch.where(same, idcg_i[None, :], 0.0).sum(dim=1)
-        gsize = same.sum(dim=1).to(torch.float32)
-        per_group = torch.where(
-            idcg_g > 0.0, dcg_g / torch.where(idcg_g > 0.0, idcg_g, 1.0), 1.0
-        )
-        n_groups = (1.0 / gsize).sum()
-        return (per_group / gsize).sum() / n_groups
+
+        def dcg_terms(keys):
+            """Each group-sorted position's gain times its discount, and the
+            group spans (alike for any keys: the same ids, sorted)."""
+            # + 0.0 makes -0.0 a +0.0, which the reference's == ties with it.
+            by_key = torch.sort(keys + 0.0, descending=True, stable=True).indices
+            order, start, end = KO.query_groups(group_ids[by_key])
+            rank = pos - start
+            disc = torch.where(rank < k, 1.0 / torch.log2(rank.to(torch.float32) + 2.0), 0.0)
+            return (gain[by_key[order.to(torch.int64)]] * disc).to(torch.float64), start, end
+
+        def group_sums(terms, start, end):  # each position's group total
+            cs = torch.cat([terms.new_zeros(1), torch.cumsum(terms, dim=0)])
+            return cs[end.to(torch.int64)] - cs[start.to(torch.int64)]
+
+        dcg, start, end = dcg_terms(s)
+        idcg, _, _ = dcg_terms(y)
+        dcg_g, idcg_g = group_sums(dcg, start, end), group_sums(idcg, start, end)
+        per_group = torch.where(idcg_g > 0.0, dcg_g / torch.where(idcg_g > 0.0, idcg_g, 1.0),
+                                1.0)
+        first = start == pos  # one position a group
+        return (torch.where(first, per_group, 0.0).sum() / first.sum()).to(torch.float32)
 
     return Metric(name=f"ndcg@{k}", fn=ndcg, maximize=True)
 

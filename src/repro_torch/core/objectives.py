@@ -4,13 +4,15 @@ counterpart of `repro.core.objectives`:
   * reg:squarederror      g = yhat - y            h = 1
   * binary:logistic       g = sigmoid(m) - y      h = p(1-p)        (eqs 1-2)
   * multi:softmax         g_k = p_k - [y=k]       h_k = p_k(1-p_k)
+  * rank:pairwise         LambdaRank-style pairwise logistic in query groups
   * reg:quantile          pinball loss at `quantile_alpha` (unit hessian)
   * reg:pseudohubererror  smooth L1, slope 1
   * count:poisson         log-link Poisson regression
 
 `grad(margins, y, **extra)` returns (n, n_outputs, 2) stacked (g, h) as
-plain torch on the margins' device; the trees grow from it through the same
-kernels whatever the objective. An `Objective` names its default eval
+plain torch on the margins' device (rank:pairwise's through the pairwise
+kernel on the card); the trees grow from it through the same kernels
+whatever the objective. An `Objective` names its default eval
 metric (`core/metrics.py`, where the direction lives); `config_kwargs(cfg)`
 gives the config's keywords for gradient, base-score and metric functions.
 
@@ -30,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.metrics import adapt_extra
+from repro_torch.kernels import ops as KO
 
 
 class Objective(NamedTuple):
@@ -42,9 +45,6 @@ class Objective(NamedTuple):
 
 
 OBJECTIVES: dict[str, Objective] = {}
-
-# Objectives of the reference that this port does not have yet.
-NOT_PORTED = ("rank:pairwise",)
 
 
 def register_objective(
@@ -93,8 +93,6 @@ def get_objective(name: str) -> Objective:
     obj = OBJECTIVES.get(name)
     if obj is not None:
         return obj
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"objective {name!r} is not ported yet")
     raise ValueError(
         f"unknown objective {name!r}; built-ins: {sorted(OBJECTIVES)}. "
         "Custom losses: register_objective(name, grad) or pass a "
@@ -264,4 +262,26 @@ def _softmax_grad(margins, y, **_):
 softmax = register_objective(
     "multi:softmax", _softmax_grad, n_outputs=lambda k: k,
     transform=lambda m: torch.argmax(m, dim=1), default_metric="accuracy",
+)
+
+
+# --- built-ins: ranking ----------------------------------------------------
+
+def _pairwise_grad(margins, y, group_ids=None, **_):
+    """LambdaRank pairwise logistic gradients within query groups: for every
+    in-group pair with y_i > y_j, rho = sigmoid(s_j - s_i) adds -rho to g_i
+    and +rho to g_j, and rho(1-rho) to both hessians; h is floored at 1e-6
+    (rows in no comparable pair have none). The reference evaluates a dense
+    n x n pair mask; here `ops.query_groups` sorts the rows by group and the
+    pairwise kernel (its plain version on the CPU) visits each group's pairs
+    only. `group_ids=None` is one query over all rows."""
+    s = margins[:, 0].contiguous()
+    if group_ids is None:
+        group_ids = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
+    gh = KO.pairwise_grad(s, y, *KO.query_groups(group_ids))
+    return gh[:, None, :]
+
+
+pairwise_rank = register_objective(
+    "rank:pairwise", _pairwise_grad, default_metric="ndcg@10",
 )

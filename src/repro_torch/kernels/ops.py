@@ -23,6 +23,7 @@ from repro_torch.kernels.histogram import (
     build_histograms_rows_kernel,
     histogram_packed,
 )
+from repro_torch.kernels.pairwise import pairwise_grad as pairwise_grad_kernel
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan as split_scan_kernel
 
@@ -35,6 +36,7 @@ KERNELS = {
     "quantile_cuts": quantile_cuts_from_sorted,
     "ensemble_traversal": ensemble_margins_kernel,
     "decompress": decompress,
+    "pairwise_grad": pairwise_grad_kernel,
 }
 
 
@@ -189,3 +191,27 @@ def ensemble_margins_op(feature, threshold, default_left, leaf_value, is_leaf,
         is_leaf = is_leaf[:, :keep].to(torch.bool) | last
     nodes = pack_nodes(feature, threshold, default_left, leaf_value, is_leaf)
     return ensemble_margins_nodes_op(nodes, x, n_classes, max_depth)
+
+
+def query_groups(group_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grouping of rows by query id: (order, start, end), each (n,)
+    int32. `order` is a stable argsort of the ids, so a group's rows keep
+    ascending row order; `start[p]` and `end[p]` bound the span of sorted
+    positions of position p's group. One sort and two binary searches of the
+    sorted ids on their device, with no host read; ids need not be
+    contiguous or sorted."""
+    srt, order = torch.sort(group_ids.to(torch.int32), stable=True)
+    start = torch.searchsorted(srt, srt, side="left", out_int32=True)
+    end = torch.searchsorted(srt, srt, side="right", out_int32=True)
+    return order.to(torch.int32), start, end
+
+
+def pairwise_grad(scores: torch.Tensor, labels: torch.Tensor, order: torch.Tensor,
+                  start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """(n, 2) (g, h) of rank:pairwise in row order over the grouping of
+    `query_groups`, through the pairwise kernel on the card."""
+    if scores.is_cuda:
+        return pairwise_grad_kernel(
+            scores.to(torch.float32).contiguous(), labels.to(torch.float32).contiguous(),
+            *(t.to(torch.int32).contiguous() for t in (order, start, end)))
+    return R.pairwise_grad_ref(scores, labels, order, start, end)

@@ -202,3 +202,72 @@ def ensemble_margins_ref(
     for r in range(n_trees // n_classes):
         acc = acc + leaves[r * n_classes:(r + 1) * n_classes]
     return acc.t().contiguous()
+
+
+# (position, partner) pairs one chunk of the plain pairwise gradient holds.
+PAIR_CHUNK_ELEMENTS = 1 << 23
+
+
+def pairwise_terms_ref(
+    scores: torch.Tensor,  # (n,) f32
+    labels: torch.Tensor,  # (n,) f32
+    order: torch.Tensor,  # (n,) int: rows sorted stably by group id
+    start: torch.Tensor,  # (n,) int: each sorted position's group span
+    end: torch.Tensor,  # (n,) int
+) -> torch.Tensor:
+    """(n, 3) float64 in row order: for each row i the sums over its group
+    of rho = sigmoid(s_i - s_j) where y_j > y_i (added to g_i), of
+    rho = sigmoid(s_j - s_i) where y_i > y_j (taken from g_i), and of
+    rho (1 - rho) over both. Each term in float32, as the pairwise kernel
+    computes it, the sums in float64, as it adds them.
+
+    Group by group, never an n x n mask: each sorted position's
+    (position, partner) pairs are enumerated from its [start, end) span, in
+    chunks of at most PAIR_CHUNK_ELEMENTS pairs (a position's whole span
+    always fits one chunk). Reads the spans' running total on the host."""
+    n = scores.shape[0]
+    dev = scores.device
+    srt = order.to(torch.int64)
+    s, y = scores[srt].to(torch.float32), labels[srt].to(torch.float32)
+    st = start.to(torch.int64)
+    width = end.to(torch.int64) - st
+    total = torch.cumsum(width, 0)
+    limits = total.cpu()
+    out = torch.zeros((n, 3), dtype=torch.float64, device=dev)  # by sorted position
+    a = 0
+    while a < n:
+        done = int(limits[a - 1]) if a else 0
+        b = max(a + 1, int(torch.searchsorted(limits, done + PAIR_CHUNK_ELEMENTS,
+                                              right=True)))
+        w = width[a:b]
+        pos = torch.repeat_interleave(torch.arange(a, b, device=dev), w)
+        first = torch.repeat_interleave(total[a:b] - w - done, w)
+        part = st[pos] + torch.arange(pos.shape[0], device=dev) - first
+        si, sj, yi, yj = s[pos], s[part], y[pos], y[part]
+        better, worse = yi > yj, yj > yi
+        rho = torch.sigmoid(torch.where(better, sj - si, si - sj))
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        terms = torch.stack([torch.where(worse, rho, zero),
+                             torch.where(better, rho, zero),
+                             torch.where(better | worse, rho * (1.0 - rho), zero)], dim=1)
+        out.index_add_(0, pos, terms.to(torch.float64))
+        a = b
+    result = torch.empty_like(out)
+    result[srt] = out
+    return result
+
+
+def pairwise_grad_ref(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    order: torch.Tensor,
+    start: torch.Tensor,
+    end: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the pairwise-gradient kernel: (n, 2) float32 (g, h)
+    in row order, the function of `repro.core.objectives._pairwise_grad`
+    over the groups that `ops.query_groups` describes, h floored at 1e-6."""
+    t = pairwise_terms_ref(scores, labels, order, start, end)
+    g = (t[:, 0] - t[:, 1]).to(torch.float32)
+    h = torch.clamp(t[:, 2].to(torch.float32), min=1e-6)
+    return torch.stack([g, h], dim=1)

@@ -210,9 +210,9 @@ def test_config_keeps_reference_fields_and_defaults():
 
 def test_fit_and_predict_errors(data):
     x, labels, _ = data
-    with pytest.raises(NotImplementedError):
-        Booster(objective="rank:pairwise").fit(
-            DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"))
+    with pytest.raises(NotImplementedError, match="on_oom"):
+        Booster().fit(DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"),
+                      on_oom="external")
     with pytest.raises(ValueError):
         Booster(objective="no:such").fit(
             DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"))
@@ -244,8 +244,13 @@ def test_deprecated_shims_match_the_booster(data):
     assert torch.equal(TB.predict(bst.ensemble, x_new, 3, "binary:logistic"),
                        bst.predict(x_new))
     assert TB.TrainState is Booster
-    with pytest.raises(NotImplementedError, match="group_ids"):
-        TB.train(x, y, cfg, group_ids=np.zeros(len(x), np.int32), device="cpu")
+    # group_ids become the training matrix's query groups (rank:pairwise).
+    gids = np.arange(len(x), dtype=np.int32) // 10
+    rank_cfg = dataclasses.replace(cfg, objective="rank:pairwise")
+    ranked = TB.train(x, y, rank_cfg, group_ids=gids, device="cpu")
+    direct = Booster(rank_cfg).fit(DeviceDMatrix(x, label=y, group_ids=gids, max_bins=32,
+                                                 device="cpu"))
+    assert torch.equal(ranked.ensemble.leaf_value, direct.ensemble.leaf_value)
 
 
 def test_port_imports_no_jax():

@@ -360,7 +360,8 @@ def test_compute_cuts_and_fit_on_card(rng):
     raw = bst.predict_margins(x)
     assert ops.launches() == {
         "histogram_private": 3, "histogram_rows": 9, "histogram_packed": 0,
-        "split_scan": 12, "quantile_cuts": 1, "ensemble_traversal": 1, "decompress": 0}
+        "split_scan": 12, "quantile_cuts": 1, "ensemble_traversal": 1, "decompress": 0,
+        "pairwise_grad": 0}
     binned = bst.predict_margins(DeviceDMatrix(x, ref=d))
     np.testing.assert_allclose(raw.cpu().numpy(), binned.cpu().numpy(), atol=1e-5)
 
@@ -622,3 +623,106 @@ def test_imported_json_model_on_card(rng):
     ops.reset_launches()
     assert torch.equal(imported.predict(x), bst.predict(x))
     assert ops.launches()["ensemble_traversal"] == 2
+
+
+def _pairwise_case(rng, sizes, n_labels=5, tied_scores=False):
+    """Scores, labels and shuffled non-contiguous ids of groups of `sizes`."""
+    ids = np.repeat(np.arange(len(sizes)) * 3 + 1, sizes).astype(np.int32)
+    perm = rng.permutation(len(ids))
+    s = rng.normal(size=len(ids)).astype(np.float32) * 2
+    if tied_scores:
+        s = np.round(s)
+    y = rng.integers(0, n_labels, size=len(ids)).astype(np.float32)
+    return s[perm], y[perm], ids[perm]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["groups_1", "groups_2", "groups_120", "groups_1251",
+                                  "one_5000", "all_rows", "equal_relevance", "tied_scores"])
+def test_pairwise_kernel_on_card(rng, case):
+    """The pairwise kernel against its plain version at chip_smoke.py's
+    group shapes: g and h within 2e-6 * (1 + the row's summed term
+    magnitudes) (float64 sums of float32 terms in two orders); h exactly
+    the 1e-6 floor where no pair is comparable."""
+    dev = _cuda()
+    sizes = {"groups_1": [1] * 3000, "groups_2": [2] * 1500, "groups_120": [120] * 40,
+             "groups_1251": [1251, 1251, 7], "one_5000": [5000], "all_rows": [20_000],
+             "equal_relevance": [100] * 30, "tied_scores": [300] * 10}[case]
+    s, y, ids = _pairwise_case(rng, sizes, n_labels=1 if case == "equal_relevance" else 5,
+                               tied_scores=case == "tied_scores")
+    args = [torch.from_numpy(a).to(dev) for a in (s, y)]
+    grouping = ops.query_groups(torch.from_numpy(ids).to(dev))
+    ops.reset_launches()
+    got = ops.pairwise_grad(*args, *grouping)
+    assert ops.launches()["pairwise_grad"] == 1
+    terms = ref.pairwise_terms_ref(*args, *grouping)
+    want = ref.pairwise_grad_ref(*args, *grouping)
+    mag = torch.stack([terms[:, 0] + terms[:, 1], terms[:, 2]], dim=1)
+    assert bool(((got - want).abs() <= 2e-6 * (1 + mag)).all())
+    if case in ("groups_1", "equal_relevance"):
+        assert bool((got[:, 0] == 0).all()) and bool((got[:, 1] == np.float32(1e-6)).all())
+
+
+@pytest.mark.cuda
+def test_query_groups_and_ndcg_on_card(rng):
+    """The grouping on the card equals the CPU's; ndcg@k on the card is the
+    CPU's within 1e-6."""
+    from repro_torch.core import metrics as M
+
+    dev = _cuda()
+    s, y, ids = _pairwise_case(rng, rng.integers(1, 200, size=300))
+    cpu = ops.query_groups(torch.from_numpy(ids))
+    card = ops.query_groups(torch.from_numpy(ids).to(dev))
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+    for k in (1, 3, 10):
+        fn = M.get_metric(f"ndcg@{k}").fn
+        on_cpu = float(fn(torch.from_numpy(s)[:, None], torch.from_numpy(y),
+                          group_ids=torch.from_numpy(ids)))
+        on_card = float(fn(torch.from_numpy(s)[:, None].to(dev), torch.from_numpy(y).to(dev),
+                           group_ids=torch.from_numpy(ids).to(dev)))
+        assert abs(on_card - on_cpu) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_rank_fit_on_card(rng):
+    """rank:pairwise on the card: one pairwise launch a round, held-out
+    ndcg@10 above the all-zero model's, the history's last reading equal to
+    `eval` of the model within 1e-5."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.core import metrics as M
+
+    dev = _cuda()
+    s, y, ids = _pairwise_case(rng, rng.integers(20, 150, size=120))
+    x = rng.normal(size=(len(y), 8)).astype(np.float32)
+    y = np.clip(np.round(x[:, 0] + 0.5 * x[:, 1] + 2 + 0.3 * rng.normal(size=len(y))),
+                0, 4).astype(np.float32)
+    held = ids % 5 == 1  # a fifth of the queries held out
+    d = DeviceDMatrix(x[~held], label=y[~held], group_ids=ids[~held], max_bins=64)
+    dv = DeviceDMatrix(x[held], label=y[held], group_ids=ids[held], ref=d)
+    ops.reset_launches()
+    bst = Booster(n_rounds=6, max_depth=5, max_bins=64, objective="rank:pairwise").fit(
+        d, evals=[(dv, "valid")], eval_metric=["ndcg@10"])
+    got = ops.launches()
+    assert got["pairwise_grad"] == 6 and got["histogram_private"] == 6
+    assert got["split_scan"] == 30
+    model = bst.eval(dv, "valid")["valid_ndcg@10"]
+    assert abs(bst.history[-1]["valid_ndcg@10"] - model) <= 1e-5
+    zero = float(M.get_metric("ndcg@10").fn(torch.zeros((int(held.sum()), 1), device=dev),
+                                            dv.label, group_ids=dv.group_ids))
+    assert model > zero
+
+
+@pytest.mark.cuda
+def test_classifier_serve_on_card(rng):
+    """XGBClassifier on the card: predict_proba is bit for bit its booster's
+    prediction, and the same with serve=True (through PredictEngine)."""
+    from repro_torch.sklearn import XGBClassifier
+
+    _cuda()
+    x, y = _binary_data(rng)
+    clf = XGBClassifier(n_estimators=5, max_depth=4, max_bins=64).fit(x, y)
+    proba, labels = clf.predict_proba(x), clf.predict(x)
+    assert np.array_equal(proba[:, 1], clf.get_booster().predict(x).cpu().numpy())
+    clf.set_params(serve=True)
+    assert np.array_equal(clf.predict_proba(x), proba)
+    assert np.array_equal(clf.predict(x), labels)

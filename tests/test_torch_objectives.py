@@ -87,8 +87,7 @@ def test_registry_errors_and_resolution():
         O.get_objective("not:an_objective")
     with pytest.raises(ValueError, match="register_objective"):
         Booster(objective="not:an_objective").obj
-    with pytest.raises(NotImplementedError, match="rank:pairwise"):
-        O.get_objective("rank:pairwise")
+    assert O.get_objective("rank:pairwise") is O.pairwise_rank  # ported
     with pytest.raises(ValueError, match="already registered"):
         O.register_objective("reg:squarederror", lambda m, y: (m[:, 0] - y, y * 0 + 1))
     with pytest.raises(TypeError):
