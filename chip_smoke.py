@@ -111,18 +111,39 @@ Phases, each printing one JSON line:
                 booster's, and group= sizes of the rows sorted by query giving
                 their qid= array; XGBRegressor on the objectives phase's
                 regression target, held-out RMSE below the constant's.
-  12. ops     — the path the reference gives `histogram_packed` and
+  12. stochastic — STOCH_FITS on the main matrix, each with its own counts
+                and the launches of the table there; gates: each beats 0.7
+                held out; the subsample and GOSS fits make no more
+                synchronising calls than the default fit; the monotone fit
+                learns MONOTONE_LABEL (its accuracy beside the unconstrained
+                fit's on that label), and its margins
+                (`predict(output_margin=True)`) along
+                SWEEP_STEPS ascending values of feature 0 never fall and of
+                feature 1 never rise, exactly, at SWEEP_ROWS held-out rows'
+                other values; the card's draws are a function of their path
+                (row selection, GOSS selection, a level's node masks the
+                same twice, other with another seed) and its selections from
+                uniforms drawn on the CPU equal the CPU's bit for bit; save ->
+                load -> predict of the tuned and the monotone model bit for
+                bit, the constraints back as a tuple. Readings: fit_s and
+                accuracy beside the default fit's, STOCH_PAIRS warm pairs of
+                subsample=0.5 against the default, fit(6) + update(4) against
+                fit(10) with subsample=0.5 (atomics: a tolerance on the card).
+  13. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  13. check   — each kernel against its plain PyTorch version on the same
+  14. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
                 in one value bin); the split scan bit for bit at 1, 8 and 32
                 nodes and on a histogram whose best thresholds tie over empty
-                runs of bins; traversal also at depth 14, depth 13 with 4
+                runs of bins, each also with monotone constraints of every
+                sign at bounds that clip and at ±inf, with an (F,) and an
+                (n, F) feature mask (node 0 wholly masked), and with both;
+                traversal also at depth 14, depth 13 with 4
                 classes and 300 classes (exact); and the subtraction trick's
                 device path at level 5 against a full build; the cut selection
                 also on tied, constant, all-missing and one-value columns,
@@ -139,7 +160,7 @@ Phases, each printing one JSON line:
                 120 and 1,251 rows, one query of 5,000, one of 50,000 rows), on
                 one relevance everywhere and on tied scores, within PAIR_RTOL
                 * (1 + each row's summed term magnitudes).
-  14. time    — CUDA-event ms of each kernel, its plain version and, where one
+  15. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -150,8 +171,9 @@ Phases, each printing one JSON line:
                 earlier fill plan did), on both word sets, the wrapper's own
                 plan marked; the split scan at 1, 8 and 32 nodes beside an empty
                 launch on the same stream, each also as device time per launch
-                of 100 launches queued back to back; the main path's traversal
-                with its arenas staged and read through L2, and with its rows
+                of 100 launches queued back to back, and its constrained and
+                masked (half the (node, feature) problems) variants beside it;
+                the main path's traversal with its arenas staged and read through L2, and with its rows
                 from the other source (row tile or global memory) than its
                 plan's; the traversal at each serving shape,
                 its bound counting the levels the run's rows visit; the cut
@@ -165,10 +187,11 @@ Phases, each printing one JSON line:
                 back, beside its bound from this data's pairs, the bound of its
                 exps and reciprocals at the special-function units' rate, its
                 plain version, and `ops.query_groups`.
-With --profile, four further fits are traced after the evals phase, each
-printing its device busy time, idle share, launches and top kernels: the
-default, the dense default, and EVAL_ROUNDS rounds with and without the
-evals (tables profile_{fit,dense,evals,no_evals}.txt in the output directory).
+With --profile, five further fits are traced after the stochastic phase,
+each printing its device busy time, idle share, launches and top kernels:
+the default, the dense default, EVAL_ROUNDS rounds with and without the
+evals, and subsample=0.5 (tables profile_{fit,dense,evals,no_evals,
+subsample}.txt in the output directory).
 Then the kernels line (each kernel's launches on the path that runs it:
 the main path's, histogram_packed's in the ops phase, decompress's in the
 dense default fit, pairwise_grad's in the rank fit), the `nvidia-smi` line and, last,
@@ -288,6 +311,32 @@ PAIR_RTOL = 2e-6
 # The special-function units of an H100 SXM: 16 exp2 or reciprocal results a
 # clock on each SM, at its 1,980 MHz boost clock.
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# Stochastic and constrained fits on the main matrix: the knobs XGBoost users
+# tune first, and each fit's launches (privatised, row-id, split scan,
+# decompress). A sampled fit grows over its compacted row buffer (the row-id
+# kernel at every level, the root included); column sampling and monotone
+# constraints keep the default growth; the kernel path samples in masked
+# mode; the dense fit gathers the buffer's rows once a tree. Feature 0 is
+# constrained to rise and feature 1 to fall (the Higgs shape has 28). The
+# monotone fit learns a label of the same rows that does rise with feature
+# 0 and fall with feature 1 (MONOTONE_LABEL in the stochastic phase): the
+# Higgs-shaped label couples both to other features through its pairwise
+# terms, and a constraint against the data's shape costs the model its
+# accuracy (0.6354 held out at 1M rows on the Higgs-shaped label, on the
+# card and on the CPU alike).
+MONOTONE = (1, -1) + (0,) * 26
+STOCH_FITS = {
+    "subsample": ({"subsample": 0.5}, (0, 60, 60, 0)),
+    "tuned": ({"subsample": 0.8, "colsample_bytree": 0.8, "colsample_bylevel": 0.8,
+               "colsample_bynode": 0.8}, (0, 60, 60, 0)),
+    "colsample": ({"colsample_bynode": 0.5}, (10, 50, 60, 0)),
+    "goss": ({"sampling_method": "goss", "top_rate": 0.2, "other_rate": 0.1}, (0, 60, 60, 0)),
+    "monotone": ({"monotone_constraints": MONOTONE}, (10, 50, 60, 0)),
+    "kernel_masked": ({"subsample": 0.5, "use_kernel_histograms": True}, (60, 0, 60, 0)),
+    "dense": ({"subsample": 0.5, "compress_matrix": False}, (0, 0, 60, 1)),
+}
+STOCH_PAIRS = 3  # warm alternating pairs of the subsample=0.5 and the default fit
+SWEEP_ROWS, SWEEP_STEPS = 1_000, 64  # the monotone sweep: held-out rows x ascending values
 
 
 def emit(obj: dict) -> None:
@@ -310,8 +359,10 @@ def ptxas_summary(report: str) -> list[dict]:
             mangled = line.split("'")[1]
             name = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
             spw = re.search(r"_kernelILi(\d+)E", mangled)
+            flags = re.search(r"_kernelILb(\d)ELb(\d)E", mangled)  # split scan <kMask, kMono>
             cur = {"function": (name.group(1) if name else mangled)
-                   + (f"<{spw.group(1)}>" if spw else "")}
+                   + (f"<{spw.group(1)}>" if spw else "")
+                   + (f"<{flags.group(1)},{flags.group(2)}>" if flags else "")}
             rows.append(cur)
         elif cur is not None and "Used" in line and "registers" in line:
             cur["ptxas"] = line.split("ptxas info    :")[-1].strip()
@@ -465,7 +516,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace further fits with torch.profiler (the default, "
-                         "the dense default, 40 rounds with and without the evals): "
+                         "the dense default, 40 rounds with and without the evals, "
+                         "subsample=0.5): "
                          "device time by kernel and the device's idle share "
                          "(tables profile_*.txt in the output directory)")
     args = ap.parse_args()
@@ -486,6 +538,7 @@ def main() -> int:
     from repro_torch.core import Booster, DeviceDMatrix
     from repro_torch.core import metrics as M
     from repro_torch.core import objectives as O
+    from repro_torch.core import sampling as SMP
     from repro_torch.core.compress import pack, unpack
     from repro_torch.core.predict import slice_rounds, truncate_rounds
     from repro_torch.core.tree import _histograms_by_subtraction
@@ -540,10 +593,10 @@ def main() -> int:
     booster_kw = dict(n_rounds=ROUNDS, max_depth=DEPTH, max_bins=MAX_BINS,
                       objective="binary:logistic")
 
-    def accuracy(prob) -> float:
+    def accuracy(prob, labels=y_te) -> float:
         if prob.shape != (HELD_OUT,) or not bool(torch.isfinite(prob).all()):
             raise SystemExit(f"predictions are not {HELD_OUT} finite values")
-        return float(((prob.cpu().numpy() > 0.5) == y_te).mean())
+        return float(((prob.cpu().numpy() > 0.5) == labels).mean())
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1096,11 +1149,128 @@ def main() -> int:
         raise SystemExit(f"sklearn phase failed: {sk_line}")
     del clf, rk, reg, xr, xrv
 
+    # --- 12. stochastic and constrained training --------------------------------
+    # MONOTONE_LABEL: rises with feature 0, falls with feature 1, and keeps a
+    # pairwise term and a linear one of other features, from the seed.
+    zm = np.nan_to_num(x)
+    mono_signal = (zm[:, 0] - zm[:, 1] + 0.5 * zm[:, 2] * zm[:, 3] + 0.6 * zm[:, 4]
+                   + 0.3 * np.random.default_rng(args.seed + 1).standard_normal(len(zm)))
+    y_mono = (mono_signal > 0).astype(np.float32)
+    d_mono = DeviceDMatrix(x_tr, label=y_mono[:args.rows], ref=dtrain)
+    del zm, mono_signal
+    stoch_models = {}
+    for name, (knobs, want) in STOCH_FITS.items():
+        data_, labels_ = (d_mono, y_mono[args.rows:]) if name == "monotone" else (dtrain, y_te)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        model = Booster(**booster_kw, **knobs).fit(data_)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = ops.launches()
+        line = {"phase": "stochastic", "fit": name, **knobs, "fit_s": fit_s,
+                "held_out_accuracy": accuracy(model.predict(x_te), labels_),
+                "main_accuracy": acc, "launches": got}
+        if name == "monotone":  # the same label without constraints, beside it
+            line["label"] = "MONOTONE_LABEL"
+            line["unconstrained_accuracy"] = accuracy(
+                Booster(**booster_kw).fit(d_mono).predict(x_te), labels_)
+        emit(line)
+        stoch_models[name] = model
+        if line["held_out_accuracy"] <= 0.7:
+            raise SystemExit(f"stochastic {name} fit: held-out accuracy does not beat 0.7")
+        expect_launches(f"stochastic {name} fit", got, dict(zip(
+            ("histogram_private", "histogram_rows", "split_scan", "decompress"), want)))
+    # No host read in the draws and selections: a sampled fit synchronises no
+    # more often than the default fit.
+    syncs = {name: count_syncs(lambda: Booster(**booster_kw, **knobs).fit(dtrain))
+             for name, knobs in (("default", {}), ("subsample", STOCH_FITS["subsample"][0]),
+                                 ("goss", STOCH_FITS["goss"][0]))}
+    # The monotone sweep: margins (the trees' float sum, monotone in each
+    # tree's leaf) along ascending values of each constrained feature.
+    sweep = {}
+    for feat, sign in ((0, MONOTONE[0]), (1, MONOTONE[1])):
+        col = x_te[:, feat]
+        grid = np.linspace(np.nanmin(col), np.nanmax(col), SWEEP_STEPS, dtype=np.float32)
+        rows = np.repeat(x_te[:SWEEP_ROWS], SWEEP_STEPS, axis=0)
+        rows[:, feat] = np.tile(grid, SWEEP_ROWS)
+        marg = stoch_models["monotone"].predict(rows, output_margin=True).reshape(
+            SWEEP_ROWS, SWEEP_STEPS)
+        steps = (marg[:, 1:] - marg[:, :-1]) * sign
+        sweep[f"feature_{feat}"] = {"sign": sign, "exact": bool((steps >= 0).all()),
+                                    "rows_that_move": int((steps > 0).any(dim=1).sum())}
+    # The draws: a function of their path on the card; selections made on
+    # the card from uniforms drawn on the CPU equal the CPU's own.
+    g_abs = (torch.sigmoid(bst.margins[:, 0]) - torch.as_tensor(y_tr, device=dev)).abs()
+    m_top, m_other = SMP.goss_sizes(dtrain.n_rows, SMP.StochasticParams(sampling_method="goss"))
+
+    def selections(seed, device, ga):
+        path = (seed, 3, 0)
+        ctx = SMP.TreeContext(path, None, None, SMP.StochasticParams(
+            colsample_bylevel=0.5, colsample_bynode=0.5), device)
+        sel = SMP.row_selection_mask(path, dtrain.n_rows, dtrain.n_rows // 2, device)
+        return (sel, SMP.compact_row_ids(sel, dtrain.n_rows // 2),
+                *SMP.goss_selection(path, ga, m_top, m_other),
+                SMP.level_feature_mask(ctx, 3, 8, dtrain.n_features))
+
+    first, again, other = (selections(s_, dev, g_abs) for s_ in (args.seed, args.seed,
+                                                                   args.seed + 1))
+    draws_same = all(torch.equal(a_, b_) for a_, b_ in zip(first, again))
+    draws_differ = not any(torch.equal(a_, b_) for a_, b_ in zip(first, other))
+    card_draw = SMP.uniform
+    SMP.uniform = lambda path_, shape, device: card_draw(path_, shape, "cpu").to(device)
+    try:
+        from_cpu = [t.cpu() for t in selections(args.seed, dev, g_abs)]
+        on_cpu = selections(args.seed, "cpu", g_abs.cpu())
+    finally:
+        SMP.uniform = card_draw
+    card_equals_cpu = all(torch.equal(a_, b_) for a_, b_ in zip(from_cpu, on_cpu))
+    # save -> load -> predict, the knobs back as they were.
+    persisted = {}
+    for name in ("tuned", "monotone"):
+        path = str(work / f"{name}.ckpt")
+        stoch_models[name].save(path)
+        back = Booster.load(path)
+        persisted[name] = (bool(torch.equal(back.predict(x_te), stoch_models[name].predict(x_te)))
+                           and back.cfg == stoch_models[name].cfg)
+    persisted["monotone_tuple"] = Booster.load(str(work / "monotone.ckpt")).cfg \
+        .monotone_constraints == MONOTONE
+    # Warm pairs of subsample=0.5 against the default, alternating; then
+    # fit(6) + update(4) against fit(10), which on the card differ only by
+    # the atomics' order.
+    stoch_s: dict[str, list[float]] = {"subsample": [], "default": []}
+    for i in range(STOCH_PAIRS):
+        for name in ("subsample", "default") if i % 2 == 0 else ("default", "subsample"):
+            t0 = time.perf_counter()
+            Booster(**booster_kw, **(STOCH_FITS["subsample"][0] if name == "subsample"
+                                     else {})).fit(dtrain)
+            torch.cuda.synchronize()
+            stoch_s[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[STOCH_PAIRS // 2] for k, v in stoch_s.items()}
+    sub = stoch_models["subsample"]
+    cont = Booster(**{**booster_kw, "n_rounds": 6}, **STOCH_FITS["subsample"][0]).fit(
+        dtrain).update(dtrain, 4)
+    st_line = {"phase": "stochastic", "syncs": syncs, "monotone_sweep": sweep,
+               "draws_same_twice": draws_same, "draws_differ_by_seed": draws_differ,
+               "card_selections_equal_cpu": card_equals_cpu, "save_load_exact": persisted,
+               "pairs_fit_s": stoch_s, "median_subsample_s": med["subsample"],
+               "median_default_s": med["default"],
+               "subsample_over_default": med["subsample"] / med["default"],
+               "update_trees_same_structure_as_one_fit": same_structure(cont.ensemble,
+                                                                        sub.ensemble),
+               "update_margin_max_abs_gap": float((cont.margins - sub.margins).abs().max())}
+    emit(st_line)
+    if not (syncs["subsample"] <= syncs["default"] and syncs["goss"] <= syncs["default"]
+            and all(v["exact"] for v in sweep.values()) and draws_same and draws_differ
+            and card_equals_cpu and all(persisted.values())):
+        raise SystemExit(f"stochastic phase failed: {st_line}")
+    del stoch_models, model, sub, cont, first, again, other, from_cpu, on_cpu, g_abs, d_mono
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
         profile_fit(dtrain, "evals", {"n_rounds": EVAL_ROUNDS}, eval_kw)
         profile_fit(dtrain, "no_evals", {"n_rounds": EVAL_ROUNDS})
+        profile_fit(dtrain, "subsample", STOCH_FITS["subsample"][0])
 
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1164,7 +1334,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 12. the ops path of histogram_packed and decompress -----------------
+    # --- 13. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -1231,7 +1401,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 13. kernels against their plain versions ---------------------------
+    # --- 14. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -1348,6 +1518,44 @@ def main() -> int:
         if not same:
             raise SystemExit(f"split_scan kernel is not bit-identical to its plain "
                              f"version on {name}")
+
+    def scan_variants(h_, parent_):
+        """The extended scan's inputs for a level: constraints cycling -1, 0,
+        +1 over the features; node bounds cycling through ±inf, a band of 5%
+        around the node's weight -G/(H+1) (the children's weights clip),
+        one-sided at it, and pinched at it; a (F,) and an (n, F) mask of
+        about half the problems, node 0 wholly masked."""
+        nn = h_.shape[0]
+        w0 = -parent_[:, 0] / (parent_[:, 1] + 1.0)
+        band = 0.05 * w0.abs().clamp(min=1e-3)
+        inf = torch.full_like(w0, float("inf"))
+        choices = torch.stack([torch.stack(pair, dim=1) for pair in (
+            (-inf, inf), (w0 - band, w0 + band), (-inf, w0), (w0, inf), (w0, w0))])
+        nodes = torch.arange(nn, device=dev)
+        bounds = choices[nodes % 5, nodes].contiguous()
+        mono = (torch.arange(f, device=dev) % 3 - 1).to(torch.int8)
+        mask = torch.rand(nn, f, device=dev, generator=gen) < 0.5
+        mask[0] = False
+        return {"monotone": dict(monotone=mono, node_bounds=bounds),
+                "mask_f": dict(feature_mask=mask[-1]), "mask_nf": dict(feature_mask=mask),
+                "mask_and_monotone": dict(feature_mask=mask, monotone=mono, node_bounds=bounds)}
+
+    for name, (h_, parent_) in scan_inputs.items():
+        for variant, kw in scan_variants(h_, parent_).items():
+            got = split_scan(h_, parent_, 1.0, 1.0, **kw)
+            want = ref.split_scan_ref(h_, parent_, 1.0, 1.0, **kw)
+            same = torch.equal(got, want)
+            scan_err = max(scan_err, float(torch.where(got == want, 0.0, got - want)
+                                           .nan_to_num(nan=float("inf")).abs().max()))
+            if "feature_mask" in kw:
+                off = ~kw["feature_mask"].expand(got.shape[:2])
+                masked = torch.tensor([float("-inf"), 0, 0, 0, 0], device=dev)
+                same = same and bool((got[off] == masked).all())
+            scan_checked.append({"input": name, "variant": variant,
+                                 "shape": list(h_.shape[:3]), "bit_identical": same})
+            if not same:
+                raise SystemExit(f"split_scan kernel ({variant}) is not bit-identical to its "
+                                 f"plain version on {name}")
     results["split_scan"] = {"max_abs_err": scan_err, "tolerance": "bit-identical",
                              "inputs": scan_checked}
 
@@ -1507,7 +1715,7 @@ def main() -> int:
                      "1e-6 where no pair is comparable", "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 14. times -------------------------------------------------------------
+    # --- 15. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1654,6 +1862,38 @@ def main() -> int:
     emit({"phase": "time", "split_scan_levels": scan_rows,
           "empty_launch_ms": time_ms(empty_launch),
           "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)})
+    # The constrained and the masked scan at the same levels, each beside the
+    # unconstrained one in the same loop. Bounds: the constrained scan adds
+    # the constraints' and bounds' bytes and 60 operations a candidate (two
+    # clipped weights, two gains at weight and the sign test, each missing
+    # direction); the masked one reads only the kept problems' rows, plus
+    # the mask.
+    variant_rows = []
+    for nn in HIST_NODES:
+        h_, parent_ = scan_inputs[f"{nn}_nodes"]
+        nb = h_.shape[2]
+        kw_all = scan_variants(h_, parent_)
+        half = torch.rand(nn, f, device=dev, generator=gen) < 0.5
+        kept = int(half.sum())
+        row = {"n_nodes": nn, "kept_problems": kept, "unconstrained_back_to_back_ms":
+               back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0))}
+        for variant, kw, nbytes, nops in (
+                ("monotone", kw_all["monotone"],
+                 nn * f * nb * 8 + nn * 8 + f + nn * 8 + nn * f * 5 * 4,
+                 nn * f * (nb - 2) * (2 + 2 * 30)),
+                ("masked", dict(feature_mask=half.to(torch.uint8)),
+                 kept * nb * 8 + nn * 8 + nn * f + nn * f * 5 * 4,
+                 kept * (nb - 2) * (2 + 2 * 11))):
+            b_ms, b_by = bound(nbytes, nops)
+            row[variant] = {
+                "ms": time_ms(lambda: split_scan(h_, parent_, 1.0, 1.0, **kw)),
+                "back_to_back_ms": back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0,
+                                                                      **kw)),
+                "plain_ms": time_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0, **kw),
+                                    iters=5),
+                "bound_ms": b_ms, "bound_by": b_by}
+        variant_rows.append(row)
+    emit({"phase": "time", "split_scan_variants": variant_rows})
 
     nvb_cuts = MAX_BINS - 2
     top = next(r for r in hist_rows

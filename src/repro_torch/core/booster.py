@@ -48,12 +48,22 @@ kernels. `save(path)` / `Booster.load(path)` write and read the reference's
 self-describing checkpoint (`checkpoint/io.py`), so a model crosses between
 the two packages.
 
-Not ported yet: in-run checkpoints (`checkpoint_every`, `resume`),
-sampling (`subsample`, `colsample_*`,
-`sampling_method`), monotone constraints, the numeric sentinel
-(`numeric_check`), external memory (`on_oom`), multi-device fits (`mesh=`
-and its keywords). Their knobs and keywords keep the reference's names and
-defaults; a non-default value raises NotImplementedError naming it.
+Stochastic and constrained training (DESIGN.md §12, §17): `subsample`,
+`colsample_bytree`/`bylevel`/`bynode`, GOSS (`sampling_method="goss"`,
+`top_rate`, `other_rate`) and `monotone_constraints`, with the reference's
+validation. Each class tree of round r draws from the path (seed, r,
+class), r counted from the booster's first round, so early-stopping chunks
+and `update` stay on the draws of one long fit. The default growth grows a
+subsampled tree over the compacted buffer of its rows; the kernel path
+(`use_kernel_histograms=True`) zeroes the unselected rows' (g, h) instead,
+as the reference does. With every knob at its default the fit is the
+program without sampling, whatever the seed.
+
+Not ported yet: in-run checkpoints (`checkpoint_every`, `resume`), the
+numeric sentinel (`numeric_check`), external memory (`on_oom`),
+multi-device fits (`mesh=` and its keywords). Their knobs and keywords
+keep the reference's names and defaults; a non-default value raises
+NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ from repro_torch.core import metrics as M
 from repro_torch.core import objectives as O
 from repro_torch.core import predict as PR
 from repro_torch.core import quantile as Q
+from repro_torch.core import sampling as SMP
 from repro_torch.core import split as S
 from repro_torch.core import tree as T
 from repro_torch.core.dmatrix import DeviceDMatrix, cuts_equal
@@ -115,17 +126,45 @@ class BoosterConfig:
     numeric_check: str = "off"
 
     def __post_init__(self):
-        # Knobs of the reference whose non-default values this port lacks.
-        unported = {
-            "subsample": 1.0, "colsample_bytree": 1.0, "colsample_bylevel": 1.0,
-            "colsample_bynode": 1.0, "monotone_constraints": None,
-            "sampling_method": "uniform", "numeric_check": "off",
-        }
-        for knob, default in unported.items():
-            if getattr(self, knob) != default:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported yet "
-                    f"(only {knob}={default!r})"
+        if self.numeric_check != "off":  # the one knob of the reference not ported
+            raise NotImplementedError(
+                f"numeric_check={self.numeric_check!r} is not ported yet "
+                "(only numeric_check='off')")
+        mc = self.monotone_constraints
+        if mc is not None:
+            mc = tuple(int(c) for c in mc)  # lists (a loaded checkpoint's) coerce
+            object.__setattr__(self, "monotone_constraints", mc)
+            if any(c not in (-1, 0, 1) for c in mc):
+                raise ValueError(
+                    f"monotone_constraints must be -1/0/+1, got {mc}"
+                )
+        for knob in ("subsample", "colsample_bytree", "colsample_bylevel",
+                     "colsample_bynode"):
+            v = getattr(self, knob)
+            if not 0.0 < v <= 1.0:
+                raise ValueError(f"{knob} must be in (0, 1], got {v}")
+        if self.sampling_method not in ("uniform", "goss"):
+            raise ValueError(
+                f"sampling_method must be 'uniform' or 'goss', "
+                f"got {self.sampling_method!r}"
+            )
+        if self.sampling_method == "goss":
+            for knob in ("top_rate", "other_rate"):
+                v = getattr(self, knob)
+                if not 0.0 < v < 1.0:
+                    raise ValueError(
+                        f"{knob} must be in (0, 1) with sampling_method="
+                        f"'goss', got {v}"
+                    )
+            if self.top_rate + self.other_rate > 1.0:
+                raise ValueError(
+                    f"top_rate + other_rate must be <= 1.0, got "
+                    f"{self.top_rate} + {self.other_rate}"
+                )
+            if self.subsample < 1.0:
+                raise ValueError(
+                    "sampling_method='goss' replaces uniform row "
+                    "subsampling — leave subsample at 1.0"
                 )
 
     @property
@@ -425,6 +464,12 @@ class Booster:
         if dtrain.device != self.device:
             raise ValueError(f"DeviceDMatrix lives on {dtrain.device}, the "
                              f"booster on {self.device}")
+        if cfg.monotone_constraints is not None \
+                and len(cfg.monotone_constraints) != dtrain.n_features:
+            raise ValueError(
+                f"monotone_constraints has {len(cfg.monotone_constraints)} "
+                f"entries but dtrain has {dtrain.n_features} features"
+            )
         evals = self._normalise_evals(evals, dtrain)
         record_every = verbose_every or (1 if (callback or evals) else 0)
         metrics = self._metrics if record_every > 0 else ()
@@ -444,7 +489,8 @@ class Booster:
         if cfg.use_kernel_histograms:
             hist_builder = (KO.build_histograms_kernel_packed if cfg.compress_matrix
                             else KO.build_histograms_kernel)
-        rounds_before = self.n_rounds_trained
+        stoch = SMP.stochastic_params(cfg)
+        rounds_before = self.n_rounds_trained  # the draws' absolute round offset
         es_on = bool(early_stopping_rounds)
         e = int(early_stopping_rounds) if es_on else None
         eval_names = [name for _, name in evals]
@@ -459,16 +505,22 @@ class Booster:
             nxt = min(n_rounds, (done // e + 1) * e) if es_on else n_rounds
             length = nxt - done
             chunk_metrics = []  # a round's metrics, stacked: train, then each set
-            for _ in range(length):
+            for r in range(done, nxt):
                 gh_all = obj.grad(margins, y, **extra)  # (n, k, 2), round-start gradients
-                trees = [
-                    T.grow_tree(data, gh_all[:, c, :].contiguous(), self.cuts,
-                                cfg.max_depth, cfg.max_bins, cfg.split_params,
-                                growth=cfg.growth,
-                                max_leaves=cfg.max_leaves or 2**cfg.max_depth,
-                                hist_builder=hist_builder)
-                    for c in range(k)
-                ]
+                trees = []
+                for c in range(k):
+                    gh_c, ctx = gh_all[:, c, :].contiguous(), None
+                    if stoch is not None:
+                        # Compact buffers with the default growth, masked (g, h)
+                        # with a hist_builder, as the reference does.
+                        ctx, gh_c = SMP.make_tree_context(
+                            stoch, (cfg.seed, rounds_before + r, c), gh_c,
+                            dtrain.n_features, compact=hist_builder is None)
+                    trees.append(T.grow_tree(
+                        data, gh_c, self.cuts, cfg.max_depth, cfg.max_bins,
+                        cfg.split_params, growth=cfg.growth,
+                        max_leaves=cfg.max_leaves or 2**cfg.max_depth,
+                        hist_builder=hist_builder, ctx=ctx))
                 margins = self._add_trees(trees, data, margins)
                 run_trees.extend(trees)
                 values = [m.fn(margins, y, **extra) for m in metrics]

@@ -71,8 +71,17 @@ def gather_feature_bins(packed: torch.Tensor, bits: int, feat: torch.Tensor) -> 
     """bins[i, feat[..., i]] for every row i straight from the packed words:
     one word gather plus a shift/mask per row. feat is (n,) int, or (t, n)
     for t trees at once."""
-    spw = symbols_per_word(bits)
     row = torch.arange(feat.shape[-1], dtype=torch.int64, device=feat.device)
+    return gather_feature_bins_rows(packed, bits, feat, row)
+
+
+def gather_feature_bins_rows(packed: torch.Tensor, bits: int, feat: torch.Tensor,
+                             row_ids: torch.Tensor) -> torch.Tensor:
+    """gather_feature_bins for any row set: bins[row_ids[i], feat[..., i]]
+    per buffer slot i (the routing of subsampled growth), at the same cost:
+    one word gather plus a shift/mask per slot."""
+    spw = symbols_per_word(bits)
+    row = row_ids.to(torch.int64)
     word = words_as_uint(packed[feat.to(torch.int64), row // spw])
     shift = (row % spw) * bits
     return ((word >> shift) & ((1 << bits) - 1)).to(torch.int32)

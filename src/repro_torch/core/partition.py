@@ -1,5 +1,6 @@
 """RepartitionInstances (paper §2.3, Algorithm 1); counterpart of
-`repro.core.partition.update_positions` and `update_positions_packed`.
+`repro.core.partition.update_positions`, `update_positions_packed` and
+`update_positions_packed_rows`.
 
 Arena indexing: complete binary tree, children of node k are 2k+1 / 2k+2.
 positions[i] = arena node id of row i, or -1 once the row rests in a leaf.
@@ -53,3 +54,21 @@ def update_positions_packed(
     straight from them (one word gather + shift/mask per row)."""
     return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
                   lambda f: C.gather_feature_bins(packed, bits, f))
+
+
+def update_positions_packed_rows(
+    packed: torch.Tensor,  # (f, n_words) int32 bit-packed bins
+    positions: torch.Tensor,  # (m,) int32 arena node ids of the buffer's slots
+    split_mask: torch.Tensor,
+    feature: torch.Tensor,
+    split_bin: torch.Tensor,
+    default_left: torch.Tensor,
+    missing_bin: int,
+    bits: int,
+    row_ids: torch.Tensor,  # (m,) int row id of each buffer slot
+) -> torch.Tensor:
+    """update_positions_packed over a sampled-row buffer: positions live in
+    buffer space, and each slot's split-feature bin is read through its
+    row id, so routing costs scale with the buffer, not n_rows."""
+    return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
+                  lambda f: C.gather_feature_bins_rows(packed, bits, f, row_ids))

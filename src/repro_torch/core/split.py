@@ -8,6 +8,17 @@ takes the argmax across features and forms the child sums.
 
 Gain (XGBoost's regularised objective):
   gain = 1/2 [ GL^2/(HL+lam) + GR^2/(HR+lam) - G^2/(H+lam) ] - gamma
+
+Stochastic and constrained inputs, as in the reference (DESIGN.md §12),
+both taken by the same kernel launch:
+
+  * feature_mask — (f,) or (n_nodes, f) bool; a masked-out feature scores
+    -inf and never wins (colsample_bytree/bylevel/bynode).
+  * monotone + node_bounds — per-feature direction constraints with the
+    nodes' inherited value bounds [lower, upper]: child weights clipped to
+    the bounds, the gain taken at the clipped weights (`_gain_at_weight`,
+    XGBoost's CalcGainGivenWeight), splits whose clipped weights break
+    their feature's direction rejected.
 """
 from __future__ import annotations
 
@@ -16,6 +27,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
+# The reference's helper, shared with the plain version of the split scan.
+from repro_torch.kernels.ref import gain_at_weight as _gain_at_weight  # noqa: F401
 
 
 class SplitParams(NamedTuple):
@@ -39,19 +52,20 @@ def evaluate_splits(
     hist: torch.Tensor,  # (n_nodes, n_features, max_bins, 2)
     parent_sum: torch.Tensor,  # (n_nodes, 2) total (G, H) per node
     params: SplitParams = SplitParams(),
-    feature_mask: torch.Tensor | None = None,
-    monotone: torch.Tensor | None = None,
-    node_bounds: torch.Tensor | None = None,
+    feature_mask: torch.Tensor | None = None,  # (f,) or (n_nodes, f) bool
+    monotone: torch.Tensor | None = None,  # (f,) int in {-1, 0, 1}
+    node_bounds: torch.Tensor | None = None,  # (n_nodes, 2) [lower, upper]
 ) -> Splits:
     """Best split of every node. Ties go to the lowest (feature, bin), as in
-    the reference's flat argmax."""
-    if feature_mask is not None:
-        raise NotImplementedError("feature_mask (colsample_*) is not ported yet")
-    if monotone is not None or node_bounds is not None:
-        raise NotImplementedError("monotone constraints are not ported yet")
+    the reference's flat argmax. `node_bounds` is required with
+    `monotone`."""
+    if monotone is not None and node_bounds is None:
+        raise ValueError("evaluate_splits: node_bounds is required with monotone")
     n_nodes = hist.shape[0]
-    per_feature = ops.split_scan(hist, parent_sum, params.reg_lambda,
-                                 params.min_child_weight)  # (n, F, 5)
+    per_feature = ops.split_scan(
+        hist, parent_sum, params.reg_lambda, params.min_child_weight,
+        feature_mask=feature_mask, monotone=monotone,
+        node_bounds=None if monotone is None else node_bounds)  # (n, F, 5)
     gain = per_feature[..., 0] - params.gamma  # (n, F)
     best_f = torch.argmax(gain, dim=1)  # first max: lowest feature
     nodes = torch.arange(n_nodes, device=hist.device)

@@ -17,8 +17,19 @@ every level in full.
 
 Growth strategies: "depthwise" expands every node whose best gain > 0;
 "lossguide" spends a `max_leaves` budget, letting only the top-k gains of
-each level split, k = the budget left. Sampling and constraints are not
-ported yet.
+each level split, k = the budget left.
+
+Sampling and constraints (`ctx`, a `sampling.TreeContext`; DESIGN.md §12):
+with `ctx.row_ids` set the tree grows over the sampled-row buffer only —
+gh is the buffer's (m, 2), positions live in buffer space, the root's
+histogram is the row-id kernel over the buffer, the subtraction trick
+compacts buffer slots and maps them to rows, and routing reads each slot's
+bin through its row id. On dense bins the buffer's rows are gathered once
+and the tree grows as usual. Feature masks come from the context every
+level; monotone constraints carry [lower, upper] bounds down the arena,
+clip every leaf to its node's bounds and reach the split scan. Everything
+stays on the device, with no host read. `ctx=None` is the program without
+sampling.
 """
 from __future__ import annotations
 
@@ -29,11 +40,8 @@ import torch
 from repro_torch.core import compress as C
 from repro_torch.core import histogram as H
 from repro_torch.core import partition as P
+from repro_torch.core import sampling as SMP
 from repro_torch.core import split as S
-
-# Counters and dump slots of the subtraction trick's compaction are spread
-# over this many lanes, so that rows do not all hit one address on the card.
-SPREAD_LANES = 1024
 
 
 class Tree(NamedTuple):
@@ -70,10 +78,12 @@ def grow_tree(
     growth: str = "depthwise",
     max_leaves: int = 0,  # only used by lossguide
     hist_builder=None,  # optional builder (kernels.ops), every level in full
+    ctx: SMP.TreeContext | None = None,  # sampling and constraints
 ) -> Tree:
     """Grow one tree from the packed matrix or the dense (n, f) bins and
-    the rows' (g, h) pairs. `hist_builder(bins, gh, positions, n_nodes,
-    max_bins)` receives the matrix as given."""
+    the rows' (g, h) pairs (with `ctx.row_ids` set: the sampled buffer's).
+    `hist_builder(bins, gh, positions, n_nodes, max_bins)` receives the
+    matrix as given."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
     packed_mode = isinstance(bins, C.PackedBins)
@@ -81,9 +91,32 @@ def grow_tree(
         raise TypeError("grow_tree takes the packed matrix (compress.PackedBins) "
                         "or dense (n, f) bins")
     dev = gh.device
-    n = bins.n_rows if packed_mode else bins.shape[0]
+    n, f = (bins.n_rows, bins.packed.shape[0]) if packed_mode else bins.shape
     na = arena_size(max_depth)
     missing_bin = max_bins - 1
+
+    stoch = ctx.params if ctx is not None else None
+    row_ids = ctx.row_ids if ctx is not None else None
+    if row_ids is not None:
+        if hist_builder is not None:
+            raise NotImplementedError(
+                "custom/kernel hist builders are not row-subset aware; use "
+                "masked-mode subsampling (ctx.row_ids=None) with them"
+            )
+        if not packed_mode:
+            # Dense bins: gather the sampled rows once, then grow as usual.
+            bins, row_ids = bins[row_ids.to(torch.int64)], None
+        n = gh.shape[0]  # the buffer's size m: positions live there
+    mono_on = stoch is not None and stoch.monotone_on
+    if mono_on:
+        if len(stoch.monotone) != f:
+            raise ValueError(
+                f"monotone constraints cover {len(stoch.monotone)} features "
+                f"but the matrix has {f}"
+            )
+        mono = torch.tensor(stoch.monotone, dtype=torch.int8, device=dev)
+        lower = torch.full((na,), float("-inf"), dtype=torch.float32, device=dev)
+        upper = torch.full((na,), float("inf"), dtype=torch.float32, device=dev)
 
     feature = torch.zeros(na, dtype=torch.int32, device=dev)
     split_bin = torch.zeros(na, dtype=torch.int32, device=dev)
@@ -112,6 +145,9 @@ def grow_tree(
         local = torch.where(in_level, positions - off, n_nodes).to(torch.int32)
         if hist_builder is not None:
             hist = hist_builder(bins, gh, local, n_nodes, max_bins)
+        elif level == 0 and row_ids is not None:
+            hist = H.build_histograms_packed_rows(bins.packed, gh, local, row_ids,
+                                                  n_nodes, max_bins, bins.bits)
         elif level == 0 and packed_mode:
             hist = H.build_histograms_packed(bins.packed, gh, local, n_nodes,
                                              max_bins, bins.bits)
@@ -119,12 +155,20 @@ def grow_tree(
             hist = H.build_histograms(bins, gh, local, n_nodes, max_bins)
         else:
             hist = _histograms_by_subtraction(bins, gh, local, hist_prev,
-                                              n_nodes, max_bins)
+                                              n_nodes, max_bins, row_ids=row_ids)
         hist_prev = hist
 
         # --- EvaluateSplit --------------------------------------------------
         parent = node_sum[lvl]
-        sp = S.evaluate_splits(hist, parent, params)
+        feature_mask = (SMP.level_feature_mask(ctx, level, n_nodes, f)
+                        if ctx is not None else None)
+        if mono_on:
+            lvl_lo, lvl_hi = lower[lvl], upper[lvl]
+            sp = S.evaluate_splits(hist, parent, params, feature_mask=feature_mask,
+                                   monotone=mono,
+                                   node_bounds=torch.stack([lvl_lo, lvl_hi], dim=-1))
+        else:
+            sp = S.evaluate_splits(hist, parent, params, feature_mask=feature_mask)
         lvl_active = active[lvl]
         will_split = lvl_active & (sp.gain > 0.0) & torch.isfinite(sp.gain)
 
@@ -145,8 +189,10 @@ def grow_tree(
         default_left[lvl] = will_split & sp.default_left
         gain[lvl] = torch.where(will_split, sp.gain, float("-inf"))
         is_leaf[lvl] = stays_leaf
-        leaf_value[lvl] = torch.where(
-            stays_leaf, S.leaf_value(parent, params.reg_lambda), 0.0)
+        lvl_leaf = S.leaf_value(parent, params.reg_lambda)
+        if mono_on:  # leaf weights respect the inherited bounds
+            lvl_leaf = torch.clamp(lvl_leaf, lvl_lo, lvl_hi)
+        leaf_value[lvl] = torch.where(stays_leaf, lvl_leaf, 0.0)
 
         # Children's sums come from the split evaluation (no extra pass).
         kids = slice(2 * off + 1, 2 * (off + n_nodes) + 1)
@@ -156,10 +202,31 @@ def grow_tree(
         ).reshape(-1, 2)
         active[kids] = will_split.repeat_interleave(2)
 
+        if mono_on:
+            # Monotone bound propagation (XGBoost's scheme): the midpoint of
+            # the clipped child weights becomes the dividing bound on the
+            # constrained side; the other side inherits the parent's bound.
+            wl = torch.clamp(S.leaf_value(sp.left_sum, params.reg_lambda), lvl_lo, lvl_hi)
+            wr = torch.clamp(S.leaf_value(sp.right_sum, params.reg_lambda), lvl_lo, lvl_hi)
+            mid = 0.5 * (wl + wr)
+            csign = mono[sp.feature.to(torch.int64)]
+            keep = ~will_split
+            lo_kids = torch.stack([torch.where(csign < 0, mid, lvl_lo),
+                                   torch.where(csign > 0, mid, lvl_lo)], dim=1)
+            hi_kids = torch.stack([torch.where(csign > 0, mid, lvl_hi),
+                                   torch.where(csign < 0, mid, lvl_hi)], dim=1)
+            lower[kids] = torch.where(keep[:, None], float("-inf"), lo_kids).reshape(-1)
+            upper[kids] = torch.where(keep[:, None], float("inf"), hi_kids).reshape(-1)
+
         # --- RepartitionInstances ------------------------------------------
         split_mask = torch.zeros(na, dtype=torch.bool, device=dev)
         split_mask[lvl] = will_split
-        if packed_mode:
+        if row_ids is not None:
+            positions = P.update_positions_packed_rows(
+                bins.packed, positions, split_mask, feature, split_bin,
+                default_left, missing_bin, bins.bits, row_ids,
+            )
+        elif packed_mode:
             positions = P.update_positions_packed(
                 bins.packed, positions, split_mask, feature, split_bin,
                 default_left, missing_bin, bins.bits,
@@ -172,8 +239,10 @@ def grow_tree(
     off, n_nodes = level_offset(max_depth), 2**max_depth
     lvl = slice(off, off + n_nodes)
     is_leaf[lvl] = active[lvl]
-    leaf_value[lvl] = torch.where(
-        active[lvl], S.leaf_value(node_sum[lvl], params.reg_lambda), 0.0)
+    final_leaf = S.leaf_value(node_sum[lvl], params.reg_lambda)
+    if mono_on:
+        final_leaf = torch.clamp(final_leaf, lower[lvl], upper[lvl])
+    leaf_value[lvl] = torch.where(active[lvl], final_leaf, 0.0)
 
     # Raw-space thresholds for prediction on unquantised rows.
     col = torch.clamp(split_bin, 0, cuts.shape[1] - 1).to(torch.int64)
@@ -190,6 +259,7 @@ def _histograms_by_subtraction(
     hist_prev: torch.Tensor,  # (n_nodes/2, f, max_bins, 2) parents' full hist
     n_nodes: int,
     max_bins: int,
+    row_ids: torch.Tensor | None = None,  # sampled growth: slot -> row id
 ) -> torch.Tensor:
     """Level histogram via the subtraction trick (`repro/core/tree.py`,
     DESIGN.md §7.5).
@@ -198,6 +268,10 @@ def _histograms_by_subtraction(
     its sibling is parent - child. Since sum_p min(left_p, right_p) <=
     floor(n/2), a fixed n//2 compaction buffer always suffices. Every step
     has a size known from the shapes, so no level waits on the device.
+
+    With `row_ids` (sampled growth on packed words) everything runs in
+    buffer space — gh and local are (m,)-shaped, the compaction buffer is
+    m//2 — and only the row ids handed to the kernel map slots to rows.
     """
     n = gh.shape[0]
     dev = gh.device
@@ -205,16 +279,16 @@ def _histograms_by_subtraction(
     m = n // 2
     local64 = local.to(torch.int64)
     row = torch.arange(n, device=dev)
-    lane = row & (SPREAD_LANES - 1)
+    lane = row & (SMP.SPREAD_LANES - 1)
 
     # Instance counts per child -> smaller-child bit per parent (ties: left).
-    # Each child counts into SPREAD_LANES lanes, summed after: one counter
+    # Each child counts into SMP.SPREAD_LANES lanes, summed after: one counter
     # per child would serialise every row's atomic add on the card, and
     # bincount's data-dependent size would cost a host sync.
     ones = torch.ones((), dtype=torch.int64, device=dev).expand(n)
-    cnt = torch.zeros((n_nodes + 1) * SPREAD_LANES, dtype=torch.int64, device=dev)
-    cnt = cnt.index_add_(0, local64 * SPREAD_LANES + lane, ones)
-    cnt = cnt.view(n_nodes + 1, SPREAD_LANES).sum(dim=1)
+    cnt = torch.zeros((n_nodes + 1) * SMP.SPREAD_LANES, dtype=torch.int64, device=dev)
+    cnt = cnt.index_add_(0, local64 * SMP.SPREAD_LANES + lane, ones)
+    cnt = cnt.view(n_nodes + 1, SMP.SPREAD_LANES).sum(dim=1)
     small_bit = (cnt[1:n_nodes:2] < cnt[0:n_nodes:2]).to(torch.int64)
 
     is_active = local64 < n_nodes
@@ -223,9 +297,9 @@ def _histograms_by_subtraction(
 
     # Compact selected row ids into the n//2 buffer (sentinel n = padding):
     # each selected row goes to its rank among the selected, every other row
-    # to one of SPREAD_LANES slots past the buffer, which are dropped.
+    # to one of SMP.SPREAD_LANES slots past the buffer, which are dropped.
     order = torch.cumsum(sel, dim=0) - 1
-    buf = torch.full((m + SPREAD_LANES,), n, dtype=torch.int64, device=dev)
+    buf = torch.full((m + SMP.SPREAD_LANES,), n, dtype=torch.int64, device=dev)
     buf = buf.scatter_(0, torch.where(sel, order, m + lane), row)[:m]
     parent_ext = torch.cat([
         torch.where(sel, par, n_par),
@@ -233,9 +307,14 @@ def _histograms_by_subtraction(
     ])
     pos_c = parent_ext[torch.clamp(buf, max=n)]
     gh_c = gh[torch.clamp(buf, max=n - 1)]
-    # Padding slots carry row id n; their position is the dump slot, so
-    # they contribute nothing (and their packed words are not read).
+    # Padding slots carry row id n (with `row_ids`, the matrix's n_rows);
+    # their position is the dump slot, so they contribute nothing (and their
+    # packed words are not read).
     if isinstance(bins, C.PackedBins):
+        if row_ids is not None:
+            buf = torch.cat([row_ids.to(torch.int64),
+                             torch.full((1,), bins.n_rows, dtype=torch.int64,
+                                        device=dev)])[buf]
         hist_small = H.build_histograms_packed_rows(
             bins.packed, gh_c, pos_c, buf, n_par, max_bins, bins.bits)
     else:

@@ -38,7 +38,7 @@ SIGNATURES = {
     "rt_histogram_rows": [_P] * 5 + [_I] * 10 + [_P],
     "rt_histogram_packed": [_P] * 4 + [_I] * 7 + [_P],
     "rt_decompress": [_P] * 2 + [_I] * 4 + [_P],
-    "rt_split_scan": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "rt_split_scan": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
     "rt_empty_launch": [_P],
     "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
     "rt_ensemble_margins": [_P] * 3 + [_I] * 10 + [_P],

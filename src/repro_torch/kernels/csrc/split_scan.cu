@@ -29,6 +29,18 @@
 //    best; a shuffle reduction takes the argmax, the lowest bin winning
 //    ties and NaN above everything, as torch.argmax does.
 //  * Lane 0 writes the five fields.
+//
+// Feature masks and monotone constraints (colsample_*, monotone_constraints;
+// src/repro/core/split.py) select other instantiations of the same body:
+//  * kMask: a (node, feature) that the (n, F) uint8 mask leaves out writes
+//    [-inf, 0, 0, 0, 0] and returns before its warp loads the row, so a
+//    level sampled to half its features reads half the bytes.
+//  * kMono: every candidate of every feature is scored at child weights
+//    clipped to the node's [lower, upper] bounds, the gain taken at the
+//    clipped weights, -(2 G w + (H + lam) w w), and a split whose clipped
+//    weights break its feature's sign (wl <= wr for +1, wl >= wr for -1)
+//    rejected; constraint 0 only clips.
+// The unconstrained body, <false, false>, is the one without either.
 // All arithmetic uses the _rn intrinsics (no FMA contraction) in the order
 // of src/repro/core/split.py, and the scan order is that of
 // kernels/ref.py::inclusive_scan, so the kernel is bit-identical to its
@@ -56,15 +68,62 @@ __device__ __forceinline__ float direction_gain(float gl, float hl, float g_tot,
   return (hl >= mcw && hr >= mcw) ? gain : -INFINITY;
 }
 
+// jnp.clip / torch.clamp: NaN stays NaN; lo > hi gives hi.
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// -G / (H + lam) clipped to the node's bounds.
+__device__ __forceinline__ float clipped_weight(float g, float h, float lam,
+                                                float lo, float hi) {
+  return clip(__fdiv_rn(-g, __fadd_rn(h, lam)), lo, hi);
+}
+
+// A leaf's objective reduction at weight w: -(((2 g) w) + (((h + lam) w) w)).
+__device__ __forceinline__ float gain_at_weight(float g, float h, float w,
+                                                float lam) {
+  return -__fadd_rn(__fmul_rn(__fmul_rn(2.f, g), w),
+                    __fmul_rn(__fmul_rn(__fadd_rn(h, lam), w), w));
+}
+
+// The node's constraint context: its feature's sign and its value bounds.
+struct Mono {
+  int c;
+  float lo, hi;
+};
+
+__device__ __forceinline__ float mono_direction_gain(float gl, float hl, float g_tot,
+                                                     float h_tot, float parent,
+                                                     float lam, float mcw,
+                                                     Mono m) {
+  const float gr = __fsub_rn(g_tot, gl);
+  const float hr = __fsub_rn(h_tot, hl);
+  const float wl = clipped_weight(gl, hl, lam, m.lo, m.hi);
+  const float wr = clipped_weight(gr, hr, lam, m.lo, m.hi);
+  const float gain = __fmul_rn(
+      0.5f, __fsub_rn(__fadd_rn(gain_at_weight(gl, hl, wl, lam),
+                                gain_at_weight(gr, hr, wr, lam)),
+                      parent));
+  const bool sign_ok = m.c == 0 || (m.c > 0 && wl <= wr) || (m.c < 0 && wl >= wr);
+  return (hl >= mcw && hr >= mcw && sign_ok) ? gain : -INFINITY;
+}
+
 // Gain of threshold c (bins <= c go left) at the better missing direction.
+template <bool kMono>
 __device__ __forceinline__ float threshold_gain(float2 l, float2 miss,
                                                float g_tot, float h_tot,
                                                float parent, float lam,
-                                               float mcw, bool* left) {
-  const float gain_r = direction_gain(l.x, l.y, g_tot, h_tot, parent, lam, mcw);
-  const float gain_l =
-      direction_gain(__fadd_rn(l.x, miss.x), __fadd_rn(l.y, miss.y), g_tot,
-                     h_tot, parent, lam, mcw);
+                                               float mcw, Mono m, bool* left) {
+  float gain_r, gain_l;
+  if constexpr (kMono) {
+    gain_r = mono_direction_gain(l.x, l.y, g_tot, h_tot, parent, lam, mcw, m);
+    gain_l = mono_direction_gain(__fadd_rn(l.x, miss.x), __fadd_rn(l.y, miss.y),
+                                 g_tot, h_tot, parent, lam, mcw, m);
+  } else {
+    gain_r = direction_gain(l.x, l.y, g_tot, h_tot, parent, lam, mcw);
+    gain_l = direction_gain(__fadd_rn(l.x, miss.x), __fadd_rn(l.y, miss.y), g_tot,
+                            h_tot, parent, lam, mcw);
+  }
   *left = gain_l > gain_r;
   return *left ? gain_l : gain_r;
 }
@@ -93,15 +152,29 @@ __host__ __device__ __forceinline__ int stage_pairs(int max_bins) {
   return (max_bins - 1 + kScanChunk - 1) / kScanChunk * kScanChunk;
 }
 
+template <bool kMask, bool kMono>
 __global__ void __launch_bounds__(kScanWarps * 32) split_scan_kernel(
     const float2* __restrict__ hist,   // (n, F, B) (g, h) pairs
     const float* __restrict__ parent,  // (n, 2)
     float* __restrict__ out,           // (n, F, 5)
+    const uint8_t* __restrict__ fmask,  // (n, F), kMask only
+    const int8_t* __restrict__ mono,    // (F,) in {-1, 0, +1}, kMono only
+    const float* __restrict__ bounds,   // (n, 2) [lower, upper], kMono only
     int n_problems, int n_features, int max_bins, float lam, float mcw) {
   extern __shared__ float4 stage4[];  // [warp][stage_pairs / 2] (g, h) pairs
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int prob = blockIdx.x * kScanWarps + warp;  // n * F + f
   if (prob >= n_problems) return;  // the whole warp
+  if constexpr (kMask) {
+    if (!fmask[prob]) {  // left out: the warp reads nothing of its row
+      if (lane == 0) {
+        float* o = out + (long long)prob * 5;
+        o[0] = -INFINITY;
+        o[1] = o[2] = o[3] = o[4] = 0.f;
+      }
+      return;
+    }
+  }
   const int n = prob / n_features;
   const int nv = max_bins - 1;  // value bins; the last bin is "missing"
   const int nc = nv - 1;        // candidate thresholds 0 .. nv - 2
@@ -159,13 +232,21 @@ __global__ void __launch_bounds__(kScanWarps * 32) split_scan_kernel(
   }
   __syncwarp();
 
-  const float pgain = __fdiv_rn(__fmul_rn(g_tot, g_tot), __fadd_rn(h_tot, lam));
+  Mono m{0, 0.f, 0.f};
+  float pgain;
+  if constexpr (kMono) {
+    m = Mono{mono[prob - n * n_features], bounds[2 * n], bounds[2 * n + 1]};
+    pgain = gain_at_weight(g_tot, h_tot, clipped_weight(g_tot, h_tot, lam, m.lo, m.hi),
+                           lam);
+  } else {
+    pgain = __fdiv_rn(__fmul_rn(g_tot, g_tot), __fadd_rn(h_tot, lam));
+  }
   float best = -INFINITY;
   int idx = INT_MAX;
   bool left;
   for (int c = lane; c < nc; c += 32) {
-    const float gain =
-        threshold_gain(stage[c], miss, g_tot, h_tot, pgain, lam, mcw, &left);
+    const float gain = threshold_gain<kMono>(stage[c], miss, g_tot, h_tot, pgain,
+                                             lam, mcw, m, &left);
     if (before(gain, c, best, idx)) {
       best = gain;
       idx = c;
@@ -183,7 +264,7 @@ __global__ void __launch_bounds__(kScanWarps * 32) split_scan_kernel(
   if (lane == 0) {
     const int b = idx == INT_MAX ? 0 : idx;  // -inf everywhere: bin 0
     const float2 l = stage[b];
-    threshold_gain(l, miss, g_tot, h_tot, pgain, lam, mcw, &left);
+    threshold_gain<kMono>(l, miss, g_tot, h_tot, pgain, lam, mcw, m, &left);
     float* o = out + (long long)prob * 5;
     o[0] = best;
     o[1] = (float)b;
@@ -195,18 +276,34 @@ __global__ void __launch_bounds__(kScanWarps * 32) split_scan_kernel(
 
 __global__ void empty_kernel() {}
 
+template <bool kMask, bool kMono>
+void launch(const void* hist, const void* parent, void* out, const void* fmask,
+            const void* mono, const void* bounds, int n_problems, int n_features,
+            int max_bins, float lam, float mcw, cudaStream_t stream) {
+  const size_t smem = (size_t)kScanWarps * stage_pairs(max_bins) * sizeof(float2);
+  split_scan_kernel<kMask, kMono><<<(n_problems + kScanWarps - 1) / kScanWarps,
+                                    kScanWarps * 32, smem, stream>>>(
+      (const float2*)hist, (const float*)parent, (float*)out,
+      (const uint8_t*)fmask, (const int8_t*)mono, (const float*)bounds, n_problems,
+      n_features, max_bins, lam, mcw);
+}
+
 }  // namespace
 
+// fmask (n, F) uint8 may be null (no mask); mono (F,) int8 and bounds (n, 2)
+// f32 are both null (unconstrained) or both given. One launch either way.
 extern "C" int rt_split_scan(const void* hist, const void* parent, void* out,
-                             int n_nodes, int n_features, int max_bins,
-                             float lam, float mcw, void* stream) {
+                             const void* fmask, const void* mono,
+                             const void* bounds, int n_nodes, int n_features,
+                             int max_bins, float lam, float mcw, void* stream) {
   if (max_bins < 3 || max_bins > 1025) return (int)cudaErrorInvalidValue;
+  if ((mono == nullptr) != (bounds == nullptr)) return (int)cudaErrorInvalidValue;
   const int n_problems = n_nodes * n_features;
-  const size_t smem = (size_t)kScanWarps * stage_pairs(max_bins) * sizeof(float2);
-  split_scan_kernel<<<(n_problems + kScanWarps - 1) / kScanWarps,
-                      kScanWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float2*)hist, (const float*)parent, (float*)out, n_problems,
-      n_features, max_bins, lam, mcw);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const auto run = fmask ? (mono ? launch<true, true> : launch<true, false>)
+                         : (mono ? launch<false, true> : launch<false, false>);
+  run(hist, parent, out, fmask, mono, bounds, n_problems, n_features, max_bins, lam,
+      mcw, st);
   return (int)cudaGetLastError();
 }
 

@@ -143,13 +143,21 @@ def quantize_op(x: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
 
 
 def split_scan(hist: torch.Tensor, parent_sum: torch.Tensor,
-               reg_lambda: float = 1.0, min_child_weight: float = 1.0) -> torch.Tensor:
+               reg_lambda: float = 1.0, min_child_weight: float = 1.0,
+               feature_mask: torch.Tensor | None = None,
+               monotone: torch.Tensor | None = None,
+               node_bounds: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, 5): [gain, bin, default_left, gl, hl] per (node, feature);
-    `core.split` forms the left child's sums from gl and hl."""
+    `core.split` forms the left child's sums from gl and hl. Optional: a
+    (F,) or (n_nodes, F) feature mask, and monotone constraints (F,) with
+    (n_nodes, 2) node bounds."""
     if hist.is_cuda:
-        return split_scan_kernel(hist.contiguous(), parent_sum.contiguous(),
-                                 reg_lambda, min_child_weight)
-    return R.split_scan_ref(hist, parent_sum, reg_lambda, min_child_weight)
+        return split_scan_kernel(
+            hist.contiguous(), parent_sum.contiguous(), reg_lambda, min_child_weight,
+            feature_mask, monotone,
+            None if node_bounds is None else node_bounds.to(torch.float32).contiguous())
+    return R.split_scan_ref(hist, parent_sum, reg_lambda, min_child_weight,
+                            feature_mask, monotone, node_bounds)
 
 
 def split_scan_op(hist: torch.Tensor, parent_sum: torch.Tensor,

@@ -76,11 +76,21 @@ def inclusive_scan(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gain_at_weight(g, h, w, reg_lambda):
+    """A leaf's objective reduction at weight w (XGBoost's
+    CalcGainGivenWeight): -(2 G w + (H + lam) w^2), in that order of
+    operations; G^2/(H+lam) at the unconstrained optimum w = -G/(H+lam)."""
+    return -(2.0 * g * w + (h + reg_lambda) * w * w)
+
+
 def split_scan_ref(
     hist: torch.Tensor,  # (n_nodes, F, B, 2)
     parent_sum: torch.Tensor,  # (n_nodes, 2)
     reg_lambda: float,
     min_child_weight: float,
+    feature_mask: torch.Tensor | None = None,  # (F,) or (n_nodes, F) bool
+    monotone: torch.Tensor | None = None,  # (F,) int in {-1, 0, +1}
+    node_bounds: torch.Tensor | None = None,  # (n_nodes, 2) [lower, upper]
 ) -> torch.Tensor:
     """Plain version of the split-scan kernel: per (node, feature) best split.
 
@@ -88,6 +98,13 @@ def split_scan_ref(
     (gl, hl) are the left child's sums at the best split (missing mass
     included when it goes left). gamma is left to the caller. The float
     operations and their order are those of `core/split.py` in the reference.
+
+    With `monotone` (and the required `node_bounds`) every candidate is
+    scored as the reference's constrained evaluation scores it: child
+    weights clipped to the node's bounds, the gain taken at the clipped
+    weights, and a split whose weights break its feature's direction
+    rejected. A (node, feature) that `feature_mask` leaves out gives
+    [-inf, 0, 0, 0, 0].
     """
     g, h = hist[..., 0], hist[..., 1]
     g_tot = parent_sum[:, None, 0:1]
@@ -95,14 +112,34 @@ def split_scan_ref(
     g_miss, h_miss = g[..., -1:], h[..., -1:]
     gl = inclusive_scan(g[..., :-1])[..., :-1]  # (n, F, B-2) candidates
     hl = inclusive_scan(h[..., :-1])[..., :-1]
-    parent = (g_tot * g_tot) / (h_tot + reg_lambda)
+    lam, mcw = reg_lambda, min_child_weight
 
-    def gain_of(gl_, hl_):
-        gr_, hr_ = g_tot - gl_, h_tot - hl_
-        gain = 0.5 * ((gl_ * gl_) / (hl_ + reg_lambda)
-                      + (gr_ * gr_) / (hr_ + reg_lambda) - parent)
-        ok = (hl_ >= min_child_weight) & (hr_ >= min_child_weight)
-        return torch.where(ok, gain, torch.full_like(gain, float("-inf")))
+    if monotone is None:
+        parent = (g_tot * g_tot) / (h_tot + lam)
+
+        def gain_of(gl_, hl_):
+            gr_, hr_ = g_tot - gl_, h_tot - hl_
+            gain = 0.5 * ((gl_ * gl_) / (hl_ + lam) + (gr_ * gr_) / (hr_ + lam) - parent)
+            ok = (hl_ >= mcw) & (hr_ >= mcw)
+            return torch.where(ok, gain, torch.full_like(gain, float("-inf")))
+    else:
+        if node_bounds is None:
+            raise ValueError("node_bounds is required with monotone")
+        lo = node_bounds[:, 0][:, None, None]
+        hi = node_bounds[:, 1][:, None, None]
+        c = monotone.to(torch.int32)[None, :, None]
+        parent = gain_at_weight(g_tot, h_tot,
+                                 torch.clamp(-g_tot / (h_tot + lam), lo, hi), lam)
+
+        def gain_of(gl_, hl_):
+            gr_, hr_ = g_tot - gl_, h_tot - hl_
+            wl = torch.clamp(-gl_ / (hl_ + lam), lo, hi)
+            wr = torch.clamp(-gr_ / (hr_ + lam), lo, hi)
+            gain = 0.5 * (gain_at_weight(gl_, hl_, wl, lam)
+                          + gain_at_weight(gr_, hr_, wr, lam) - parent)
+            ok = (hl_ >= mcw) & (hr_ >= mcw)
+            ok &= (c == 0) | ((c > 0) & (wl <= wr)) | ((c < 0) & (wl >= wr))
+            return torch.where(ok, gain, torch.full_like(gain, float("-inf")))
 
     gain_r = gain_of(gl, hl)
     gain_l = gain_of(gl + g_miss, hl + h_miss)
@@ -115,11 +152,17 @@ def split_scan_ref(
     zero = torch.zeros((), dtype=hist.dtype, device=hist.device)
     gl_best = take(gl) + torch.where(bdl, g_miss[..., 0], zero)
     hl_best = take(hl) + torch.where(bdl, h_miss[..., 0], zero)
-    return torch.stack(
+    out = torch.stack(
         [take(gain), best[..., 0].to(torch.float32), bdl.to(torch.float32),
          gl_best, hl_best],
         dim=-1,
     )
+    if feature_mask is not None:
+        keep = feature_mask.to(torch.bool).expand(out.shape[:2])[..., None]
+        masked = torch.tensor([float("-inf"), 0.0, 0.0, 0.0, 0.0], dtype=out.dtype,
+                              device=out.device)
+        out = torch.where(keep, out, masked)
+    return out
 
 
 def quantile_cuts_ref(

@@ -189,11 +189,7 @@ def test_predict_at_depth_14_matches_reference():
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("subsample", 0.5), ("colsample_bytree", 0.5), ("colsample_bylevel", 0.5),
-    ("colsample_bynode", 0.5), ("monotone_constraints", (1, 0)),
-    ("sampling_method", "goss"), ("numeric_check", "raise"),
-])
+@pytest.mark.parametrize("knob,value", [("numeric_check", "raise")])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         BoosterConfig(**{knob: value})

@@ -28,7 +28,7 @@ from repro_torch.kernels.histogram import (
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
-from _torch_parity import tied_split_histogram
+from _torch_parity import constrained_split_inputs, tied_split_histogram
 
 
 @pytest.fixture
@@ -250,6 +250,116 @@ def test_split_scan_kernel_on_card(rng):
         got = split_scan(hist_t, parent_t, 1.0, 1.0).cpu().numpy()
         want = ref.split_scan_ref(hist_t, parent_t, 1.0, 1.0).cpu().numpy()
         np.testing.assert_array_equal(got, want)  # same operations, same order
+
+
+@pytest.mark.cuda
+def test_split_scan_masked_and_monotone_on_card(rng):
+    """The extended scan bit for bit against its plain version: monotone
+    constraints of every sign with bounds that clip and bounds at ±inf,
+    an (F,) and an (n, F) feature mask (node 0 wholly masked), both
+    together, and tied thresholds across lane boundaries under
+    constraints and masks."""
+    dev = _cuda()
+    cases = []
+    for shape in [(1, 3, 8), (8, 28, 256), (32, 28, 256), (5, 7, 1025), (3, 4, 3)]:
+        hist, parent, mono, bounds, mask = constrained_split_inputs(rng, *shape)
+        cases.append((hist, parent, mono, bounds, mask))
+    hist, parent = tied_split_histogram((8, 32, 33, 101), 28, 256, missing_g=-1.0)
+    _, _, mono, bounds, mask = constrained_split_inputs(rng, 4, 28, 256)
+    cases.append((hist, parent, mono, bounds, mask))
+    for hist, parent, mono, bounds, mask in cases:
+        t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            hist=hist, parent=parent, mono=mono, bounds=bounds, mask=mask).items()}
+        for kw in (dict(monotone=t["mono"], node_bounds=t["bounds"]),
+                   dict(feature_mask=t["mask"][-1]), dict(feature_mask=t["mask"]),
+                   dict(feature_mask=t["mask"], monotone=t["mono"], node_bounds=t["bounds"])):
+            got = split_scan(t["hist"], t["parent"], 1.0, 1.0, **kw).cpu().numpy()
+            want = ref.split_scan_ref(t["hist"], t["parent"], 1.0, 1.0, **kw).cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+            if "feature_mask" in kw:
+                off = ~np.broadcast_to(kw["feature_mask"].cpu().numpy(), got.shape[:2])
+                assert np.all(got[off] == np.array([-np.inf, 0, 0, 0, 0], np.float32))
+
+
+@pytest.mark.cuda
+def test_sampling_draws_on_card(monkeypatch):
+    """The card's draws are a function of their path: the same path twice
+    gives the same selections bit for bit, another seed others. Selections
+    made on the card from uniforms drawn on the CPU (copied over) equal the
+    CPU's own."""
+    from repro_torch.core import sampling as SMP
+
+    dev = _cuda()
+    g_abs = torch.rand(50_000, device=dev).round(decimals=2)  # tied |g|
+
+    def selections(seed, device, ga):
+        ctx = SMP.TreeContext((seed, 3, 0), None, None,
+                              SMP.StochasticParams(colsample_bylevel=0.5,
+                                                   colsample_bynode=0.5), device)
+        return (SMP.row_selection_mask((seed, 3, 0), 50_000, 25_000, device),
+                *SMP.goss_selection((seed, 3, 0), ga, 10_000, 5_000),
+                SMP.level_feature_mask(ctx, 2, 4, 28))
+
+    first, again, other = (selections(s, dev, g_abs) for s in (7, 7, 8))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert not any(torch.equal(a, b) for a, b in zip(first, other))
+    cpu_draw = SMP.uniform
+    monkeypatch.setattr(SMP, "uniform",
+                        lambda path, shape, device: cpu_draw(path, shape, "cpu").to(device))
+    on_card = selections(7, dev, g_abs)
+    on_cpu = selections(7, "cpu", g_abs.cpu())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    ids = SMP.compact_row_ids(on_card[0], 25_000)
+    assert torch.equal(ids.cpu(), SMP.compact_row_ids(on_cpu[0], 25_000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs,want", [
+    (dict(subsample=0.5), (0, 12, 12)),
+    (dict(sampling_method="goss"), (0, 12, 12)),
+    (dict(colsample_bynode=0.5), (3, 9, 12)),
+    (dict(monotone_constraints=(1, -1, 0, 0, 0, 0)), (3, 9, 12)),
+    (dict(subsample=0.5, use_kernel_histograms=True), (12, 0, 12)),
+])
+def test_stochastic_fit_launches_on_card(rng, knobs, want):
+    """A subsampled or GOSS fit grows over the compacted buffer: the row-id
+    kernel at every level, the root included, and no privatised build;
+    column sampling and monotone constraints keep the default growth's
+    launches; the kernel path's subsample (masked mode) builds every level
+    with #1. Each fits the task."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x = rng.normal(size=(3000, 6)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] > 0).astype(np.float32)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    ops.reset_launches()
+    bst = Booster(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic",
+                  **knobs).fit(d)
+    got = ops.launches()
+    assert (got["histogram_private"], got["histogram_rows"], got["split_scan"]) == want
+    assert float(((bst.predict(x) > 0.5).cpu().numpy() == y).mean()) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsample", [1.0, 0.5])
+def test_monotone_sweep_on_card(rng, subsample):
+    """A model fitted on the card with monotone_constraints=(+1, -1, 0):
+    predictions along 64 ascending values of feature 0 never decrease, of
+    feature 1 never increase, exactly, at every row's other values."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x = rng.uniform(-2, 2, size=(4000, 3)).astype(np.float32)
+    y = (1.5 * x[:, 0] - np.sin(2 * x[:, 1]) + 0.3 * rng.normal(size=4000)).astype(np.float32)
+    bst = Booster(n_rounds=10, max_depth=4, max_bins=64, subsample=subsample,
+                  monotone_constraints=(1, -1, 0)).fit(DeviceDMatrix(x, label=y, max_bins=64))
+    grid = np.linspace(-2.2, 2.2, 64, dtype=np.float32)
+    for feat, sign in ((0, 1), (1, -1)):
+        rows = np.repeat(x[:200], 64, axis=0)
+        rows[:, feat] = np.tile(grid, 200)
+        pred = bst.predict(rows).cpu().numpy().reshape(200, 64)
+        assert np.all(np.diff(pred, axis=1) * sign >= 0)
 
 
 @pytest.mark.cuda

@@ -275,9 +275,7 @@ def test_chunk_rows_raises(cls_data):
                       **CPU).fit(x, yc)
 
 
-@pytest.mark.parametrize("knob,value", [("subsample", 0.5), ("sampling_method", "goss"),
-                                        ("monotone_constraints", [1, 0, 0, 0, 0, 0]),
-                                        ("on_oom", "external"), ("checkpoint_every", 2),
+@pytest.mark.parametrize("knob,value", [("on_oom", "external"), ("checkpoint_every", 2),
                                         ("mesh", "a mesh"), ("compression", "f16")])
 def test_unported_knobs_raise_by_name(reg_data, knob, value):
     x, y = reg_data

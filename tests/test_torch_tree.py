@@ -69,14 +69,6 @@ def test_evaluate_splits_vs_reference(rng, params, shape):
                                    rtol=1e-5, atol=1e-5, err_msg=name)
 
 
-def test_evaluate_splits_refuses_unported_inputs():
-    hist, parent = torch.zeros(1, 2, 8, 2), torch.zeros(1, 2)
-    with pytest.raises(NotImplementedError):
-        TS.evaluate_splits(hist, parent, feature_mask=torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        TS.evaluate_splits(hist, parent, monotone=torch.zeros(2, dtype=torch.int32))
-
-
 def test_leaf_value_vs_reference(rng):
     s = rng.normal(size=(9, 2)).astype(np.float32)
     s[:, 1] = np.abs(s[:, 1])

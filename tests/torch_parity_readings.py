@@ -19,6 +19,18 @@ over data seeds 0-9:
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py \
         reg:quantile reg:pseudohubererror count:poisson
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py rank:pairwise
+
+`stochastic` reads the tolerances of tests/test_torch_stochastic.py: the
+constrained split scan's |Δgain| / max(|gain|, 1) per (node, feature) over
+60 seeds, and the replayed fits of `STOCHASTIC` (subsample, each
+colsample_*, GOSS, monotone, monotone with subsample, softmax with
+subsample; both packages draw the reference's uniforms) over data seeds
+0-9: the atol each needs beside rtol 1e-5, or, where the structure
+differs, the witness of the first difference (`tie_witness`, which scores
+splits on the tree's sampled and GOSS-weighted rows, at the node's
+monotone bounds; for GOSS also `goss_witness`):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py stochastic
 """
 import json
 
@@ -29,9 +41,16 @@ import torch
 from repro.core import Booster as JBooster
 from repro.core import DeviceDMatrix as JDMatrix
 from repro.core import objectives as JOBJ
+from repro.core import sampling as JSMP
+from repro.core import split as JS
 from repro.kernels import ops as JO
 from repro_torch.core import Booster, DeviceDMatrix
+from repro_torch.core import objectives as TOBJ
+from repro_torch.core import sampling as TSMP
+from repro_torch.core import split as TS
 from repro_torch.kernels import ops
+
+from _torch_parity import constrained_split_inputs, jax_key, replay_uniform
 
 SCAN_SHAPES = [((1, 3, 8), 1.0, 0.5), ((3, 17, 64), 1.0, 1.0), ((8, 5, 256), 0.5, 2.0),
                ((2, 4, 33), 2.0, 0.0)]  # as in test_split_scan_plain_vs_reference
@@ -79,16 +98,85 @@ def first_difference(jb, tb):
     return tuple(int(i) for i in np.argwhere(differ)[0]) if differ.any() else None
 
 
-def _split_gain(gh, bins, feature, split_bin, default_left, missing_bin, lam):
+def _split_gain(gh, bins, feature, split_bin, default_left, missing_bin, lam,
+                bounds=None, sign=0):
     """The reference's gain formula for one split of a node's rows, in
     float64: (gain, the sum of its terms' magnitudes, the smaller child's
-    hessian sum). gh (n, 2) and bins (n, f) are the node's rows."""
+    hessian sum). gh (n, 2) and bins (n, f) are the node's rows. With
+    `bounds` (lower, upper) the constrained form: weights clipped to the
+    bounds, each leaf's reduction taken at its clipped weight, and -inf
+    where the clipped weights break `sign`."""
     col = bins[:, feature]
     left = np.where(col == missing_bin, default_left, col <= split_bin)
     g, h = gh.sum(0)
     gl, hl = gh[left].sum(0)
-    terms = (gl * gl / (hl + lam), (g - gl) ** 2 / (h - hl + lam), g * g / (h + lam))
-    return 0.5 * (terms[0] + terms[1] - terms[2]), 0.5 * sum(terms), float(min(hl, h - hl))
+    gr, hr = g - gl, h - hl
+    if bounds is None:
+        terms = (gl * gl / (hl + lam), gr * gr / (hr + lam), g * g / (h + lam))
+        gain = 0.5 * (terms[0] + terms[1] - terms[2])
+    else:
+        def weight(a, b):
+            return float(np.clip(-a / (b + lam), *bounds))
+
+        def at(a, b, w):
+            return -(2.0 * a * w + (b + lam) * w * w)
+
+        wl, wr = weight(gl, hl), weight(gr, hr)
+        terms = (at(gl, hl, wl), at(gr, hr, wr), at(g, h, weight(g, h)))
+        gain = 0.5 * (terms[0] + terms[1] - terms[2])
+        if (sign > 0 and wl > wr) or (sign < 0 and wl < wr):
+            gain = -np.inf
+    return gain, 0.5 * sum(abs(t) for t in terms), float(min(hl, hr))
+
+
+def _path_to(node, ref, bins, gh, missing_bin, lam, monotone):
+    """Rows (bool, over all rows) reaching `node` along the reference's
+    arena `ref`, and the node's float64 monotone bounds (None without
+    constraints), propagated from the root as the tree does: the midpoint
+    of the clipped child weights on the constrained side."""
+    chain = []
+    a = node
+    while a > 0:
+        chain.append(a)
+        a = (a - 1) // 2
+    rows = np.ones(bins.shape[0], bool)
+    lo, hi = -np.inf, np.inf
+    cur = 0
+    for child in reversed(chain):
+        f = int(ref["feature"][cur])
+        col = bins[:, f]
+        left = np.where(col == missing_bin, ref["default_left"][cur], col <= ref["split_bin"][cur])
+        if monotone is not None:
+            (gl, hl), (gr, hr) = gh[rows & left].sum(0), gh[rows & ~left].sum(0)
+            wl = float(np.clip(-gl / (hl + lam), lo, hi))
+            wr = float(np.clip(-gr / (hr + lam), lo, hi))
+            mid, c = 0.5 * (wl + wr), monotone[f]
+            if child == 2 * cur + 1:
+                lo, hi = (mid if c < 0 else lo), (mid if c > 0 else hi)
+            else:
+                lo, hi = (mid if c > 0 else lo), (mid if c < 0 else hi)
+        rows &= left if child == 2 * cur + 1 else ~left
+        cur = child
+    return rows, (None if monotone is None else (lo, hi))
+
+
+def _tree_gh(kw, jd, jb, y, tree, group_ids=None):
+    """The reference's own float64 (g, h) of `tree` (n, 2) at the start of
+    its round, with the tree's sample applied as masked mode applies it
+    (unselected rows zero, GOSS's rest scaled)."""
+    k = jb.ensemble.n_classes
+    rounds = tree // k
+    n = jd.n_rows
+    margins = (np.full((n, k), jb.base_score, np.float32) if rounds == 0
+               else np.asarray(JBooster(**{**kw, "n_rounds": rounds}).fit(jd).margins))
+    groups = {} if group_ids is None else {"group_ids": jnp.asarray(group_ids)}
+    gh = JOBJ.get_objective(kw["objective"]).grad(
+        jnp.asarray(margins), jnp.asarray(y), quantile_alpha=QUANTILE_ALPHA, **groups)[:, tree % k]
+    stoch = JSMP.stochastic_params(jb.cfg)
+    if stoch is not None:
+        _, gh = JSMP.make_tree_context(stoch, jax_key((jb.cfg.seed, rounds, tree % k)), gh,
+                                       jd.n_features, compact=False)
+    return np.asarray(gh).astype(np.float64)
 
 
 def tie_witness(kw, jd, jb, tb, y, group_ids=None):
@@ -97,63 +185,98 @@ def tie_witness(kw, jd, jb, tb, y, group_ids=None):
     package's choice there, None for a leaf, else its split scored by the
     reference's gain in float64 on the reference's own gradients at the
     start of that tree's round (with the training matrix's query groups,
-    `group_ids`, for rank:pairwise). A flip that is only rounding scores
-    both alike. None when the structures agree."""
+    `group_ids`, for rank:pairwise), on the tree's sampled and GOSS-weighted
+    rows and at the node's monotone bounds, where the config has them. A
+    flip that is only rounding scores both alike. None when the structures
+    agree."""
     at = first_difference(jb, tb)
     if at is None:
         return None
     tree, node = at
-    k, missing_bin = jb.ensemble.n_classes, kw["max_bins"] - 1
+    missing_bin, lam = kw["max_bins"] - 1, jb.cfg.reg_lambda
+    mono = jb.cfg.monotone_constraints
+    mono = mono if mono is not None and any(mono) else None
     ref = {a: np.asarray(getattr(jb.ensemble, a))[tree] for a in STRUCTURE}
     bins = np.asarray(jd.matrix.unpack())
-    row = np.arange(bins.shape[0])
-    pos = np.zeros(bins.shape[0], np.int64)  # each row's node on the shared path
-    for _ in range(int(np.log2(node + 1))):
-        col = bins[row, ref["feature"][pos]]
-        go_left = np.where(col == missing_bin, ref["default_left"][pos],
-                           col <= ref["split_bin"][pos])
-        pos = np.where(ref["is_leaf"][pos], pos, np.where(go_left, 2 * pos + 1, 2 * pos + 2))
-    rows = pos == node
-    rounds = tree // k
-    margins = (np.full((bins.shape[0], k), jb.base_score, np.float32) if rounds == 0
-               else np.asarray(JBooster(**{**kw, "n_rounds": rounds}).fit(jd).margins))
-    groups = {} if group_ids is None else {"group_ids": jnp.asarray(group_ids)}
-    gh = np.asarray(JOBJ.get_objective(kw["objective"]).grad(
-        jnp.asarray(margins), jnp.asarray(y), quantile_alpha=QUANTILE_ALPHA, **groups))
-    gh = gh[rows, tree % k].astype(np.float64)
-    out = {"tree": tree, "node": node, "rows": int(rows.sum())}
+    gh = _tree_gh(kw, jd, jb, y, tree, group_ids)
+    rows, bounds = _path_to(node, ref, bins, gh, missing_bin, lam, mono)
+    out = {"tree": tree, "node": node, "rows": int(rows.sum()), "bounds": bounds}
     for who, ens in (("ref", jb.ensemble), ("port", tb.ensemble)):
         arena = {a: np.asarray(getattr(ens, a))[tree][node] for a in STRUCTURE}
         if arena["is_leaf"]:
             out[who] = None
             continue
-        gain, scale, min_hess = _split_gain(gh, bins[rows], int(arena["feature"]),
-                                            int(arena["split_bin"]),
-                                            bool(arena["default_left"]), missing_bin,
-                                            jb.cfg.reg_lambda)
-        out[who] = {"feature": int(arena["feature"]), "split_bin": int(arena["split_bin"]),
+        f = int(arena["feature"])
+        gain, scale, min_hess = _split_gain(gh[rows], bins[rows], f, int(arena["split_bin"]),
+                                            bool(arena["default_left"]), missing_bin, lam,
+                                            bounds, 0 if mono is None else mono[f])
+        out[who] = {"feature": f, "split_bin": int(arena["split_bin"]),
                     "default_left": bool(arena["default_left"]), "gain": float(gain),
                     "terms": float(scale), "min_child_hess": min_hess}
     return out
+
+
+def goss_witness(kw, td, jd, jb, tb, y, tree):
+    """GOSS's selection of `tree` in both packages, each from its own
+    gradients at the start of the tree's round and the reference's
+    uniforms. Where they differ: the rows in or out of one top set only,
+    the largest distance of their reference |g| from the m_top-th largest
+    |g| (the boundary) and of the two packages' |g| from each other, in
+    float32 ulps of the boundary."""
+    k = jb.ensemble.n_classes
+    rounds, c = tree // k, tree % k
+    path = (jb.cfg.seed, rounds, c)
+    stoch = JSMP.stochastic_params(jb.cfg)
+    m_top, m_other = JSMP.goss_sizes(jd.n_rows, stoch)
+    base = {"n_rounds": rounds} if rounds else None
+    jm = (np.full((jd.n_rows, k), jb.base_score, np.float32) if base is None
+          else np.asarray(JBooster(**{**kw, **base}).fit(jd).margins))
+    tm = (torch.full((jd.n_rows, k), tb.base_score) if base is None
+          else Booster(**{**kw, **base}).fit(td).margins)
+    jg = np.abs(np.asarray(JOBJ.get_objective(kw["objective"]).grad(
+        jnp.asarray(jm), jnp.asarray(y))[:, c, 0]))
+    tg = TOBJ.get_objective(kw["objective"]).grad(tm, torch.from_numpy(y))[:, c, 0].abs()
+    jsel = np.asarray(JSMP.goss_selection(jax_key(path), jnp.asarray(jg), m_top, m_other)[0])
+    tsel = TSMP.goss_selection(path, tg, m_top, m_other)[0].numpy()
+    out = {"tree": tree, "selection_same": bool(np.array_equal(jsel, tsel))}
+    if not out["selection_same"]:
+        jtop = np.argsort(-jg, kind="stable")[:m_top]
+        ttop = np.argsort(-tg.numpy(), kind="stable")[:m_top]
+        moved = np.setxor1d(jtop, ttop)
+        boundary = np.sort(jg)[::-1][m_top - 1]
+        ulp = float(np.spacing(np.float32(boundary)))
+        out.update(rows_moved=int(moved.size),
+                   boundary_ulps=float(np.abs(jg[moved] - boundary).max() / ulp),
+                   g_ulps=float(np.abs(jg[moved] - tg.numpy()[moved]).max() / ulp))
+    return out
+
+
+def fit_data(seed):
+    """test_torch_booster.py's fixture at a data seed (seed 5 there): 2000
+    rows of 6 features, 5% missing; a regression, a binary and a 3-class
+    target from one signal; 300 new rows; then the later objectives'
+    labels."""
+    rng = np.random.default_rng(seed)
+    n, f = 2000, 6
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random((n, f)) < 0.05] = np.nan
+    z = np.nan_to_num(x)
+    sig = z[:, 0] + 0.5 * z[:, 1] * z[:, 2] - z[:, 3]
+    labels = {"reg:squarederror": (sig + 0.1 * rng.normal(size=n)).astype(np.float32),
+              "binary:logistic": (sig > 0).astype(np.float32),
+              "multi:softmax": np.digitize(sig, [-0.5, 0.5]).astype(np.float32)}
+    x_new = rng.normal(size=(300, f)).astype(np.float32)
+    x_new[rng.random(x_new.shape) < 0.1] = np.nan
+    labels.update(extra_labels(rng, sig, labels["reg:squarederror"]))
+    return x, labels, x_new
 
 
 def fit_readings(seeds=range(10), objectives=()):
     def atol(a, b):  # the least atol that passes beside rtol 1e-5
         return float(np.max(np.abs(a - b) - 1e-5 * np.abs(b)))
 
-    for seed in seeds:  # the data of test_torch_booster.py's fixture, seed 5 there
-        rng = np.random.default_rng(seed)
-        n, f = 2000, 6
-        x = rng.normal(size=(n, f)).astype(np.float32)
-        x[rng.random((n, f)) < 0.05] = np.nan
-        z = np.nan_to_num(x)
-        sig = z[:, 0] + 0.5 * z[:, 1] * z[:, 2] - z[:, 3]
-        labels = {"reg:squarederror": (sig + 0.1 * rng.normal(size=n)).astype(np.float32),
-                  "binary:logistic": (sig > 0).astype(np.float32),
-                  "multi:softmax": np.digitize(sig, [-0.5, 0.5]).astype(np.float32)}
-        x_new = rng.normal(size=(300, f)).astype(np.float32)
-        x_new[rng.random(x_new.shape) < 0.1] = np.nan
-        labels.update(extra_labels(rng, sig, labels["reg:squarederror"]))
+    for seed in seeds:
+        x, labels, x_new = fit_data(seed)
         for objective, k in OBJECTIVES.items():
             if objectives and objective not in objectives:
                 continue
@@ -174,6 +297,117 @@ def fit_readings(seeds=range(10), objectives=()):
                     *(atol(tb.predict_margins(r).numpy(), np.asarray(jb.predict_margins(r)))
                       for r in (x, x_new)))
             yield reading
+
+
+# The replayed stochastic fits of test_torch_stochastic.py: 4 rounds, depth
+# 4, 32 bins on the fixture of `fit_data`; the knobs beside each objective.
+# Feature 0 rises and feature 3 falls with the fixture's signal.
+STOCHASTIC = {
+    "subsample": dict(objective="binary:logistic", subsample=0.5),
+    "colsample_bytree": dict(objective="binary:logistic", colsample_bytree=0.5),
+    "colsample_bylevel": dict(objective="binary:logistic", colsample_bylevel=0.5),
+    "colsample_bynode": dict(objective="binary:logistic", colsample_bynode=0.5),
+    "goss": dict(objective="binary:logistic", sampling_method="goss"),
+    "monotone": dict(objective="reg:squarederror", monotone_constraints=(1, 0, 0, -1, 0, 0)),
+    "monotone_subsample": dict(objective="reg:squarederror", subsample=0.7,
+                               monotone_constraints=(1, 0, 0, -1, 0, 0)),
+    "softmax_subsample": dict(objective="multi:softmax", n_classes=3, subsample=0.5),
+}
+STOCHASTIC_SEED = 11  # the knobs' draw seed (BoosterConfig.seed)
+
+
+def stochastic_fit(seed, name):
+    """One replayed fit of STOCHASTIC[name] at data seed `seed` in both
+    packages on the reference's cuts; call with `repro_torch`'s
+    `sampling.uniform` replaced by `replay_uniform`. Returns (kw, x, y,
+    x_new, td, jd, jb, tb)."""
+    x, labels, x_new = fit_data(seed)
+    kw = dict(n_rounds=4, max_depth=4, max_bins=32, seed=STOCHASTIC_SEED, **STOCHASTIC[name])
+    y = labels[kw["objective"]]
+    jd = JDMatrix(x, label=y, max_bins=32)
+    td = DeviceDMatrix(x, label=y, max_bins=32, cuts=np.asarray(jd.cuts), device="cpu")
+    return kw, x, y, x_new, td, jd, JBooster(**kw).fit(jd), Booster(**kw).fit(td)
+
+
+def stochastic_fit_readings(seeds=range(10)):
+    """Each replayed stochastic fit: structure, the witness where it
+    differs, else the atol leaves, margins and predictions need beside
+    rtol 1e-5."""
+    draw, TSMP.uniform = TSMP.uniform, replay_uniform
+    try:
+        for name in STOCHASTIC:
+            for seed in seeds:
+                kw, x, y, x_new, td, jd, jb, tb = stochastic_fit(seed, name)
+                tie = tie_witness(kw, jd, jb, tb, y)
+                reading = {"fit_seed": seed, "stochastic": name, "structure_same": tie is None,
+                           "atol_needed": None, "tie": tie}
+                if tie is None:
+                    reading["atol_needed"] = max(
+                        _atol_needed(tb.ensemble.leaf_value.numpy(),
+                                     np.asarray(jb.ensemble.leaf_value)),
+                        _atol_needed(tb.margins.numpy(), np.asarray(jb.margins)),
+                        *(_atol_needed(tb.predict_margins(r).numpy(),
+                                       np.asarray(jb.predict_margins(r))) for r in (x, x_new)))
+                elif name == "goss":
+                    reading["goss"] = goss_witness(kw, td, jd, jb, tb, y, tie["tree"])
+                yield reading
+    finally:
+        TSMP.uniform = draw
+
+
+def per_feature_splits(split_fn, hist, parent, params, mono, bounds, mask):
+    """Each feature's best split at every node, from a package's
+    `evaluate_splits` called once a feature with a mask that keeps that
+    feature alone (and `mask`'s own choice of it): gain, split_bin,
+    default_left, each (n_nodes, F)."""
+    n, f = hist.shape[:2]
+    out = {k: np.zeros((n, f)) for k in ("gain", "split_bin", "default_left")}
+    for j in range(f):
+        keep = mask & (np.arange(f) == j)[None, :]
+        sp = split_fn(hist, parent, params, keep, mono, bounds)
+        for k_ in out:
+            out[k_][:, j] = np.asarray(getattr(sp, k_))
+    return out
+
+
+def jax_splits(hist, parent, params, mask, mono, bounds):
+    return JS.evaluate_splits(jnp.asarray(hist), jnp.asarray(parent), JS.SplitParams(*params),
+                              feature_mask=jnp.asarray(mask), monotone=jnp.asarray(mono),
+                              node_bounds=jnp.asarray(bounds))
+
+
+def torch_splits(hist, parent, params, mask, mono, bounds):
+    return TS.evaluate_splits(torch.from_numpy(hist), torch.from_numpy(parent),
+                              TS.SplitParams(*params), feature_mask=torch.from_numpy(mask),
+                              monotone=torch.from_numpy(mono),
+                              node_bounds=torch.from_numpy(bounds))
+
+
+CONSTRAINED_SHAPES = [((5, 3, 8), (1.0, 0.0, 0.5)), ((10, 7, 64), (1.0, 0.0, 1.0)),
+                      ((5, 4, 256), (0.5, 0.0, 2.0)), ((6, 3, 33), (2.0, 0.1, 0.0))]
+
+
+def constrained_gain_readings(n_seeds=60):
+    """The constrained scan's per-(node, feature) best gain in the port
+    against the reference's, |Δgain| / max(|gain|, 1), over inputs of
+    `constrained_split_inputs` (every constraint sign, bounds that clip,
+    ±inf and pinched; no mask beside the one that picks the feature)."""
+    for shape, params in CONSTRAINED_SHAPES:
+        err = 0.0
+        for seed in range(n_seeds):
+            hist, parent, mono, bounds, _ = constrained_split_inputs(
+                np.random.default_rng(seed), *shape)
+            everything = np.ones(shape[:2], bool)
+            want = per_feature_splits(jax_splits, hist, parent, params, mono, bounds, everything)
+            got = per_feature_splits(torch_splits, hist, parent, params, mono, bounds,
+                                     everything)
+            fin = np.isfinite(want["gain"])
+            assert np.array_equal(fin, np.isfinite(got["gain"])), (shape, seed)
+            diff = np.abs(got["gain"][fin] - want["gain"][fin])
+            err = max(err, float((diff / np.maximum(np.abs(want["gain"][fin]), 1.0))
+                                 .max(initial=0.0)))
+        yield {"constrained_split_scan": list(shape), "params": list(params), "seeds": n_seeds,
+               "gain_err_over_max_gain_1": err, "limit": 5 * shape[2] * 2.0**-24}
 
 
 def _atol_needed(got, want):
@@ -273,12 +507,16 @@ def rank_fit_readings(seeds=range(10)):
 if __name__ == "__main__":
     import sys
 
-    # Objective names as arguments: only their fit readings.
+    # Objective names as arguments: only their fit readings; `stochastic`:
+    # the stochastic readings alone.
     chosen = tuple(sys.argv[1:])
-    rank = "rank:pairwise" in chosen or not chosen
-    chosen = tuple(o for o in chosen if o != "rank:pairwise")
-    lines = (*(() if sys.argv[1:] else split_scan_readings()),
-             *(fit_readings(objectives=chosen) if chosen or not sys.argv[1:] else ()),
-             *((*pairwise_readings(), *rank_fit_readings()) if rank else ()))
+    if chosen == ("stochastic",):
+        lines = (*constrained_gain_readings(), *stochastic_fit_readings())
+    else:
+        rank = "rank:pairwise" in chosen or not chosen
+        chosen = tuple(o for o in chosen if o != "rank:pairwise")
+        lines = (*(() if sys.argv[1:] else split_scan_readings()),
+                 *(fit_readings(objectives=chosen) if chosen or not sys.argv[1:] else ()),
+                 *((*pairwise_readings(), *rank_fit_readings()) if rank else ()))
     for line in lines:
         print(json.dumps(line), flush=True)
