@@ -129,12 +129,59 @@ Phases, each printing one JSON line:
                 accuracy beside the default fit's, STOCH_PAIRS warm pairs of
                 subsample=0.5 against the default, fit(6) + update(4) against
                 fit(10) with subsample=0.5 (atomics: a tolerance on the card).
-  13. ops     — the path the reference gives `histogram_packed` and
+  13. external — the main matrix as an `ExternalDMatrix` (ref= the flat
+                matrix) at EXT_CHUNK_ROWS rows a chunk (8 chunks at 1M;
+                EXT_CHUNK_ROWS_LARGE from 2M rows on) and at EXT_ODD_CHUNK_ROWS
+                (not a multiple of a word's symbols, a short last chunk),
+                each with its own counts. Gates: each chunk's words are the
+                flat words of its rows bit for bit; the chunked default fit
+                launches the flat fit's kernels as often (10/50/60: one
+                launch a level over the whole stack); accuracy within 0.003
+                of the main fit's; `predict` on the chunks bit for bit
+                `predict` on the flat matrix; an ExternalDMatrix eval set's
+                last logloss and auc equal `eval` of the model on the flat
+                eval set within 1e-5. Readings: stack bytes, build seconds,
+                the first chunked fit's seconds (cold) beside the flat fit's
+                warm median, EXT_PAIRS warm alternating pairs of the chunked
+                and the flat fit (medians and their ratio), the fit's peak
+                memory above what was allocated before it (the phase holds
+                the dense bins of its check meanwhile), the share of trees
+                with the main fit's structure. Then a
+                sampled chunked fit (subsample 0.5, launches 0/60/60,
+                accuracy > 0.7); `cuts="sketch"` from raw batches of
+                EXT_BATCH_ROWS (accuracy > 0.7; read: the share of cuts equal
+                to `compute_cuts`'); page-in faults on a fresh matrix of
+                FAULT_ROWS rows in FAULT_CHUNKS chunks: `chunk_corrupt` once
+                (one retry with a warning, then the host's words),
+                always (ChunkIntegrityError naming the chunk), `chunk_load`
+                twice (two retries, then the host's words).
+  14. resilience — `nan_grad` armed at round NAN_ROUND of the 10-round
+                default fit: "raise" raises NumericError naming the round,
+                "warn_skip" skips it (its leaves zero, the margins finite),
+                "clamp" records `gradients_clamped` (margins finite); a
+                "raise" fit without a fault makes no more synchronising calls
+                than the default fit's plus one (one chunk). Kill and resume:
+                one child process a variant of RESUME_VARIANTS (default,
+                subsample 0.5, early stopping), all at once, fits 10 rounds
+                on the parent's rows with checkpoint_every=RESUME_EVERY and
+                SIGKILLs itself once round RESUME_KILL is read; the parent
+                resumes each snapshot. Gates: 10 rounds; the snapshot's
+                trees bit for bit; its margins entered as carried (replayed
+                through the resumed trees, they give the final margins bit
+                for bit); accuracy within 0.003 of an uninterrupted fit
+                (read: the share of trees with its structure; atomics).
+                `checkpoint_write` once (the retry succeeds) and always (a
+                warning and a `checkpoint_write_failed` event a snapshot, the
+                fit completes, the file written before is unchanged); `oom`
+                with on_oom="external" (one `oom_fallback` at n_rows // 2, the
+                fit through the chunk stack, launches 10/50/60, accuracy >
+                0.7) and without (SimulatedOOM).
+  15. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  14. check   — each kernel against its plain PyTorch version on the same
+  16. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -159,8 +206,12 @@ Phases, each printing one JSON line:
                 RANK_CHECK_ROUNDS rounds, at PAIR_GROUPS' query sizes (1, 2,
                 120 and 1,251 rows, one query of 5,000, one of 50,000 rows), on
                 one relevance everywhere and on tied scores, within PAIR_RTOL
-                * (1 + each row's summed term magnitudes).
-  15. time    — CUDA-event ms of each kernel, its plain version and, where one
+                * (1 + each row's summed term magnitudes); the two histogram
+                kernels' chunked instantiation on the external phase's chunk
+                stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
+                against their chunked plain versions, held as the flat
+                shapes are.
+  17. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -186,8 +237,13 @@ Phases, each printing one JSON line:
                 pairwise kernel at the rank fit's shape by events and back to
                 back, beside its bound from this data's pairs, the bound of its
                 exps and reciprocals at the special-function units' rate, its
-                plain version, and `ops.query_groups`.
-With --profile, five further fits are traced after the stochastic phase,
+                plain version, and `ops.query_groups`; each histogram kernel's
+                chunked instantiation beside its flat one on the same rows (#1
+                at 1 and 8 nodes, the row-id kernel at 1 and 16 parents, each
+                chunk stack of the external phase), by events and back to
+                back, each beside its bound in bytes, and its chunked plain
+                version.
+With --profile, five further fits are traced after the resilience phase,
 each printing its device busy time, idle share, launches and top kernels:
 the default, the dense default, EVAL_ROUNDS rounds with and without the
 evals, and subsample=0.5 (tables profile_{fit,dense,evals,no_evals,
@@ -202,8 +258,10 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import re
+from signal import SIGKILL
 import subprocess
 import sys
 import time
@@ -337,6 +395,44 @@ STOCH_FITS = {
 }
 STOCH_PAIRS = 3  # warm alternating pairs of the subsample=0.5 and the default fit
 SWEEP_ROWS, SWEEP_STEPS = 1_000, 64  # the monotone sweep: held-out rows x ascending values
+# External memory: the main matrix as a chunk stack of the reference's
+# default 131,072 rows a chunk (8 chunks at 1M rows; 1,048,576 from 2M rows
+# on, 11 chunks at 11M), and of 100,003 rows (not a multiple of the 4
+# symbols of an 8-bit word: chunks whose words do not line up with the flat
+# words, a short last chunk); the held-out rows as an ExternalDMatrix eval
+# set of 30,000-row chunks; the sketch-cut matrix from batches of 125,000
+# rows; the page-in faults on a fresh matrix of the first 200,000 rows in 4
+# chunks.
+EXT_CHUNK_ROWS, EXT_CHUNK_ROWS_LARGE, EXT_ODD_CHUNK_ROWS = 131_072, 1_048_576, 100_003
+EXT_EVAL_CHUNK_ROWS, EXT_BATCH_ROWS = 30_000, 125_000
+EXT_PAIRS = 3  # warm alternating pairs of the chunked and the flat default fit
+FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
+# Resilience: the round whose gradients the nan_grad fault overwrites; kill
+# and resume of a 10-round fit that snapshots every 3 rounds and is killed
+# once round 5 is read (the snapshot of round 3 survives), for the default
+# fit, subsample 0.5 and early stopping (patience 3, logloss on the held-out
+# rows); the child fits the rows the parent saved, so its matrix is the
+# parent's, bit for bit.
+NAN_ROUND = 3
+RESUME_EVERY, RESUME_KILL = 3, 5
+RESUME_VARIANTS = {"plain": ({}, None), "subsample": ({"subsample": 0.5}, None),
+                   "early_stopping": ({}, 3)}
+RESUME_CHILD = """
+import os, signal, sys
+sys.path.insert(0, {src!r})
+import numpy as np
+from repro_torch.core import Booster, DeviceDMatrix
+r = np.load({rows!r})
+d = DeviceDMatrix(r["x_tr"], label=r["y_tr"])
+evals = [(DeviceDMatrix(r["x_te"], label=r["y_te"], ref=d), "valid")] if {es!r} else []
+def kill(rnd, rec):
+    if rnd >= {kill}:
+        os.kill(os.getpid(), signal.SIGKILL)
+Booster(**{kw!r}).fit(d, evals=evals, early_stopping_rounds={es!r},
+                      eval_metric="logloss" if {es!r} else None,
+                      checkpoint_every={every}, checkpoint_path={path!r}, callback=kill)
+print("FIT-COMPLETED")
+"""
 
 
 def emit(obj: dict) -> None:
@@ -358,11 +454,12 @@ def ptxas_summary(report: str) -> list[dict]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
-            spw = re.search(r"_kernelILi(\d+)E", mangled)
-            flags = re.search(r"_kernelILb(\d)ELb(\d)E", mangled)  # split scan <kMask, kMono>
+            # Template arguments: the split scan's <kMask, kMono>; #1's <SPW,
+            # MIN_BLOCKS, kChunked>, the row-id kernel's <SPW, kChunked>.
+            targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+            targs = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
             cur = {"function": (name.group(1) if name else mangled)
-                   + (f"<{spw.group(1)}>" if spw else "")
-                   + (f"<{flags.group(1)},{flags.group(2)}>" if flags else "")}
+                   + (f"<{','.join(targs)}>" if targs else "")}
             rows.append(cur)
         elif cur is not None and "Used" in line and "registers" in line:
             cur["ptxas"] = line.split("ptxas info    :")[-1].strip()
@@ -399,6 +496,28 @@ def count_syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _append_arg(fn, last, *args):
+    """fn(*args, last): a kernel or plain version with its chunk_rows."""
+    return fn(*args, last)
+
+
+def to_stack(bins, chunk_rows: int, bits: int):
+    """The (n_chunks, F, words_per_chunk) chunk stack of dense (n, F) bins
+    at `bits`, each chunk packed on its own and padded with zero words, as
+    `ExternalDMatrix` stacks them."""
+    import torch
+
+    from repro_torch.core.compress import pack
+
+    n, f = bins.shape
+    wpc = -(-chunk_rows // (32 // bits))
+    stack = torch.zeros((-(-n // chunk_rows), f, wpc), dtype=torch.int32, device=bins.device)
+    for c, s in enumerate(range(0, n, chunk_rows)):
+        words = pack(bins[s:s + chunk_rows], bits)
+        stack[c, :, :words.shape[1]] = words
+    return stack
 
 
 def expect_launches(where: str, got: dict[str, int], want: dict[str, int]) -> None:
@@ -534,13 +653,19 @@ def main() -> int:
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.checkpoint import CheckpointError
-    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.checkpoint import CheckpointError, load_booster_with_resume
+    from repro_torch.core import Booster, DeviceDMatrix, ExternalDMatrix
     from repro_torch.core import metrics as M
     from repro_torch.core import objectives as O
     from repro_torch.core import sampling as SMP
     from repro_torch.core.compress import pack, unpack
-    from repro_torch.core.predict import slice_rounds, truncate_rounds
+    from repro_torch.core.predict import (
+        ENSEMBLE_FIELDS,
+        slice_rounds,
+        traverse_tree_packed,
+        truncate_rounds,
+    )
+    from repro_torch.core.resilience import ChunkIntegrityError, NumericError
     from repro_torch.core.tree import _histograms_by_subtraction
     from repro_torch.core.histogram import node_sums
     from repro_torch.data import make_dataset
@@ -569,6 +694,7 @@ def main() -> int:
     from repro_torch.kernels.split_scan import split_scan
     from repro_torch.serve import PredictEngine, export_xgboost_json, import_xgboost_json
     from repro_torch.serve.engine import DEFAULT_BUCKETS
+    from repro_torch.testing import faults
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -691,6 +817,7 @@ def main() -> int:
             torch.cuda.synchronize()
             pair_s[name].append(time.perf_counter() - t0)
     med = {k: sorted(v)[FIT_PAIRS // 2] for k, v in pair_s.items()}
+    flat_median_s = med["default"]
     emit({"phase": "fit_pairs", "fit_s": pair_s, "median_default_s": med["default"],
           "median_kernel_s": med["kernel"],
           "default_over_kernel": med["default"] / med["kernel"],
@@ -1265,6 +1392,277 @@ def main() -> int:
         raise SystemExit(f"stochastic phase failed: {st_line}")
     del stoch_models, model, sub, cont, first, again, other, from_cpu, on_cpu, g_abs, d_mono
 
+    # --- 13. external memory (resident chunk stack) -----------------------------
+    # The main matrix as an ExternalDMatrix with ref= the flat one (its cuts):
+    # EXT_CHUNK_ROWS (8 chunks at 1M rows), then EXT_ODD_CHUNK_ROWS (not a
+    # multiple of the 4 symbols a word, a short last chunk). Each chunk's
+    # words are the flat words of its rows; the chunked default fit launches
+    # the flat fit's kernels as often (one launch a level over the stack);
+    # predict on the chunks is bit for bit predict on the flat matrix; an
+    # ExternalDMatrix eval set's metrics are the flat eval set's.
+    dense_bins = unpack(dtrain.matrix.packed, dtrain.bits, args.rows)
+    dte = DeviceDMatrix(x_te, label=y_te, ref=dtrain)
+    ext_chunk = EXT_CHUNK_ROWS if args.rows <= 2 * EXT_CHUNK_ROWS * 8 else EXT_CHUNK_ROWS_LARGE
+    ext_lines, ext_stacks = [], {}
+    for chunk_rows in (ext_chunk, EXT_ODD_CHUNK_ROWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dext = ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=chunk_rows, ref=dtrain)
+        cpb = dext.packed_bins()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        words_exact = all(
+            torch.equal(cpb.packed[c, :, :w_.shape[1]], w_)
+            and not bool(cpb.packed[c, :, w_.shape[1]:].any())
+            for c, w_ in ((c, pack(dense_bins[c * chunk_rows:(c + 1) * chunk_rows], dext.bits))
+                          for c in range(dext.n_chunks)))
+        torch.cuda.reset_peak_memory_stats()
+        before_fit = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ebst = Booster(**booster_kw).fit(dext)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = ops.launches()
+        peak_fit = torch.cuda.max_memory_allocated()
+        eacc = accuracy(ebst.predict(x_te))
+        predict_exact = bool(torch.equal(ebst.predict_margins(dext), ebst.predict_margins(dtrain)))
+        dte_ext = ExternalDMatrix.from_arrays(x_te, y_te, chunk_rows=EXT_EVAL_CHUNK_ROWS,
+                                              ref=dtrain)
+        evbst = Booster(**booster_kw).fit(dext, evals=[(dte_ext, "valid")],
+                                          eval_metric=["logloss", "auc"])
+        flat_eval = evbst.eval(dte, "valid", ["logloss", "auc"])
+        eval_gap = max(abs(evbst.history[-1][k] - v) for k, v in flat_eval.items())
+        # fit_s above is the first chunked fit of its kind (cold); warm,
+        # alternating pairs set the chunked fit beside the flat one.
+        pairs_s: dict[str, list[float]] = {"chunked": [], "flat": []}
+        for i in range(EXT_PAIRS):
+            for name in ("chunked", "flat") if i % 2 == 0 else ("flat", "chunked"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Booster(**booster_kw).fit(dext if name == "chunked" else dtrain)
+                torch.cuda.synchronize()
+                pairs_s[name].append(time.perf_counter() - t0)
+        warm = {k: sorted(v)[EXT_PAIRS // 2] for k, v in pairs_s.items()}
+        line = {"phase": "external", "chunk_rows": chunk_rows, "n_chunks": dext.n_chunks,
+                "bits": dext.bits, "stack_bytes": dext.nbytes_device,
+                "flat_words_bytes": dtrain.matrix.nbytes_compressed(), "build_s": build_s,
+                "first_fit_s": fit_s, "flat_fit_warm_median_s": flat_median_s,
+                "warm_pairs_fit_s": pairs_s, "median_chunked_warm_s": warm["chunked"],
+                "median_flat_warm_s": warm["flat"],
+                "chunked_over_flat_warm": warm["chunked"] / warm["flat"],
+                "memory_allocated_before_fit": before_fit,
+                "fit_peak_above_before": peak_fit - before_fit, "words_exact": words_exact,
+                "held_out_accuracy": eacc, "flat_accuracy": acc,
+                "trees_same_structure_as_flat": same_structure(ebst.ensemble, ens),
+                "predict_chunks_equal_flat": predict_exact,
+                "eval_set_vs_flat_max_gap": eval_gap, "launches": got}
+        ext_lines.append(line)
+        emit(line)
+        expect_launches(f"chunked fit at {chunk_rows} rows a chunk", got, path_launches())
+        if not (words_exact and predict_exact and abs(eacc - acc) <= 0.003 and eval_gap <= 1e-5):
+            raise SystemExit(f"external phase failed: {line}")
+        ext_stacks[chunk_rows] = cpb
+        del ebst, evbst, dte_ext
+    # A sampled chunked fit grows over its compacted rows: the row-id kernel
+    # at every level, the root included, as the flat subsample fit.
+    ops.reset_launches()
+    sbst = Booster(**booster_kw, subsample=0.5).fit(dext)
+    got = ops.launches()
+    sub_line = {"phase": "external", "fit": "subsample", "chunk_rows": dext.chunk_rows,
+                "held_out_accuracy": accuracy(sbst.predict(x_te)), "launches": got}
+    emit(sub_line)
+    expect_launches("chunked subsample fit", got, dict(zip(
+        ("histogram_private", "histogram_rows", "split_scan"), STOCH_FITS["subsample"][1])))
+    if sub_line["held_out_accuracy"] <= 0.7:
+        raise SystemExit(f"chunked subsample fit: {sub_line}")
+    # cuts="sketch" from raw batches of another size (the streaming sketch,
+    # each chunk's columns sorted on the card), re-chunked to ext_chunk.
+    t0 = time.perf_counter()
+    dsk = ExternalDMatrix(((x_tr[s:s + EXT_BATCH_ROWS], y_tr[s:s + EXT_BATCH_ROWS])
+                           for s in range(0, args.rows, EXT_BATCH_ROWS)),
+                          chunk_rows=ext_chunk, cuts="sketch")
+    torch.cuda.synchronize()
+    sketch_build_s = time.perf_counter() - t0
+    kbst = Booster(**booster_kw).fit(dsk)
+    sk_line = {"phase": "external", "fit": "sketch", "build_s": sketch_build_s,
+               "held_out_accuracy": accuracy(kbst.predict(x_te)),
+               "cuts_equal_compute_cuts_share": float((dsk.cuts == dtrain.cuts).float().mean())}
+    emit(sk_line)
+    if sk_line["held_out_accuracy"] <= 0.7:
+        raise SystemExit(f"sketch-cut chunked fit: {sk_line}")
+    del sbst, kbst, dsk, dense_bins
+    # Page-in faults on the card, on a fresh matrix of the first rows.
+    faulted = {}
+    fault_rows = min(FAULT_ROWS, args.rows)
+    for name_f, site, arm in (
+            ("corrupt_once", "chunk_corrupt", dict(times=1, chunk=1, index=5, bit=3)),
+            ("corrupt_always", "chunk_corrupt", dict(times=None, chunk=2, index=9, bit=7)),
+            ("load_twice", "chunk_load", dict(error=faults.TransientLoadError, times=2))):
+        fresh = ExternalDMatrix.from_arrays(x_tr[:fault_rows], y_tr[:fault_rows],
+                                            chunk_rows=-(-fault_rows // FAULT_CHUNKS),
+                                            ref=dtrain, load_backoff=0.0)
+        with warnings.catch_warnings(record=True) as seen, faults.inject(site, **arm) as spec:
+            warnings.simplefilter("always")
+            try:
+                stack_ = fresh.packed_bins().packed
+                err = None
+                same = bool((stack_.cpu().numpy().view(np.uint32) == fresh._host_packed).all())
+            except ChunkIntegrityError as exc:
+                err, same = str(exc), None
+        faulted[name_f] = {"fired": spec.fired, "warnings": len(seen), "error": err,
+                           "stack_equals_host": same}
+    emit({"phase": "external", "faults": faulted})
+    if not (faulted["corrupt_once"]["fired"] == 1 and faulted["corrupt_once"]["warnings"] == 1
+            and faulted["corrupt_once"]["stack_equals_host"]
+            and "chunk(s) [2]" in (faulted["corrupt_always"]["error"] or "")
+            and faulted["load_twice"]["fired"] == 2 and faulted["load_twice"]["warnings"] == 2
+            and faulted["load_twice"]["stack_equals_host"]):
+        raise SystemExit(f"external page-in faults: {faulted}")
+
+    # --- 14. resilience: numeric sentinel, kill and resume, faults ------------
+    # nan_grad armed at round NAN_ROUND of the 10-round default fit, under
+    # each policy; a raise fit without a fault reads its flags once a chunk.
+    policy = {}
+    for pol in ("raise", "warn_skip", "clamp"):
+        with faults.inject("nan_grad", round=NAN_ROUND), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                pbst = Booster(**booster_kw, numeric_check=pol).fit(dtrain)
+                policy[pol] = {"skipped_rounds": pbst.skipped_rounds,
+                               "events": pbst.resilience_events,
+                               "margins_finite": bool(torch.isfinite(pbst.margins).all()),
+                               "skipped_leaves_zero": bool(
+                                   (pbst.ensemble.leaf_value[NAN_ROUND] == 0).all()),
+                               "held_out_accuracy": accuracy(pbst.predict(x_te))}
+            except NumericError as exc:
+                policy[pol] = {"error": str(exc)}
+    syncs_raise = count_syncs(lambda: Booster(**booster_kw, numeric_check="raise").fit(dtrain))
+    syncs_default = count_syncs(lambda: Booster(**booster_kw).fit(dtrain))
+    res_line = {"phase": "resilience", "nan_round": NAN_ROUND, "policies": policy,
+                "syncs_raise_no_fault": syncs_raise, "syncs_default": syncs_default}
+    emit(res_line)
+    if not (f"round(s) [{NAN_ROUND}," in policy["raise"].get("error", "")
+            and policy["warn_skip"].get("skipped_rounds") == [NAN_ROUND]
+            and policy["warn_skip"]["skipped_leaves_zero"]
+            and policy["warn_skip"]["margins_finite"]
+            and policy["clamp"].get("events") == [{"event": "gradients_clamped",
+                                                   "rounds": [NAN_ROUND]}]
+            and policy["clamp"]["margins_finite"]
+            and syncs_raise <= syncs_default + 1):  # one chunk: one read
+        raise SystemExit(f"numeric policies failed: {res_line}")
+
+    # Kill and resume: a child process a variant fits 10 rounds with
+    # checkpoint_every=RESUME_EVERY on the same rows (saved here, so its
+    # matrix is this one) and SIGKILLs itself once round RESUME_KILL is read;
+    # the children run at once. Each snapshot resumes here.
+    rows_file = work / "resume_rows.npz"
+    np.savez(rows_file, x_tr=x_tr, y_tr=y_tr, x_te=x_te, y_te=y_te)
+    children = {}
+    for name_v, (knobs, es) in RESUME_VARIANTS.items():
+        ckpt = work / f"resume_{name_v}.ckpt"
+        ckpt.unlink(missing_ok=True)
+        child = RESUME_CHILD.format(src=str(ROOT / "src"), rows=str(rows_file),
+                                    kw={**booster_kw, **knobs}, es=es, every=RESUME_EVERY,
+                                    path=str(ckpt), kill=RESUME_KILL)
+        children[name_v] = (ckpt, subprocess.Popen([sys.executable, "-c", child],
+                                                    stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True))
+    resumed = {}
+    for name_v, (ckpt, proc) in children.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != -SIGKILL or "FIT-COMPLETED" in out:
+            raise SystemExit(f"resume child {name_v} exited {proc.returncode}:\n{err[-2000:]}")
+        knobs, es = RESUME_VARIANTS[name_v]
+        snap, rs = load_booster_with_resume(str(ckpt))
+        evals_v = [(dte, "valid")] if es else []
+        t0 = time.perf_counter()
+        got = Booster.resume(str(ckpt), dtrain, evals=evals_v)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        whole = Booster(**booster_kw, **knobs).fit(
+            dtrain, evals=evals_v, early_stopping_rounds=es,
+            eval_metric="logloss" if es else None)
+        k0 = int(rs["rounds_done"])
+        snap_exact = all(torch.equal(getattr(got.ensemble, f_)[:k0], getattr(snap.ensemble, f_))
+                         for f_ in ENSEMBLE_FIELDS)
+        # The snapshot's margins entered the loop as carried: from them, the
+        # resumed trees' leaves replayed in the loop's order give the
+        # resumed fit's final margins bit for bit.
+        replay = rs["margins"]
+        for t in range(k0, got.ensemble.n_trees):
+            e_ = got.ensemble
+            replay = replay + torch.stack([traverse_tree_packed(
+                e_.feature[t], e_.split_bin[t], e_.default_left[t], e_.leaf_value[t],
+                e_.is_leaf[t], dtrain.matrix.packed, dtrain.bits, args.rows, MAX_BINS - 1,
+                DEPTH)], dim=1)
+        margins_exact = got.margins is not None and bool(torch.equal(replay, got.margins))
+        racc, wacc = accuracy(got.predict(x_te)), accuracy(whole.predict(x_te))
+        resumed[name_v] = {"snapshot_rounds": k0, "n_rounds_trained": got.n_rounds_trained,
+                           "snapshot_trees_exact": snap_exact,
+                           "snapshot_margins_entered_exact": margins_exact,
+                           "held_out_accuracy": racc, "uninterrupted_accuracy": wacc,
+                           "trees_same_structure_as_uninterrupted": same_structure(
+                               got.ensemble, whole.ensemble),
+                           "resume_s": resume_s}
+        if not (got.n_rounds_trained == ROUNDS and snap_exact and margins_exact
+                and abs(racc - wacc) <= 0.003 and k0 == RESUME_EVERY):
+            raise SystemExit(f"resume {name_v} failed: {resumed[name_v]}")
+    emit({"phase": "resilience", "resume": resumed})
+    rows_file.unlink()
+
+    # checkpoint_write: armed once, the snapshot's retry succeeds; armed
+    # always, the fit completes with a warning and the failed writes'
+    # events, and the file written before the fault is unchanged.
+    ck_path = work / "write_fault.ckpt"
+    with faults.inject("checkpoint_write", error=OSError, times=1) as spec:
+        once = Booster(**booster_kw).fit(dtrain, checkpoint_every=5, checkpoint_path=str(ck_path))
+    once_ok = spec.fired == 1 and once.resilience_events == [] and \
+        Booster.load(str(ck_path)).n_rounds_trained == ROUNDS
+    bst.save(str(ck_path))
+    before = ck_path.read_bytes()
+    with faults.inject("checkpoint_write", error=OSError, times=None), \
+            warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        always = Booster(**booster_kw).fit(dtrain, checkpoint_every=5,
+                                           checkpoint_path=str(ck_path))
+    ckw = {"once_retried": once_ok,
+           "always_events": [e["event"] for e in always.resilience_events],
+           "always_warnings": sum("checkpoint write" in str(w.message) for w in seen),
+           "always_completed": always.n_rounds_trained == ROUNDS,
+           "file_unchanged": ck_path.read_bytes() == before}
+    # oom armed once with on_oom="external": one fallback at n_rows // 2, the
+    # fit through the chunk stack on the card; without on_oom it raises.
+    ops.reset_launches()
+    with faults.inject("oom", error=faults.SimulatedOOM), \
+            warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        obst = Booster(**booster_kw).fit(dtrain, on_oom="external")
+    oom_launches = ops.launches()
+    with faults.inject("oom", error=faults.SimulatedOOM):
+        try:
+            Booster(**booster_kw).fit(dtrain)
+            plain_raises = False
+        except faults.SimulatedOOM:
+            plain_raises = True
+    oom = {"events": obst.resilience_events, "warnings": len(seen),
+           "held_out_accuracy": accuracy(obst.predict(x_te)), "launches": oom_launches,
+           "without_on_oom_raises": plain_raises}
+    emit({"phase": "resilience", "checkpoint_write": ckw, "oom": oom})
+    expect_launches("on_oom='external' fit", oom_launches, path_launches())
+    if not (once_ok and ckw["always_events"] == ["checkpoint_write_failed"] * 2
+            and ckw["always_warnings"] == 2 and ckw["always_completed"]
+            and ckw["file_unchanged"] and plain_raises
+            and [e["event"] for e in oom["events"]] == ["oom_fallback"]
+            and oom["events"][0]["chunk_rows"] == args.rows // 2
+            and oom["held_out_accuracy"] > 0.7):
+        raise SystemExit(f"resilience faults failed: {ckw} {oom}")
+    del obst, always, once, dte
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
@@ -1334,7 +1732,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 13. the ops path of histogram_packed and decompress -----------------
+    # --- 15. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -1401,7 +1799,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 14. kernels against their plain versions ---------------------------
+    # --- 16. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -1411,13 +1809,18 @@ def main() -> int:
         ok = bool(((got - want).abs() <= tol).all())
         return err, ok
 
-    def check_histogram(name, kernel, plain, size, *rest, words=packed, data="higgs"):
+    def check_histogram(name, kernel, plain, size, *rest, words=packed, data="higgs",
+                        chunk_rows=None):
         """Exact on integer (g, h); within the sqrt(rows) tolerance on real.
         On the skewed and constant words the real-valued plain version runs
         in float64: in float32 its index_add_ adds a hot bin's hundreds of
         thousands of positive h one at a time, and that running sum drifts
         past the tolerance by itself (the kernels add blocked or aggregated
-        sums)."""
+        sums). With `chunk_rows`, `words` is a chunk stack and kernel and
+        plain version take its chunk_rows."""
+        if chunk_rows is not None:
+            kernel = functools.partial(_append_arg, kernel, chunk_rows)
+            plain = functools.partial(_append_arg, plain, chunk_rows)
         inputs = {"exact": (words, gh_exact, *rest), "real": (words, gh, *rest)}
         if name == "histogram_rows":  # (g, h) gathered for each slot's row
             rid = rest[1].to(torch.int64).clamp(max=n - 1)
@@ -1427,8 +1830,8 @@ def main() -> int:
         real = inputs["real"]
         want = plain(*real) if data == "higgs" else plain(real[0], real[1].double(), *real[2:])
         err, ok = check(got, want, counts_and_tolerance(plain, *real))
-        checked[name].append({"nodes": size, "data": data, "exact_max_abs_err": exact_err,
-                              "max_abs_err": err, "ok": ok})
+        checked[name].append({"nodes": size, "data": data, "chunk_rows": chunk_rows,
+                              "exact_max_abs_err": exact_err, "max_abs_err": err, "ok": ok})
         if exact_err != 0.0 or not ok:
             raise SystemExit(f"{name} disagrees at {size} nodes on {data}: exact "
                              f"{exact_err}, real {err}")
@@ -1449,6 +1852,24 @@ def main() -> int:
             check_histogram("histogram_rows", build_histograms_rows_kernel,
                             ref.histogram_rows_ref, npar, pos, rid, npar, MAX_BINS, bits,
                             words=words, data=data)
+    # Both kernels' chunked instantiation on the external phase's chunk
+    # stacks (padding symbols in every chunk of the 100,003-row stack, a
+    # short last chunk in both) and on the skewed words stacked at 100,003
+    # rows, against their chunked plain versions, held as the flat shapes.
+    skew_stack = to_stack(unpack(skewed, bits, n), EXT_ODD_CHUNK_ROWS, bits)
+    for cr, stack_, data in ((ext_chunk, ext_stacks[ext_chunk].packed, "higgs"),
+                             (EXT_ODD_CHUNK_ROWS, ext_stacks[EXT_ODD_CHUNK_ROWS].packed, "higgs"),
+                             (EXT_ODD_CHUNK_ROWS, skew_stack, "skewed")):
+        for nn in HIST_NODES:
+            check_histogram("histogram_private", build_histograms_packed_kernel,
+                            ref.histogram_chunked_ref, nn, levels[nn], nn, MAX_BINS, bits,
+                            words=stack_, data=data, chunk_rows=cr)
+        for npar in ROW_PARENTS:
+            rid, pos = buffers[npar]
+            check_histogram("histogram_rows", build_histograms_rows_kernel,
+                            ref.histogram_rows_chunked_ref, npar, pos, rid, npar, MAX_BINS,
+                            bits, words=stack_, data=data, chunk_rows=cr)
+    del skew_stack
     # The subtraction trick's device path (lane-spread counts, scatter
     # compaction, sibling = parent - child) at level 5 of the main matrix,
     # against a full build of the level: exact on integer (g, h); on real
@@ -1478,7 +1899,8 @@ def main() -> int:
         results[name] = {
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": "integer gh exact; real gh 2e-5 + 4*sqrt(rows)*2^-24*hist(|g|,|h|) "
-                         "(skewed and constant words: against the plain version in float64)",
+                         "(skewed and constant words: against the plain version in float64); "
+                         "the chunked instantiation against its chunked plain version",
         }
 
     del constant
@@ -1715,7 +2137,7 @@ def main() -> int:
                      "1e-6 where no pair is comparable", "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 15. times -------------------------------------------------------------
+    # --- 17. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1753,7 +2175,7 @@ def main() -> int:
         KB.check(KB.lib().rt_histogram_private(
             words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), out.data_ptr(), n, f, w,
             nn, MAX_BINS, bits, plan.node_tile, plan.feat_group, plan.words_per_block,
-            plan.blocks_per_sm, HIST_THREADS, KB.stream(dev)), "histogram_private")
+            plan.blocks_per_sm, HIST_THREADS, 0, 0, KB.stream(dev)), "histogram_private")
         return out
 
     # With (g, h) all zero the privatised kernel does every shared-memory
@@ -1839,6 +2261,62 @@ def main() -> int:
         del dense_
     emit({"phase": "time", "histogram_levels": hist_rows})
     emit({"phase": "time", "histogram_rows_levels": rows_rows})
+    # The chunked instantiations beside the flat ones on the same rows, back
+    # to back and by events: #1 at 1 and 8 nodes, the row-id kernel at 1 and
+    # 16 parents; each bound counts the words it must read (#1: the words
+    # that hold real rows, ceil(rows / spw) a chunk, since a word of padding
+    # alone is never loaded; the row-id kernel: the words of the valid
+    # slots' rows in that layout).
+    chunked_rows = []
+    for cr in (ext_chunk, EXT_ODD_CHUNK_ROWS):
+        stack_ = ext_stacks[cr].packed
+        n_ch, _, wpc = stack_.shape
+        real_words = sum(-(-min(cr, n - c * cr) // spw) for c in range(n_ch))
+        for nn in (1, 8):
+            pos = levels[nn]
+            ops_ = 2 * int(((pos >= 0) & (pos < nn)).sum()) * f
+            hist_bytes = n * 12 + nn * f * MAX_BINS * 8
+            flat_b, by = bound(f * w * 4 + hist_bytes, ops_)
+            chunk_b, _ = bound(f * real_words * 4 + hist_bytes, ops_)
+            flat_fn = functools.partial(build_histograms_packed_kernel, packed, gh, pos, nn,
+                                        MAX_BINS, bits)
+            chunk_fn = functools.partial(build_histograms_packed_kernel, stack_, gh, pos, nn,
+                                         MAX_BINS, bits, cr)
+            chunked_rows.append({
+                "kernel": "histogram_private", "chunk_rows": cr, "n_chunks": n_ch,
+                "n_nodes": nn, "flat_ms": time_ms(flat_fn), "chunked_ms": time_ms(chunk_fn),
+                "chunked_plain_ms": time_ms(functools.partial(
+                    ref.histogram_chunked_ref, stack_, gh, pos, nn, MAX_BINS, bits, cr), iters=5),
+                "flat_back_to_back_ms": back_to_back_ms(flat_fn),
+                "chunked_back_to_back_ms": back_to_back_ms(chunk_fn),
+                "flat_bound_ms": flat_b, "chunked_bound_ms": chunk_b, "bound_by": by})
+        for npar in (1, 16):
+            rid, pos = buffers[npar]
+            valid = pos < npar
+            gh_sel = gh[rid.to(torch.int64).clamp(max=n - 1)]
+            r64 = rid[valid].to(torch.int64)
+            flat_words = int(torch.unique(r64 // spw).numel())
+            chunk_words = int(torch.unique((r64 // cr) * wpc + (r64 % cr) // spw).numel())
+            m = rid.shape[0]
+            rest_bytes = m * (8 + 4 + 4) + npar * f * MAX_BINS * 8
+            ops_ = 2 * int(valid.sum()) * f
+            flat_b, by = bound(f * flat_words * 4 + rest_bytes, ops_)
+            chunk_b, _ = bound(f * chunk_words * 4 + rest_bytes, ops_)
+            flat_fn = functools.partial(build_histograms_rows_kernel, packed, gh_sel, pos, rid,
+                                        npar, MAX_BINS, bits)
+            chunk_fn = functools.partial(build_histograms_rows_kernel, stack_, gh_sel, pos, rid,
+                                         npar, MAX_BINS, bits, cr)
+            chunked_rows.append({
+                "kernel": "histogram_rows", "chunk_rows": cr, "n_chunks": n_ch,
+                "n_parents": npar, "flat_ms": time_ms(flat_fn), "chunked_ms": time_ms(chunk_fn),
+                "chunked_plain_ms": time_ms(functools.partial(
+                    ref.histogram_rows_chunked_ref, stack_, gh_sel, pos, rid, npar, MAX_BINS,
+                    bits, cr), iters=5),
+                "flat_back_to_back_ms": back_to_back_ms(flat_fn),
+                "chunked_back_to_back_ms": back_to_back_ms(chunk_fn),
+                "flat_bound_ms": flat_b, "chunked_bound_ms": chunk_b, "bound_by": by})
+    emit({"phase": "time", "histogram_chunked": chunked_rows})
+    del ext_stacks
     del dense, skewed
 
     # The split scan at each checked level, beside an empty launch on the same

@@ -13,9 +13,9 @@ the previous checkpoint. Truncated or corrupt files, and files of another
 format or version, raise `CheckpointError`.
 
 Loading decodes arrays to tensors on the card unless the caller asks for the
-CPU (`device="cpu"`). The reference's fault injection before a write
-(`faults.check("checkpoint_write")`) has no counterpart until its
-`testing/faults.py` is ported.
+CPU (`device="cpu"`). The `checkpoint_write` fault site
+(`repro_torch.testing.faults`) fires before any byte is written, as the
+reference's does: a write it stops leaves the file on disk as it was.
 """
 from __future__ import annotations
 
@@ -85,6 +85,9 @@ def _decode(obj, device: torch.device):
 
 
 def save_pytree(path: str, tree) -> None:
+    from repro_torch.testing import faults
+
+    faults.check("checkpoint_write")
     payload = _msgpack.packb(_encode(_host(tree)))
     framed = MAGIC + struct.pack(">I", zlib.crc32(payload) & 0xFFFFFFFF) + payload
     d = os.path.dirname(os.path.abspath(path))
@@ -184,8 +187,8 @@ def save_booster(path: str, bst, *, ensemble=None, n_rounds_trained=None,
     score + trees + training record; loading needs nothing else.
 
     The keyword overrides are the reference's, for in-run snapshots (the
-    partial ensemble, round count, history and a `resume` section); no code
-    of the port writes a `resume` section yet.
+    partial ensemble, round count, history and a `resume` section, which
+    `Booster._write_checkpoint` writes and `Booster.resume` reads).
 
     Objectives are stored BY REGISTRY NAME: a model trained with a custom
     objective round-trips iff that objective was added with

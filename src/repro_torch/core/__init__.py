@@ -5,7 +5,7 @@ from repro_torch.core.booster import Booster, BoosterConfig, TrainState
 from repro_torch.core.booster import predict_margins, train
 from repro_torch.core.booster import predict as predict_proba
 from repro_torch.core.convert import booster_from_numpy
-from repro_torch.core.dmatrix import DeviceDMatrix
+from repro_torch.core.dmatrix import DeviceDMatrix, ExternalDMatrix
 from repro_torch.core.metrics import Metric, get_metric, register_metric
 from repro_torch.core.objectives import (
     Objective,
@@ -30,6 +30,7 @@ __all__ = [
     "predict_proba",
     "predict_margins",
     "DeviceDMatrix",
+    "ExternalDMatrix",
     "booster_from_numpy",
     "Metric",
     "Objective",

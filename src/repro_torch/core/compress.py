@@ -60,11 +60,139 @@ def unpack(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
 @dataclass(frozen=True)
 class PackedBins:
     """The bit-packed matrix as the training representation: the tree grows
-    straight from these words, the dense (n, f) bins never exist."""
+    straight from these words, the dense (n, f) bins never exist.
+
+    It and `ChunkedPackedBins` answer the same three questions, so growth,
+    routing and traversal never ask which layout they read: `feature_bins`
+    (a row's bin of one feature), `histograms` (a level in full, the
+    privatised kernel) and `histograms_rows` (a compacted row buffer, the
+    row-id kernel)."""
 
     packed: torch.Tensor  # (n_features, n_words) int32 bit patterns
     bits: int
     n_rows: int
+
+    @property
+    def n_features(self) -> int:
+        return self.packed.shape[0]
+
+    def feature_bins(self, feat: torch.Tensor, row_ids: torch.Tensor | None = None):
+        """bins[row, feat[..., i]] of row i, or of row row_ids[i]."""
+        if row_ids is None:
+            return gather_feature_bins(self.packed, self.bits, feat)
+        return gather_feature_bins_rows(self.packed, self.bits, feat, row_ids)
+
+    def histograms(self, gh, positions, n_nodes: int, max_bins: int) -> torch.Tensor:
+        from repro_torch.core import histogram as H  # H's builders reach kernels.ops
+
+        return H.build_histograms_packed(self.packed, gh, positions, n_nodes, max_bins,
+                                         self.bits)
+
+    def histograms_rows(self, gh_sel, pos_sel, row_ids, n_nodes: int,
+                        max_bins: int) -> torch.Tensor:
+        from repro_torch.core import histogram as H
+
+        return H.build_histograms_packed_rows(self.packed, gh_sel, pos_sel, row_ids,
+                                              n_nodes, max_bins, self.bits)
+
+
+@dataclass(frozen=True)
+class ChunkedPackedBins:
+    """The chunk-stacked packed matrix: the external-memory training
+    representation (`ExternalDMatrix.packed_bins()`).
+
+    Each chunk of `chunk_rows` rows is packed on its own and the chunks are
+    stacked on a leading axis. Row r lives in chunk r // chunk_rows at
+    offset r % chunk_rows; each chunk is padded with zero words to
+    `words_per_chunk` = ceil(chunk_rows / spw), and the last chunk may be
+    logically short (`n_rows` bounds the real rows). Both histogram
+    kernels read the whole stack in one launch."""
+
+    packed: torch.Tensor  # (n_chunks, n_features, words_per_chunk) int32 bit patterns
+    bits: int
+    chunk_rows: int
+    n_rows: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.packed.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.packed.shape[1]
+
+    @property
+    def words_per_chunk(self) -> int:
+        return self.packed.shape[2]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.packed.shape[0] * self.chunk_rows
+
+    def feature_bins(self, feat: torch.Tensor, row_ids: torch.Tensor | None = None):
+        """bins[row, feat[..., i]] of row i, or of global row row_ids[i],
+        each read from its row's chunk."""
+        if row_ids is None:
+            row_ids = torch.arange(feat.shape[-1], dtype=torch.int64, device=feat.device)
+        return gather_feature_bins_chunked(self.packed, self.bits, self.chunk_rows, feat,
+                                           row_ids)
+
+    def histograms(self, gh, positions, n_nodes: int, max_bins: int) -> torch.Tensor:
+        from repro_torch.core import histogram as H
+
+        return H.build_histograms_chunked(self.packed, gh, positions, n_nodes, max_bins,
+                                          self.bits, self.chunk_rows, self.n_rows)
+
+    def histograms_rows(self, gh_sel, pos_sel, row_ids, n_nodes: int,
+                        max_bins: int) -> torch.Tensor:
+        from repro_torch.core import histogram as H
+
+        return H.build_histograms_chunked_rows(self.packed, gh_sel, pos_sel, row_ids,
+                                               n_nodes, max_bins, self.bits,
+                                               self.chunk_rows)
+
+
+def _chunk_word_index(bits: int, chunk_rows: int, n_chunks: int, row_ids: torch.Tensor):
+    """(chunk, word offset in the chunk, shift) of each global row id,
+    clipped into the padded range as the reference clips them."""
+    spw = symbols_per_word(bits)
+    r = torch.clamp(row_ids.to(torch.int64), 0, n_chunks * chunk_rows - 1)
+    c = r // chunk_rows
+    off = r % chunk_rows
+    return c, off // spw, (off % spw) * bits
+
+
+def gather_rows_chunked(packed: torch.Tensor, bits: int, chunk_rows: int,
+                        row_ids: torch.Tensor) -> torch.Tensor:
+    """All features' bins of a set of global row ids straight from the
+    chunk stack: (m,) row ids -> (m, n_features) int32, one word gather per
+    (row, feature). Out-of-range ids are clipped into the padded range, so
+    padding slots may carry a sentinel (their bins are garbage: route them
+    to a dump slot)."""
+    n_chunks, f, _ = packed.shape
+    c, w, shift = _chunk_word_index(bits, chunk_rows, n_chunks, row_ids)
+    fidx = torch.arange(f, dtype=torch.int64, device=packed.device)[None, :]
+    words = words_as_uint(packed[c[:, None], fidx, w[:, None]])  # (m, f)
+    return ((words >> shift[:, None]) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def gather_feature_bins_chunked(packed: torch.Tensor, bits: int, chunk_rows: int,
+                                feat: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+    """gather_feature_bins_rows over the chunk stack: bins[row_ids[i],
+    feat[..., i]], each global row id resolved to (chunk, offset) and one
+    word of its chunk gathered."""
+    c, w, shift = _chunk_word_index(bits, chunk_rows, packed.shape[0], row_ids)
+    word = words_as_uint(packed[c, feat.to(torch.int64), w])
+    return ((word >> shift) & ((1 << bits) - 1)).to(torch.int32)
+
+
+def unpack_chunked(packed: torch.Tensor, bits: int, chunk_rows: int,
+                   n_rows: int) -> torch.Tensor:
+    """The dense (n_rows, n_features) int32 bins of a chunk stack: each
+    chunk unpacked, the chunks' padding dropped."""
+    parts = [unpack(packed[i], bits, min(chunk_rows, n_rows - i * chunk_rows))
+             for i in range(packed.shape[0])]
+    return torch.cat(parts, dim=0)
 
 
 def gather_feature_bins(packed: torch.Tensor, bits: int, feat: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@ counterpart of `repro.core.histogram`.
 
 positions[i] is the level-local node index of row i (0..n_nodes-1), or
 `n_nodes` for rows that are inactive (already in a finished leaf); a
-negative position is inactive too.
+negative position is inactive too. The `*_chunked` builders read the
+external-memory chunk stack (`compress.ChunkedPackedBins`).
 """
 from __future__ import annotations
 
@@ -66,6 +67,48 @@ def build_histograms_packed_rows(
 
     return ops.histogram_rows(packed, gh_sel, pos_sel, row_ids, n_nodes,
                               max_bins, bits)
+
+
+def build_histograms_chunked(
+    packed: torch.Tensor,  # (n_chunks, f, words_per_chunk) int32 chunk stack
+    gh: torch.Tensor,  # (n, 2) float32
+    positions: torch.Tensor,  # (n,) int32 level-local node ids, n_nodes = inactive
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+    n_rows: int,
+) -> torch.Tensor:
+    """build_histograms_packed over the external-memory chunk stack: the
+    privatised kernel's chunked instantiation on a CUDA tensor (the whole
+    stack in one launch; chunk padding rows go to the dump slot), its plain
+    version on a CPU tensor, bit for bit the flat plain version on the same
+    rows."""
+    from repro_torch.kernels import ops  # lazy: ops imports kernels.ref -> here
+
+    if gh.shape[0] != n_rows:
+        raise ValueError(f"gh has {gh.shape[0]} rows, the matrix {n_rows}")
+    return ops.histogram_private_op(packed, gh, positions, n_nodes, max_bins, bits,
+                                    chunk_rows=chunk_rows)
+
+
+def build_histograms_chunked_rows(
+    packed: torch.Tensor,  # (n_chunks, f, words_per_chunk) int32 chunk stack
+    gh_sel: torch.Tensor,  # (m, 2) float32, gathered for the selected rows
+    pos_sel: torch.Tensor,  # (m,) int32 node ids, n_nodes = dump/padding slot
+    row_ids: torch.Tensor,  # (m,) int32 GLOBAL row ids (past the stack = padding)
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+) -> torch.Tensor:
+    """build_histograms_packed_rows over the chunk stack, each row's words
+    gathered from its own chunk: the row-id kernel's chunked instantiation
+    on a CUDA tensor (one launch), its plain version on a CPU tensor."""
+    from repro_torch.kernels import ops  # lazy: ops imports kernels.ref -> here
+
+    return ops.histogram_rows(packed, gh_sel, pos_sel, row_ids, n_nodes, max_bins,
+                              bits, chunk_rows=chunk_rows)
 
 
 def node_sums(hist: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,14 @@
 """RepartitionInstances (paper §2.3, Algorithm 1); counterpart of
-`repro.core.partition.update_positions`, `update_positions_packed` and
-`update_positions_packed_rows`.
+`repro.core.partition`. `update_positions` routes on dense bins,
+`update_positions_packed` on the flat words, and `update_positions_on`,
+which growth calls and which stands for the reference's
+`update_positions_packed_rows` and `update_positions_chunked(_rows)`, on
+either packed layout
+(`compress.PackedBins` or the external-memory chunk stack
+`compress.ChunkedPackedBins`), over all rows or a buffer's row ids. On the
+chunk stack it reads each row's bin by global row id; routing is
+elementwise, so it needs no pass over chunks and gives the flat routing's
+result.
 
 Arena indexing: complete binary tree, children of node k are 2k+1 / 2k+2.
 positions[i] = arena node id of row i, or -1 once the row rests in a leaf.
@@ -40,6 +48,7 @@ def update_positions(
                   lambda f: torch.gather(bins, 1, f[:, None].to(torch.int64))[:, 0])
 
 
+
 def update_positions_packed(
     packed: torch.Tensor,  # (f, n_words) int32 bit-packed bins
     positions: torch.Tensor,
@@ -56,19 +65,18 @@ def update_positions_packed(
                   lambda f: C.gather_feature_bins(packed, bits, f))
 
 
-def update_positions_packed_rows(
-    packed: torch.Tensor,  # (f, n_words) int32 bit-packed bins
-    positions: torch.Tensor,  # (m,) int32 arena node ids of the buffer's slots
+def update_positions_on(
+    bins: C.PackedBins | C.ChunkedPackedBins,
+    positions: torch.Tensor,  # (n,) or, with row_ids, (m,) int32 arena node ids
     split_mask: torch.Tensor,
     feature: torch.Tensor,
     split_bin: torch.Tensor,
     default_left: torch.Tensor,
     missing_bin: int,
-    bits: int,
-    row_ids: torch.Tensor,  # (m,) int row id of each buffer slot
+    row_ids: torch.Tensor | None = None,  # (m,) int row id of each buffer slot
 ) -> torch.Tensor:
-    """update_positions_packed over a sampled-row buffer: positions live in
-    buffer space, and each slot's split-feature bin is read through its
-    row id, so routing costs scale with the buffer, not n_rows."""
+    """update_positions_packed on either packed layout: each row's
+    (or, with `row_ids`, each buffer slot's) split-feature bin through
+    `bins.feature_bins`."""
     return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,
-                  lambda f: C.gather_feature_bins_rows(packed, bits, f, row_ids))
+                  lambda f: bins.feature_bins(f, row_ids))

@@ -1,11 +1,13 @@
 """Ensemble arena and bin-space prediction (paper §2.4); counterpart of
 `repro.core.predict`.
 
-`traverse_tree_packed` (packed words) and `traverse_tree_binned` (dense
-bins, `compress_matrix=False`) are the training margin update: one tree in
-bin space, all rows one level per step (plain torch gathers; the reference
-runs them in XLA too). They and `traverse_trees_packed`, which walks t
-trees at once (`serve/traversal.py`), share one walk (`_traverse`).
+`traverse_trees_on` (either packed layout: the flat words or the
+external-memory chunk stack) and `traverse_tree_binned` (dense bins,
+`compress_matrix=False`) are the training margin update: trees in bin
+space, all rows one level per step (plain torch gathers; the reference
+runs them in XLA too), sharing one walk (`_traverse`). Bin-space margins
+add each class's trees in tree order (`fold_classes`, `_sum_trees`), so a
+row's margin is the same whichever rows share the call.
 Raw-row prediction (`predict_raw`, and `serve/traversal.py`) goes through
 the ensemble-traversal kernel. `concat_ensembles`, `truncate_rounds` and
 `slice_rounds` cut and join models round by round, their packed nodes with
@@ -129,15 +131,28 @@ def traverse_tree_binned(
                      bins.shape[0], missing_bin, max_depth, lambda f: bins[row, f])[0]
 
 
+def traverse_trees_on(
+    bins: C.PackedBins | C.ChunkedPackedBins,
+    feature, split_bin, default_left, leaf_value, is_leaf,
+    missing_bin: int, max_depth: int,
+) -> torch.Tensor:
+    """Leaf outputs (t, n_rows) of t tree arenas (t, a) over either packed
+    layout, the flat words or the external-memory chunk stack: per level one
+    word gather per (tree, row) plus a shift/mask (`bins.feature_bins`); the
+    dense bins never exist. The walk is elementwise per row, so on the chunk
+    stack the leaves are the flat walk's."""
+    return _traverse(feature, split_bin, default_left, leaf_value, is_leaf, bins.n_rows,
+                     missing_bin, max_depth, bins.feature_bins)
+
+
 def traverse_trees_packed(
     feature, split_bin, default_left, leaf_value, is_leaf,
     packed: torch.Tensor, bits: int, n_rows: int, missing_bin: int, max_depth: int,
 ) -> torch.Tensor:
     """Leaf outputs (t, n_rows) of t tree arenas (t, a) over the packed
-    matrix: per level one word gather per (tree, row) plus a shift/mask; the
-    dense bins never exist."""
-    return _traverse(feature, split_bin, default_left, leaf_value, is_leaf, n_rows,
-                     missing_bin, max_depth, lambda f: C.gather_feature_bins(packed, bits, f))
+    matrix."""
+    return traverse_trees_on(C.PackedBins(packed, bits, n_rows), feature, split_bin,
+                             default_left, leaf_value, is_leaf, missing_bin, max_depth)
 
 
 def traverse_tree_packed(
@@ -151,10 +166,27 @@ def traverse_tree_packed(
 
 
 def fold_classes(leaves: torch.Tensor, ens: Ensemble) -> torch.Tensor:
-    """(n_trees, n_rows) leaf outputs -> (n_rows, n_classes) margins."""
+    """(n_trees, n_rows) leaf outputs -> (n_rows, n_classes) margins. Each
+    class adds its trees' leaves one after another in tree order, as each
+    thread of the traversal kernel does (`kernels.ref.ensemble_margins_ref`):
+    with the order fixed, a row's margin does not depend on which other rows
+    share the call, so chunk by chunk gives the whole matrix's margins."""
     k = ens.n_classes
-    per_class = leaves.reshape(-1, k, leaves.shape[1]).sum(dim=0)
-    return per_class.t() + ens.base_score
+    acc = torch.zeros((k, leaves.shape[1]), dtype=leaves.dtype, device=leaves.device)
+    for r in range(leaves.shape[0] // k):
+        acc = acc + leaves[r * k:(r + 1) * k]
+    return acc.t() + ens.base_score
+
+
+def _sum_trees(ens: Ensemble, n_rows: int, leaves_of) -> torch.Tensor:
+    """fold_classes of the leaves `leaves_of(t)` (n_rows,) of each tree t,
+    added as each tree is walked: one tree's leaves at a time, never the
+    (n_trees, n_rows) matrix."""
+    k = ens.n_classes
+    acc = torch.zeros((k, n_rows), dtype=torch.float32, device=ens.feature.device)
+    for t in range(ens.n_trees):
+        acc[t % k] += leaves_of(t)
+    return acc.t() + ens.base_score
 
 
 def predict_raw(ens: Ensemble, x: torch.Tensor, max_depth: int) -> torch.Tensor:
@@ -170,22 +202,22 @@ def predict_raw(ens: Ensemble, x: torch.Tensor, max_depth: int) -> torch.Tensor:
 def predict_binned(ens: Ensemble, bins: torch.Tensor, missing_bin: int,
                    max_depth: int) -> torch.Tensor:
     """Margins (n_rows, n_classes) from the dense quantised matrix."""
-    leaves = torch.stack([
-        traverse_tree_binned(ens.feature[t], ens.split_bin[t], ens.default_left[t],
-                             ens.leaf_value[t], ens.is_leaf[t], bins, missing_bin,
-                             max_depth)
-        for t in range(ens.n_trees)
-    ])
-    return fold_classes(leaves, ens)
+    return _sum_trees(ens, bins.shape[0], lambda t: traverse_tree_binned(
+        ens.feature[t], ens.split_bin[t], ens.default_left[t], ens.leaf_value[t],
+        ens.is_leaf[t], bins, missing_bin, max_depth))
+
+
+def predict_binned_on(ens: Ensemble, bins: C.PackedBins | C.ChunkedPackedBins,
+                      missing_bin: int, max_depth: int) -> torch.Tensor:
+    """Margins (n_rows, n_classes) from either packed layout (the
+    reference's `predict_binned_packed` and `predict_binned_chunked`)."""
+    return _sum_trees(ens, bins.n_rows, lambda t: traverse_trees_on(
+        bins, ens.feature[t:t + 1], ens.split_bin[t:t + 1], ens.default_left[t:t + 1],
+        ens.leaf_value[t:t + 1], ens.is_leaf[t:t + 1], missing_bin, max_depth)[0])
 
 
 def predict_binned_packed(ens: Ensemble, packed: torch.Tensor, bits: int,
                           n_rows: int, missing_bin: int, max_depth: int) -> torch.Tensor:
     """Margins (n_rows, n_classes) from the packed quantised matrix."""
-    leaves = torch.stack([
-        traverse_tree_packed(ens.feature[t], ens.split_bin[t], ens.default_left[t],
-                             ens.leaf_value[t], ens.is_leaf[t], packed, bits,
-                             n_rows, missing_bin, max_depth)
-        for t in range(ens.n_trees)
-    ])
-    return fold_classes(leaves, ens)
+    return predict_binned_on(ens, C.PackedBins(packed, bits, n_rows), missing_bin,
+                             max_depth)

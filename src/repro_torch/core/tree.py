@@ -1,6 +1,9 @@
 """Decision tree construction (paper §2.3, Algorithm 1); counterpart of
 `repro.core.tree` for single-device growth on the packed matrix
-(`PackedBins`) or on dense (n, f) int32 bins (`compress_matrix=False`).
+(`PackedBins`), on the external-memory chunk stack (`ChunkedPackedBins`:
+both histogram kernels read the whole stack in one launch a level, and
+routing reads each row's word from its chunk) or on dense (n, f) int32
+bins (`compress_matrix=False`).
 
 The tree grows level-synchronously into a fixed arena of 2^(max_depth+1) - 1
 node slots. Every level: one histogram over all its nodes, split evaluation
@@ -69,7 +72,7 @@ def level_offset(level: int) -> int:
 
 
 def grow_tree(
-    bins: C.PackedBins | torch.Tensor,
+    bins: C.PackedBins | C.ChunkedPackedBins | torch.Tensor,
     gh: torch.Tensor,  # (n, 2) float32
     cuts: torch.Tensor,  # (f, n_cuts) float32
     max_depth: int,
@@ -80,18 +83,27 @@ def grow_tree(
     hist_builder=None,  # optional builder (kernels.ops), every level in full
     ctx: SMP.TreeContext | None = None,  # sampling and constraints
 ) -> Tree:
-    """Grow one tree from the packed matrix or the dense (n, f) bins and
-    the rows' (g, h) pairs (with `ctx.row_ids` set: the sampled buffer's).
-    `hist_builder(bins, gh, positions, n_nodes, max_bins)` receives the
-    matrix as given."""
+    """Grow one tree from the packed matrix, the chunk stack or the dense
+    (n, f) bins and the rows' (g, h) pairs (with `ctx.row_ids` set: the
+    sampled buffer's). `hist_builder(bins, gh, positions, n_nodes,
+    max_bins)` receives the matrix as given; it is refused on the chunk
+    stack, as the reference refuses it."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
-    packed_mode = isinstance(bins, C.PackedBins)
+    # Either packed layout (the flat words or the chunk stack) answers the
+    # same calls; only dense bins take other paths.
+    packed_mode = isinstance(bins, (C.PackedBins, C.ChunkedPackedBins))
     if not packed_mode and not (isinstance(bins, torch.Tensor) and bins.ndim == 2):
-        raise TypeError("grow_tree takes the packed matrix (compress.PackedBins) "
-                        "or dense (n, f) bins")
+        raise TypeError("grow_tree takes the packed matrix (compress.PackedBins), "
+                        "the chunk stack (compress.ChunkedPackedBins) or dense "
+                        "(n, f) bins")
+    if isinstance(bins, C.ChunkedPackedBins) and hist_builder is not None:
+        raise NotImplementedError(
+            "custom/kernel hist builders are not chunk-aware; use the "
+            "default builders for external-memory training"
+        )
     dev = gh.device
-    n, f = (bins.n_rows, bins.packed.shape[0]) if packed_mode else bins.shape
+    n, f = (bins.n_rows, bins.n_features) if packed_mode else bins.shape
     na = arena_size(max_depth)
     missing_bin = max_bins - 1
 
@@ -146,11 +158,9 @@ def grow_tree(
         if hist_builder is not None:
             hist = hist_builder(bins, gh, local, n_nodes, max_bins)
         elif level == 0 and row_ids is not None:
-            hist = H.build_histograms_packed_rows(bins.packed, gh, local, row_ids,
-                                                  n_nodes, max_bins, bins.bits)
+            hist = bins.histograms_rows(gh, local, row_ids, n_nodes, max_bins)
         elif level == 0 and packed_mode:
-            hist = H.build_histograms_packed(bins.packed, gh, local, n_nodes,
-                                             max_bins, bins.bits)
+            hist = bins.histograms(gh, local, n_nodes, max_bins)
         elif level == 0:
             hist = H.build_histograms(bins, gh, local, n_nodes, max_bins)
         else:
@@ -221,16 +231,10 @@ def grow_tree(
         # --- RepartitionInstances ------------------------------------------
         split_mask = torch.zeros(na, dtype=torch.bool, device=dev)
         split_mask[lvl] = will_split
-        if row_ids is not None:
-            positions = P.update_positions_packed_rows(
-                bins.packed, positions, split_mask, feature, split_bin,
-                default_left, missing_bin, bins.bits, row_ids,
-            )
-        elif packed_mode:
-            positions = P.update_positions_packed(
-                bins.packed, positions, split_mask, feature, split_bin,
-                default_left, missing_bin, bins.bits,
-            )
+        if packed_mode:
+            positions = P.update_positions_on(bins, positions, split_mask, feature,
+                                              split_bin, default_left, missing_bin,
+                                              row_ids=row_ids)
         else:
             positions = P.update_positions(bins, positions, split_mask, feature,
                                            split_bin, default_left, missing_bin)
@@ -253,7 +257,7 @@ def grow_tree(
 
 
 def _histograms_by_subtraction(
-    bins: C.PackedBins | torch.Tensor,
+    bins: C.PackedBins | C.ChunkedPackedBins | torch.Tensor,
     gh: torch.Tensor,  # (n, 2)
     local: torch.Tensor,  # (n,) int32 level-local child index, n_nodes = inactive
     hist_prev: torch.Tensor,  # (n_nodes/2, f, max_bins, 2) parents' full hist
@@ -310,13 +314,12 @@ def _histograms_by_subtraction(
     # Padding slots carry row id n (with `row_ids`, the matrix's n_rows);
     # their position is the dump slot, so they contribute nothing (and their
     # packed words are not read).
-    if isinstance(bins, C.PackedBins):
+    if not isinstance(bins, torch.Tensor):  # either packed layout
         if row_ids is not None:
             buf = torch.cat([row_ids.to(torch.int64),
                              torch.full((1,), bins.n_rows, dtype=torch.int64,
                                         device=dev)])[buf]
-        hist_small = H.build_histograms_packed_rows(
-            bins.packed, gh_c, pos_c, buf, n_par, max_bins, bins.bits)
+        hist_small = bins.histograms_rows(gh_c, pos_c, buf, n_par, max_bins)
     else:
         hist_small = H.build_histograms(bins[torch.clamp(buf, max=n - 1)], gh_c, pos_c,
                                         n_par, max_bins)

@@ -92,6 +92,19 @@
 // private copy and no flush.
 //
 // Float order is therefore not fixed from run to run, in all three kernels.
+//
+// The chunk stack (external memory, src/repro/core/compress.py ::
+// ChunkedPackedBins): the two private kernels have a chunked instantiation
+// (template flag kChunked) that reads the words of an (n_chunks,
+// n_features, words_per_chunk) stack, chunk c holding rows c * chunk_rows
+// .. c * chunk_rows + chunk_rows - 1, each chunk padded with zero words.
+// Row r's word of feature f is ((r / chunk_rows) * n_features + f) *
+// words_per_chunk + (r % chunk_rows) / SPW. The privatised kernel walks the
+// stack's n_chunks * words_per_chunk words as one range, and a chunk's
+// padding symbols (offset >= chunk_rows) and the rows past n_rows of a
+// short last chunk go to the dump slot: the whole stack is read in one
+// launch, never one a chunk. The flat instantiation is the body above,
+// unchanged (its kChunked branches fold away at compile time).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -182,14 +195,18 @@ __device__ __forceinline__ void flush_private(const float* hist, float* out,
 // blocks on an SM than the plan's shared memory does; more symbols a word
 // need more registers than that without spilling, and take what they need
 // (MIN_BLOCKS 1).
-template <int SPW, int MIN_BLOCKS>
+//
+// kChunked: `packed` is the chunk stack and n_words its n_chunks *
+// words_per_chunk words, walked as one range.
+template <int SPW, int MIN_BLOCKS, bool kChunked>
 __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
-    const uint32_t* __restrict__ packed,  // (n_features, n_words)
+    const uint32_t* __restrict__ packed,  // (n_features, n_words) or the stack
     const float2* __restrict__ gh,        // (n_rows,) (g, h)
     const int* __restrict__ pos,          // (n_rows,) node, n_nodes = inactive
     float* __restrict__ out,              // (n_nodes, n_features, max_bins, 2)
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
-    int bits, int node_tile, int feat_group, int words_per_block) {
+    int bits, int node_tile, int feat_group, int words_per_block,
+    int chunk_rows, int words_per_chunk) {
   extern __shared__ float hist[];  // [fl][node - n0][bin][2]
   const int f0 = blockIdx.y * feat_group;
   const int nf = min(feat_group, n_features - f0);
@@ -207,10 +224,22 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
     int node[SPW];
     float2 v[SPW];
     bool any = false;
+    // Chunked: the word's chunk, its first row, the end of the chunk's real
+    // rows and the word of feature 0.
+    long long row0 = 0, row_end = 0;
+    const uint32_t* wp = packed;
+    if constexpr (kChunked) {
+      const long long c = w / words_per_chunk;
+      const long long lw = w - c * words_per_chunk;
+      row0 = c * chunk_rows + lw * SPW;
+      row_end = min((long long)n_rows, (c + 1) * chunk_rows);
+      wp = packed + c * n_features * words_per_chunk + lw;
+    }
 #pragma unroll
     for (int j = 0; j < SPW; ++j) {
-      const long long row = w * SPW + j;
-      const int p = (w < w_end && row < n_rows) ? __ldg(pos + row) - n0 : -1;
+      const long long row = kChunked ? row0 + j : w * SPW + j;
+      const int p = (w < w_end && row < (kChunked ? row_end : n_rows))
+                        ? __ldg(pos + row) - n0 : -1;
       node[j] = (p >= 0 && p < nn) ? p : -1;
       v[j] = make_float2(0.f, 0.f);
       if (node[j] >= 0) {
@@ -230,7 +259,10 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
       same |= (unsigned long long)(node[j] >= 0 && b == node[j]) << (SPW + j);
     }
     for (int fl = 0; fl < nf; ++fl) {
-      const uint32_t word = any ? __ldg(packed + (long long)(f0 + fl) * n_words + w) : 0u;
+      const uint32_t word =
+          !any ? 0u
+          : kChunked ? __ldg(wp + (long long)(f0 + fl) * words_per_chunk)
+                     : __ldg(packed + (long long)(f0 + fl) * n_words + w);
       // Bits where the neighbours' words differ from this lane's.
       const uint32_t d1 = word ^ __shfl_xor_sync(kFullWarp, word, 1);
       const uint32_t d2 = word ^ __shfl_xor_sync(kFullWarp, word, 2);
@@ -263,15 +295,20 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
 // 512 threads a block and at most 32 registers a thread, so that four
 // blocks fit an SM's 65,536 registers where the plan's shared memory allows
 // four.
-template <int SPW>
+//
+// kChunked: `packed` is the chunk stack, n_words its n_chunks *
+// words_per_chunk words, and a row id is global: a slot reads the words of
+// its row's chunk, and a row id past the stack's padded rows reads nothing.
+template <int SPW, bool kChunked>
 __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
-    const uint32_t* __restrict__ packed,  // (n_features, n_words)
+    const uint32_t* __restrict__ packed,  // (n_features, n_words) or the stack
     const float2* __restrict__ gh,        // (n_slots,) (g, h) of each slot
     const int* __restrict__ pos,          // (n_slots,) node, n_nodes = dump
     const int* __restrict__ rid,          // (n_slots,) row id of each slot
     float* __restrict__ out,              // (n_nodes, n_features, max_bins, 2)
     int n_slots, int n_features, int n_words, int n_nodes, int max_bins,
-    int bits, int node_tile, int feat_group, int slots_per_block) {
+    int bits, int node_tile, int feat_group, int slots_per_block,
+    int chunk_rows, int words_per_chunk) {
   extern __shared__ float hist[];  // [fl][node - n0][bin][2]
   const int f0 = blockIdx.y * feat_group;
   const int nf = min(feat_group, n_features - f0);
@@ -282,7 +319,9 @@ __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
 
   const uint32_t mask = symbol_mask(bits);
   const int missing = max_bins - 1;
-  const long long n_symbols = (long long)n_words * SPW;
+  const long long n_symbols =
+      kChunked ? (long long)(n_words / words_per_chunk) * chunk_rows
+               : (long long)n_words * SPW;
   const long long s_begin = (long long)blockIdx.x * slots_per_block;
   const long long s_end = min(s_begin + slots_per_block, (long long)n_slots);
   // The warp steps through its slots together: the votes and the match
@@ -296,16 +335,25 @@ __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
     if (!__any_sync(kFullWarp, p >= 0)) continue;
     float2 v = make_float2(0.f, 0.f);
     if (p >= 0) v = __ldg(gh + s);
-    const int w = r / SPW;
-    const int shift = (r - w * SPW) * bits;
+    // Chunked: the row's chunk and its offset there; the word of feature 0.
+    const uint32_t* wp = packed;
+    int off = r;
+    if constexpr (kChunked) {
+      const int c = r / chunk_rows;
+      off = r - c * chunk_rows;
+      wp = packed + (long long)c * n_features * words_per_chunk;
+    }
+    const int w = kChunked ? off / SPW : r / SPW;
+    const int shift = ((kChunked ? off : r) - w * SPW) * bits;
     const int base = p * max_bins;
     for (int fl0 = 0; fl0 < nf; fl0 += kRowsUnroll) {
       uint32_t word[kRowsUnroll];
 #pragma unroll
       for (int u = 0; u < kRowsUnroll; ++u)
-        word[u] = (p >= 0 && fl0 + u < nf)
-                      ? __ldg(packed + (long long)(f0 + fl0 + u) * n_words + w)
-                      : 0u;
+        word[u] = !(p >= 0 && fl0 + u < nf) ? 0u
+                  : kChunked
+                      ? __ldg(wp + (long long)(f0 + fl0 + u) * words_per_chunk + w)
+                      : __ldg(packed + (long long)(f0 + fl0 + u) * n_words + w);
 #pragma unroll
       for (int u = 0; u < kRowsUnroll; ++u) {
         if (fl0 + u >= nf) break;
@@ -398,29 +446,32 @@ cudaError_t private_launch_shape(Kernel kernel, int n_items, int n_features,
 
 using PrivateKernel = void (*)(const uint32_t*, const float2*, const int*,
                                float*, int, int, int, int, int, int, int, int,
-                               int);
+                               int, int, int);
 
 // The privatised kernel's instance for a plan of `blocks_per_sm` blocks.
-template <int SPW>
+template <int SPW, bool kChunked = false>
 PrivateKernel private_kernel(int blocks_per_sm) {
   if constexpr (SPW > 4) {
-    return histogram_private_kernel<SPW, 1>;
+    return histogram_private_kernel<SPW, 1, kChunked>;
   } else {
-    return blocks_per_sm >= 4   ? histogram_private_kernel<SPW, 4>
-           : blocks_per_sm == 3 ? histogram_private_kernel<SPW, 3>
-                                : histogram_private_kernel<SPW, 2>;
+    return blocks_per_sm >= 4   ? histogram_private_kernel<SPW, 4, kChunked>
+           : blocks_per_sm == 3 ? histogram_private_kernel<SPW, 3, kChunked>
+                                : histogram_private_kernel<SPW, 2, kChunked>;
   }
 }
 
-template <int SPW>
+// chunk_rows and words_per_chunk are those of the chunk stack (kChunked),
+// 0 for the flat words.
+template <int SPW, bool kChunked>
 cudaError_t launch_private(const void* packed, const void* gh, const void* pos,
                            void* out, int n_rows, int n_features, int n_words,
                            int n_nodes, int max_bins, int bits, int node_tile,
                            int feat_group, int words_per_block,
-                           int blocks_per_sm, int threads, cudaStream_t stream) {
+                           int blocks_per_sm, int threads, int chunk_rows,
+                           int words_per_chunk, cudaStream_t stream) {
   dim3 grid;
   size_t smem;
-  const PrivateKernel kernel = private_kernel<SPW>(blocks_per_sm);
+  const PrivateKernel kernel = private_kernel<SPW, kChunked>(blocks_per_sm);
   cudaError_t err = private_launch_shape(
       kernel, n_words, n_features, n_nodes, max_bins, node_tile, feat_group,
       words_per_block, &grid, &smem);
@@ -428,26 +479,28 @@ cudaError_t launch_private(const void* packed, const void* gh, const void* pos,
   kernel<<<grid, threads, smem, stream>>>(
       (const uint32_t*)packed, (const float2*)gh, (const int*)pos, (float*)out,
       n_rows, n_features, n_words, n_nodes, max_bins, bits, node_tile,
-      feat_group, words_per_block);
+      feat_group, words_per_block, chunk_rows, words_per_chunk);
   return cudaGetLastError();
 }
 
-template <int SPW>
+template <int SPW, bool kChunked>
 cudaError_t launch_rows(const void* packed, const void* gh, const void* pos,
                         const void* rid, void* out, int n_slots,
                         int n_features, int n_words, int n_nodes, int max_bins,
                         int bits, int node_tile, int feat_group,
-                        int slots_per_block, int threads, cudaStream_t stream) {
+                        int slots_per_block, int threads, int chunk_rows,
+                        int words_per_chunk, cudaStream_t stream) {
   dim3 grid;
   size_t smem;
   cudaError_t err = private_launch_shape(
-      histogram_rows_kernel<SPW>, n_slots, n_features, n_nodes, max_bins,
-      node_tile, feat_group, slots_per_block, &grid, &smem);
+      histogram_rows_kernel<SPW, kChunked>, n_slots, n_features, n_nodes,
+      max_bins, node_tile, feat_group, slots_per_block, &grid, &smem);
   if (err != cudaSuccess) return err;
-  histogram_rows_kernel<SPW><<<grid, threads, smem, stream>>>(
+  histogram_rows_kernel<SPW, kChunked><<<grid, threads, smem, stream>>>(
       (const uint32_t*)packed, (const float2*)gh, (const int*)pos,
       (const int*)rid, (float*)out, n_slots, n_features, n_words, n_nodes,
-      max_bins, bits, node_tile, feat_group, slots_per_block);
+      max_bins, bits, node_tile, feat_group, slots_per_block, chunk_rows,
+      words_per_chunk);
   return cudaGetLastError();
 }
 
@@ -482,16 +535,32 @@ cudaError_t launch_global(const void* packed, const void* gh, const void* pos,
     default: return (int)cudaErrorInvalidValue; \
   }
 
+// chunk_rows == 0: the flat (n_features, n_words) words. chunk_rows > 0: the
+// chunk stack of n_words = n_chunks * words_per_chunk words a feature row,
+// read by the kernel's chunked instantiation in one launch.
+#define RT_CHUNK_SWITCH(LAUNCH, S, ...)                                     \
+  (chunk_rows == 0 ? LAUNCH<S, false>(__VA_ARGS__, 0, 0, (cudaStream_t)stream) \
+                   : LAUNCH<S, true>(__VA_ARGS__, chunk_rows, words_per_chunk, \
+                                     (cudaStream_t)stream))
+
+// The chunk stack's shape, when there is one, is whole.
+static bool chunk_args_ok(int n_words, int chunk_rows, int words_per_chunk) {
+  return chunk_rows == 0 || (chunk_rows > 0 && words_per_chunk > 0 &&
+                             n_words % words_per_chunk == 0);
+}
+
 extern "C" int rt_histogram_private(
     const void* packed, const void* gh, const void* pos, void* out,
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
     int bits, int node_tile, int feat_group, int words_per_block,
-    int blocks_per_sm, int threads, void* stream) {
+    int blocks_per_sm, int threads, int chunk_rows, int words_per_chunk,
+    void* stream) {
+  if (!chunk_args_ok(n_words, chunk_rows, words_per_chunk))
+    return (int)cudaErrorInvalidValue;
 #define RT_CALL(S)                                                          \
-  launch_private<S>(packed, gh, pos, out, n_rows, n_features, n_words,      \
-                    n_nodes, max_bins, bits, node_tile, feat_group,         \
-                    words_per_block, blocks_per_sm, threads,                \
-                    (cudaStream_t)stream)
+  RT_CHUNK_SWITCH(launch_private, S, packed, gh, pos, out, n_rows,          \
+                  n_features, n_words, n_nodes, max_bins, bits, node_tile,  \
+                  feat_group, words_per_block, blocks_per_sm, threads)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }
@@ -500,11 +569,14 @@ extern "C" int rt_histogram_rows(
     const void* packed, const void* gh, const void* pos, const void* rid,
     void* out, int n_slots, int n_features, int n_words, int n_nodes,
     int max_bins, int bits, int node_tile, int feat_group,
-    int slots_per_block, int threads, void* stream) {
+    int slots_per_block, int threads, int chunk_rows, int words_per_chunk,
+    void* stream) {
+  if (!chunk_args_ok(n_words, chunk_rows, words_per_chunk))
+    return (int)cudaErrorInvalidValue;
 #define RT_CALL(S)                                                          \
-  launch_rows<S>(packed, gh, pos, rid, out, n_slots, n_features, n_words,   \
-                 n_nodes, max_bins, bits, node_tile, feat_group,            \
-                 slots_per_block, threads, (cudaStream_t)stream)
+  RT_CHUNK_SWITCH(launch_rows, S, packed, gh, pos, rid, out, n_slots,       \
+                  n_features, n_words, n_nodes, max_bins, bits, node_tile,  \
+                  feat_group, slots_per_block, threads)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }
@@ -527,7 +599,7 @@ template <int SPW>
 cudaError_t occupancy(int kernel, int threads, int smem, int plan_blocks,
                       int* blocks) {
   const void* fn = kernel == 0   ? (const void*)private_kernel<SPW>(plan_blocks)
-                   : kernel == 1 ? (const void*)histogram_rows_kernel<SPW>
+                   : kernel == 1 ? (const void*)histogram_rows_kernel<SPW, false>
                                  : (const void*)histogram_global_kernel<SPW>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -547,6 +619,7 @@ extern "C" int rt_histogram_occupancy(int kernel, int bits, int threads,
 }
 
 #undef RT_SPW_SWITCH
+#undef RT_CHUNK_SWITCH
 
 // Limits of `device`: [opt-in shared memory bytes per block, shared memory
 // bytes per SM, bytes the system reserves for each block, threads per SM].

@@ -20,7 +20,14 @@ All three compute the contract of `repro.core.histogram` (packed words,
   8-byte atomic, each warp starting at its own feature.
 
 Both private kernels take their grid from `launch_plan`, each with its own
-target of resident blocks per SM.
+target of resident blocks per SM. Given `chunk_rows`, both read the
+external-memory chunk stack instead of the flat words: `packed` is then
+(n_chunks, F, words_per_chunk), row r's words are chunk r // chunk_rows's
+at offset r % chunk_rows, a chunk's padding rows (and the rows past the
+real ones of a short last chunk) add nothing, and the whole stack is read
+in one launch (the kernels' chunked instantiation, `kChunked`). The plan
+sizes the privatised kernel's grid over the stack's n_chunks *
+words_per_chunk words as it sizes it over flat words.
 
 Float summation order is that of the atomics, not fixed from run to run.
 """
@@ -90,10 +97,16 @@ def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
 
 
 def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
-                  n_nodes: int, bits: int) -> torch.Tensor:
+                  n_nodes: int, bits: int, chunk_rows: int | None = None) -> torch.Tensor:
     """Argument checks shared by the three wrappers; returns gh 8-byte
-    aligned, since the kernels read each (g, h) as one float2."""
-    B.expect(packed, "packed", torch.int32, 2)
+    aligned, since the kernels read each (g, h) as one float2. With
+    `chunk_rows`, packed is a chunk stack whose chunks hold chunk_rows rows."""
+    B.expect(packed, "packed", torch.int32, 2 if chunk_rows is None else 3)
+    if chunk_rows is not None and not (
+            chunk_rows > 0 and packed.shape[2] == -(-chunk_rows // (32 // bits))):
+        raise ValueError(f"a chunk of {chunk_rows} rows of {bits}-bit symbols "
+                         f"takes {-(-chunk_rows // (32 // bits))} words, the "
+                         f"stack has {packed.shape[2]}")
     B.expect(gh, "gh", torch.float32, 2)
     B.expect(positions, "positions", torch.int32, 1)
     if gh.shape[1] != 2 or positions.shape[0] != gh.shape[0]:
@@ -106,21 +119,40 @@ def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tenso
     return gh.clone() if gh.data_ptr() % 8 else gh
 
 
+def _words(packed: torch.Tensor, chunk_rows: int | None) -> tuple[int, int, int]:
+    """(features, words a feature row, rows the words hold) of the flat
+    words or of the chunk stack, whose chunks' words the kernels walk as one
+    range of n_chunks * words_per_chunk."""
+    if chunk_rows is None:
+        f, w = packed.shape
+        return f, w, None
+    n_chunks, f, wpc = packed.shape
+    return f, n_chunks * wpc, n_chunks * chunk_rows
+
+
+def _chunk_args(packed: torch.Tensor, chunk_rows: int | None) -> tuple[int, int]:
+    """(chunk_rows, words_per_chunk) for the C entry points: (0, 0) for the
+    flat words, which selects the kernels' flat instantiation."""
+    return (0, 0) if chunk_rows is None else (chunk_rows, packed.shape[2])
+
+
 def build_histograms_packed_kernel(
-    packed: torch.Tensor,  # (F, W) int32 words
+    packed: torch.Tensor,  # (F, W) int32 words, or (n_chunks, F, words_per_chunk)
     gh: torch.Tensor,  # (N, 2) float32
     positions: torch.Tensor,  # (N,) int32, n_nodes (or -1) = inactive
     n_nodes: int,
     max_bins: int,
     bits: int,
+    chunk_rows: int | None = None,  # given: packed is the chunk stack
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 on the card, through
-    privatised shared-memory histograms."""
-    gh = _check_inputs(packed, gh, positions, n_nodes, bits)
-    f, w = packed.shape
+    privatised shared-memory histograms; over the chunk stack in one launch
+    when `chunk_rows` is given."""
+    gh = _check_inputs(packed, gh, positions, n_nodes, bits, chunk_rows)
+    f, w, held = _words(packed, chunk_rows)
     n = gh.shape[0]
-    if w * (32 // bits) < n:
-        raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
+    if (w * (32 // bits) if held is None else held) < n:
+        raise ValueError(f"the packed words hold fewer than {n} rows")
     dev = packed.device
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
     if w == 0 or f == 0:
@@ -130,7 +162,8 @@ def build_histograms_packed_kernel(
     err = B.lib().rt_histogram_private(
         packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
         n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
-        plan.words_per_block, plan.blocks_per_sm, THREADS, B.stream(dev),
+        plan.words_per_block, plan.blocks_per_sm, THREADS, *_chunk_args(packed, chunk_rows),
+        B.stream(dev),
     )
     B.check(err, "histogram_private")
     build_histograms_packed_kernel.launches += 1
@@ -138,23 +171,25 @@ def build_histograms_packed_kernel(
 
 
 def build_histograms_rows_kernel(
-    packed: torch.Tensor,  # (F, W) int32 words
+    packed: torch.Tensor,  # (F, W) int32 words, or (n_chunks, F, words_per_chunk)
     gh_sel: torch.Tensor,  # (m, 2) float32, (g, h) of each slot's row
     pos_sel: torch.Tensor,  # (m,) int32 node of each slot, n_nodes = dump
-    row_ids: torch.Tensor,  # (m,) int32 row of each slot, >= W * spw = padding
+    row_ids: torch.Tensor,  # (m,) int32 row of each slot, past the words = padding
     n_nodes: int,
     max_bins: int,
     bits: int,
+    chunk_rows: int | None = None,  # given: packed is the chunk stack
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 of the rows in a compacted
     buffer. A slot at the dump position, or whose row id lies outside the
-    packed words, contributes nothing and its row is never read."""
-    gh_sel = _check_inputs(packed, gh_sel, pos_sel, n_nodes, bits)
+    packed words (the stack's n_chunks * chunk_rows rows when `chunk_rows`
+    is given), contributes nothing and its row is never read."""
+    gh_sel = _check_inputs(packed, gh_sel, pos_sel, n_nodes, bits, chunk_rows)
     B.expect(row_ids, "row_ids", torch.int32, 1)
     if row_ids.shape[0] != pos_sel.shape[0]:
         raise ValueError(f"row_ids must be (m,) like pos_sel, got "
                          f"{tuple(row_ids.shape)} and {tuple(pos_sel.shape)}")
-    f, w = packed.shape
+    f, w, _ = _words(packed, chunk_rows)
     m = pos_sel.shape[0]
     dev = packed.device
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
@@ -165,7 +200,7 @@ def build_histograms_rows_kernel(
         packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
         row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
         plan.node_tile, plan.feat_group, plan.words_per_block, THREADS,
-        B.stream(dev),
+        *_chunk_args(packed, chunk_rows), B.stream(dev),
     )
     B.check(err, "histogram_rows")
     build_histograms_rows_kernel.launches += 1

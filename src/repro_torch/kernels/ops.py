@@ -61,13 +61,18 @@ def histogram_packed_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch
 
 
 def histogram_private_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
-                         n_nodes: int, max_bins: int, bits: int) -> torch.Tensor:
+                         n_nodes: int, max_bins: int, bits: int,
+                         chunk_rows: int | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram from packed words through the
-    privatised kernel."""
+    privatised kernel; with `chunk_rows`, from the (n_chunks, F,
+    words_per_chunk) chunk stack, in one launch."""
     if packed.is_cuda:
         return build_histograms_packed_kernel(
-            packed, gh.contiguous(), positions.to(torch.int32).contiguous(),
-            n_nodes, max_bins, bits)
+            packed.contiguous(), gh.contiguous(), positions.to(torch.int32).contiguous(),
+            n_nodes, max_bins, bits, chunk_rows)
+    if chunk_rows is not None:
+        return R.histogram_chunked_ref(packed, gh, positions, n_nodes, max_bins, bits,
+                                       chunk_rows)
     return R.histogram_ref(packed, gh, positions, n_nodes, max_bins, bits)
 
 
@@ -92,12 +97,16 @@ def build_histograms_kernel(bins: torch.Tensor, gh: torch.Tensor, positions: tor
 
 def histogram_rows(packed: torch.Tensor, gh_sel: torch.Tensor, pos_sel: torch.Tensor,
                    row_ids: torch.Tensor, n_nodes: int, max_bins: int,
-                   bits: int) -> torch.Tensor:
-    """(n_nodes, F, max_bins, 2) histogram of a compacted row buffer."""
+                   bits: int, chunk_rows: int | None = None) -> torch.Tensor:
+    """(n_nodes, F, max_bins, 2) histogram of a compacted row buffer; with
+    `chunk_rows`, over the chunk stack (global row ids), in one launch."""
     if packed.is_cuda:
         return build_histograms_rows_kernel(
-            packed, gh_sel.contiguous(), pos_sel.to(torch.int32).contiguous(),
-            row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits)
+            packed.contiguous(), gh_sel.contiguous(), pos_sel.to(torch.int32).contiguous(),
+            row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits, chunk_rows)
+    if chunk_rows is not None:
+        return R.histogram_rows_chunked_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
+                                            max_bins, bits, chunk_rows)
     return R.histogram_rows_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
                                 max_bins, bits)
 

@@ -13,7 +13,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import histogram as H
-from repro_torch.core.compress import symbols_per_word, unpack, words_as_uint
+from repro_torch.core.compress import (
+    gather_rows_chunked,
+    symbols_per_word,
+    unpack,
+    unpack_chunked,
+    words_as_uint,
+)
 
 # Plain version of the decompress kernel: (F, W) words -> (n_rows, F) int32.
 decompress_ref = unpack
@@ -59,6 +65,44 @@ def histogram_rows_ref(
     rid = torch.where(inside, rid, 0)
     words = words_as_uint(packed[:, rid // spw])  # (F, m)
     bins = ((words >> ((rid % spw) * bits)) & ((1 << bits) - 1)).t()
+    pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
+    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins)
+
+
+def histogram_chunked_ref(
+    packed: torch.Tensor,  # (n_chunks, F, words_per_chunk) int32 chunk stack
+    gh: torch.Tensor,  # (N, 2)
+    positions: torch.Tensor,  # (N,) int, n_nodes (or -1) = inactive
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+) -> torch.Tensor:
+    """Plain version of the privatised kernel's chunked contract: each
+    chunk unpacked, its padding dropped, then the scatter-add in row order:
+    bit for bit `histogram_ref` on the flat words of the same rows."""
+    bins = unpack_chunked(packed, bits, chunk_rows, gh.shape[0])
+    return H.build_histograms(bins, gh, positions, n_nodes, max_bins)
+
+
+def histogram_rows_chunked_ref(
+    packed: torch.Tensor,  # (n_chunks, F, words_per_chunk) int32 chunk stack
+    gh_sel: torch.Tensor,  # (m, 2)
+    pos_sel: torch.Tensor,  # (m,) int node per slot, n_nodes = dump
+    row_ids: torch.Tensor,  # (m,) int global row per slot, past the stack = padding
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+) -> torch.Tensor:
+    """Plain version of the row-id kernel's chunked contract: each slot's
+    words gathered from its row's chunk, then the scatter-add in slot
+    order. A slot whose row id lies past the stack's n_chunks * chunk_rows
+    rows goes to the dump slot: bit for bit `histogram_rows_ref` on the
+    flat words of the same rows."""
+    rid = row_ids.to(torch.int64)
+    inside = (rid >= 0) & (rid < packed.shape[0] * chunk_rows)
+    bins = gather_rows_chunked(packed, bits, chunk_rows, torch.where(inside, rid, 0))
     pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
     return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins)
 

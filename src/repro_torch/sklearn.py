@@ -18,11 +18,12 @@ with the same semantics. `HAVE_SKLEARN` says which.
 
 The constructor surface is the reference's, every argument stored verbatim,
 plus one keyword the reference lacks: `device=None` (the card) or "cpu",
-the device the estimator's matrices and booster live on. Knobs the port
-does not have yet raise NotImplementedError naming them: `chunk_rows=`
-(external memory), the sampling and constraint knobs (through
-`BoosterConfig`), and `on_oom`, `checkpoint_*`, `mesh`, `collective` and
-`compression` (through `Booster.fit`).
+the device the estimator's matrices and booster live on. `chunk_rows=`
+trains through `ExternalDMatrix.from_arrays` (external memory), and
+`numeric_check`, `on_oom` and `checkpoint_*` reach the booster as in the
+reference. Knobs the port does not have yet raise NotImplementedError
+naming them: `mesh`, `collective` and `compression` (through
+`Booster.fit`).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ except ImportError:
             return float(np.mean(np.asarray(self.predict(X)) == np.asarray(y)))
 
 
-from repro_torch.core import Booster, BoosterConfig, DeviceDMatrix
+from repro_torch.core import Booster, BoosterConfig, DeviceDMatrix, ExternalDMatrix
 
 
 class _BoosterEstimator(BaseEstimator):
@@ -138,8 +139,8 @@ class _BoosterEstimator(BaseEstimator):
         self.early_stopping_rounds = early_stopping_rounds
         self.quantile_alpha = quantile_alpha
         self.verbose = verbose
-        # chunk_rows=None trains in memory; an int is the reference's
-        # external-memory fit, not ported yet.
+        # chunk_rows=None trains in memory; an int routes the training set
+        # through ExternalDMatrix.from_arrays (external memory, resident).
         self.chunk_rows = chunk_rows
         self.subsample = subsample
         self.sampling_method = sampling_method
@@ -199,15 +200,15 @@ class _BoosterEstimator(BaseEstimator):
         )
 
     def _fit(self, X, y, eval_set=None, group_ids=None, eval_group_ids=None):
-        if self.chunk_rows is not None:
-            raise NotImplementedError(
-                f"chunk_rows={self.chunk_rows!r} is not ported yet (only "
-                "chunk_rows=None): the external-memory fit is ROADMAP queue 1 item 4"
-            )
         X = np.asarray(X, np.float32)
         objective, n_classes, y_enc = self._fit_objective(y)
-        dtrain = DeviceDMatrix(X, label=y_enc, group_ids=group_ids,
-                               max_bins=self.max_bins, device=self.device)
+        if self.chunk_rows is not None:
+            dtrain = ExternalDMatrix.from_arrays(
+                X, y_enc, group_ids=group_ids, chunk_rows=self.chunk_rows,
+                max_bins=self.max_bins, device=self.device)
+        else:
+            dtrain = DeviceDMatrix(X, label=y_enc, group_ids=group_ids,
+                                   max_bins=self.max_bins, device=self.device)
         evals = []
         for i, (xv, yv) in enumerate(eval_set or ()):
             gv = None if eval_group_ids is None else eval_group_ids[i]

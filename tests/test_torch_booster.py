@@ -191,8 +191,14 @@ def test_predict_at_depth_14_matches_reference():
 
 @pytest.mark.parametrize("knob,value", [("numeric_check", "raise")])
 def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match=knob):
-        BoosterConfig(**{knob: value})
+    """numeric_check is ported: its policies build a config, and a value
+    outside them raises the reference's ValueError naming the knob."""
+    from repro_torch.core.resilience import NUMERIC_POLICIES
+
+    assert getattr(BoosterConfig(**{knob: value}), knob) == value
+    assert value in NUMERIC_POLICIES
+    with pytest.raises(ValueError, match=knob):
+        BoosterConfig(**{knob: "no-such-policy"})
 
 
 def test_config_keeps_reference_fields_and_defaults():
@@ -206,9 +212,9 @@ def test_config_keeps_reference_fields_and_defaults():
 
 def test_fit_and_predict_errors(data):
     x, labels, _ = data
-    with pytest.raises(NotImplementedError, match="on_oom"):
+    with pytest.raises(ValueError, match="on_oom"):
         Booster().fit(DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"),
-                      on_oom="external")
+                      on_oom="retry")
     with pytest.raises(ValueError):
         Booster(objective="no:such").fit(
             DeviceDMatrix(x, label=labels["reg:squarederror"], device="cpu"))

@@ -836,3 +836,126 @@ def test_classifier_serve_on_card(rng):
     clf.set_params(serve=True)
     assert np.array_equal(clf.predict_proba(x), proba)
     assert np.array_equal(clf.predict(x), labels)
+
+
+def _chunk_stack(rng, n, f, max_bins, chunk_rows, skew=0.0):
+    """(flat words, chunk stack, bits) of random bins: `skew` of the
+    symbols in the missing bin, the stack's last chunk short unless n is a
+    multiple of chunk_rows."""
+    bits = TC.bits_needed(max_bins - 1)
+    bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    bins[rng.random((n, f)) < skew] = max_bins - 1
+    bins = torch.from_numpy(bins)
+    spw = 32 // bits
+    wpc = -(-chunk_rows // spw)
+    stack = torch.zeros((-(-n // chunk_rows), f, wpc), dtype=torch.int32)
+    for i, s in enumerate(range(0, n, chunk_rows)):
+        words = TC.pack(bins[s:s + chunk_rows], bits)
+        stack[i, :, :words.shape[1]] = words
+    return TC.pack(bins, bits), stack, bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [256, 1000, 333])
+def test_chunked_histogram_kernels_on_card(rng, chunk_rows):
+    """Both histogram kernels on the chunk stack (chunk_rows a multiple of
+    the symbols a word and not, a short last chunk, skewed words) against
+    their chunked plain versions and against the flat kernels on the same
+    rows: exact on dyadic (g, h), which sum exactly in any order."""
+    dev = _cuda()
+    for n, f, max_bins, n_nodes, skew in [(2999, 5, 256, 1, 0.0), (4096, 28, 256, 8, 0.8),
+                                          (1500, 3, 16, 3, 0.0)]:
+        flat, stack, bits = _chunk_stack(rng, n, f, max_bins, chunk_rows, skew)
+        gh = torch.from_numpy(np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                                       axis=1).astype(np.float32))
+        pos = torch.from_numpy(rng.integers(0, n_nodes + 1, size=n).astype(np.int32))
+        args = (gh.to(dev), pos.to(dev), n_nodes, max_bins, bits)
+        got = build_histograms_packed_kernel(stack.to(dev), *args, chunk_rows)
+        want = ref.histogram_chunked_ref(stack.to(dev), *args, chunk_rows)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), build_histograms_packed_kernel(flat.to(dev), *args).cpu().numpy())
+        m = n // 2
+        k = m - m // 5
+        rid = np.sort(rng.choice(n, size=k, replace=False))
+        rid = np.concatenate([rid, np.full(m - k, n)]).astype(np.int32)
+        rid[-1] = 10 * n  # past the stack's rows: must not be read
+        pos_sel = rng.integers(0, n_nodes + 1, size=m).astype(np.int32)
+        pos_sel[k:] = n_nodes
+        rargs = (gh[np.minimum(rid, n - 1)].to(dev), torch.from_numpy(pos_sel).to(dev),
+                 torch.from_numpy(rid).to(dev), n_nodes, max_bins, bits)
+        got = build_histograms_rows_kernel(stack.to(dev), *rargs, chunk_rows)
+        want = ref.histogram_rows_chunked_ref(stack.to(dev), *rargs, chunk_rows)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), build_histograms_rows_kernel(flat.to(dev), *rargs).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_external_fit_on_card(rng):
+    """A fit on an ExternalDMatrix (ref= the flat matrix, a short last
+    chunk) launches the flat fit's kernels, as often, and predicts as the
+    flat matrix does for the same model, bit for bit."""
+    from repro_torch.core import Booster, DeviceDMatrix, ExternalDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    e = ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=d)
+    kw = dict(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic")
+    ops.reset_launches()
+    Booster(**kw).fit(d)
+    flat = ops.launches()
+    ops.reset_launches()
+    bst = Booster(**kw).fit(e)
+    assert ops.launches() == flat
+    assert flat["histogram_private"] == 3 and flat["histogram_rows"] == 9
+    assert torch.equal(bst.predict_margins(e), bst.predict_margins(d))
+
+
+@pytest.mark.cuda
+def test_nan_grad_policy_on_card(rng):
+    """NaN gradients at round 2 grow a root-only tree on the card (the
+    split scan ranks NaN first, in range, and nothing splits on it):
+    warn_skip zeroes that round and keeps the margins finite."""
+    from repro_torch.core import Booster, DeviceDMatrix
+    from repro_torch.testing import faults
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    with faults.inject("nan_grad", round=2), pytest.warns(UserWarning, match="round"):
+        bst = Booster(n_rounds=4, max_depth=4, max_bins=64, objective="binary:logistic",
+                      numeric_check="warn_skip").fit(d)
+    assert bst.skipped_rounds == [2]
+    assert bool((bst.ensemble.leaf_value[2] == 0).all())
+    assert bool(torch.isfinite(bst.margins).all())
+
+
+@pytest.mark.cuda
+def test_resume_on_card(rng, tmp_path):
+    """A fit stopped after its snapshot at round 3 resumes on the card to
+    10 rounds; the snapshot's 3 rounds stay bit for bit."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    path = str(tmp_path / "run.ckpt")
+    kw = dict(n_rounds=10, max_depth=4, max_bins=64, objective="binary:logistic")
+
+    class Stop(Exception):
+        pass
+
+    def stop(r, rec):
+        if r >= 4:
+            raise Stop
+
+    with pytest.raises(Stop):
+        Booster(**kw).fit(d, checkpoint_every=3, checkpoint_path=path, callback=stop)
+    snap = Booster.load(path)
+    got = Booster.resume(path, d)
+    assert got.n_rounds_trained == 10
+    assert torch.equal(got.ensemble.feature[:3], snap.ensemble.feature)
+    assert torch.equal(got.ensemble.leaf_value[:3], snap.ensemble.leaf_value)
+    assert bool(torch.isfinite(got.predict(x)).all())

@@ -275,14 +275,34 @@ def test_concat_truncate_slice_match_reference(n_classes):
     ("collective", "ring"), ("compression", "f16"), ("comm_tolerance", 0.1),
     ("checkpoint_every", 2), ("checkpoint_path", "model.ckpt"), ("on_oom", "external"),
 ])
-def test_unported_keywords_raise(data, keyword, value):
+def test_unported_keywords_raise(data, keyword, value, tmp_path, monkeypatch):
+    """The multi-device keywords raise NotImplementedError naming them.
+    checkpoint_every, checkpoint_path and on_oom are ported: alone,
+    checkpoint_every raises the reference's ValueError (it needs a path), a
+    checkpoint_path gets the completed fit's checkpoint, and
+    on_oom="external" fits as usual when nothing runs out of memory."""
     (x, y), _, _ = data
     d = DeviceDMatrix(x[:200], label=y[:200], max_bins=32, device="cpu")
-    with pytest.raises(NotImplementedError, match=keyword):
-        Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
-    if keyword != "on_oom":  # the reference's update lacks it
-        bst = Booster(**dict(KW, n_rounds=1)).fit(d, data_axes=["data"])  # a list is the default
+    monkeypatch.chdir(tmp_path)
+    if keyword == "checkpoint_every":
+        with pytest.raises(ValueError, match="checkpoint_path"):
+            Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
+    elif keyword == "checkpoint_path":
+        bst = Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
+        assert Booster.load(value, device="cpu").n_rounds_trained == 1
+        bst.update(d, 1, **{keyword: value})
+        assert Booster.load(value, device="cpu").n_rounds_trained == 2
+    elif keyword == "on_oom":
+        bst = Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
+        assert bst.n_rounds_trained == 1 and bst.resilience_events == []
+    else:
         with pytest.raises(NotImplementedError, match=keyword):
+            Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
+    if keyword not in ("on_oom", "checkpoint_path"):  # update lacks on_oom
+        bst = Booster(**dict(KW, n_rounds=1)).fit(d, data_axes=["data"])  # a list is the default
+        with pytest.raises(ValueError if keyword == "checkpoint_every" else NotImplementedError,
+                           match="checkpoint_path" if keyword == "checkpoint_every"
+                           else keyword):
             bst.update(d, 1, **{keyword: value})
 
 

@@ -7,7 +7,7 @@ port's matrices take the reference's cut points, as the other parity tests
 do: cut construction may differ by a rank flip, queue 3 item 1 of ROADMAP.md)
 and their predictions agree within the fit tolerance of
 test_torch_booster.py, rtol 1e-5 and atol 1e-5 (probabilities and ranking
-scores too). `chunk_rows=` raises NotImplementedError in the port. One test
+scores too); `chunk_rows=` fits through `ExternalDMatrix` in both. One test
 runs the estimators in a subprocess with sklearn blocked, so that the local
 base classes run, as on the card's machine.
 """
@@ -267,20 +267,40 @@ def test_sklearn_clone_contract():
 
 
 def test_chunk_rows_raises(cls_data):
-    """The reference's chunk_rows= fits through ExternalDMatrix, which the
-    port does not have yet."""
+    """chunk_rows= fits through ExternalDMatrix.from_arrays, as the
+    reference's does: the same sketch cuts (the sketch is the reference's,
+    copied), so the probabilities agree within the fit tolerance."""
+    from repro.sklearn import XGBClassifier as JClassifier
+    from repro_torch.core import ExternalDMatrix
+
     x, yc = cls_data
-    with pytest.raises(NotImplementedError, match="chunk_rows.*queue 1 item 4"):
-        XGBClassifier(n_estimators=8, max_depth=3, max_bins=32, chunk_rows=100,
-                      **CPU).fit(x, yc)
+    kw = dict(n_estimators=8, max_depth=3, max_bins=32, chunk_rows=100)
+    mine = XGBClassifier(**kw, **CPU).fit(x, yc)
+    theirs = JClassifier(**kw).fit(x, yc)
+    assert isinstance(mine.booster_.margins, torch.Tensor)
+    np.testing.assert_array_equal(mine.booster_.cuts.numpy(), np.asarray(theirs.booster_.cuts))
+    np.testing.assert_allclose(mine.predict_proba(x), np.asarray(theirs.predict_proba(x)),
+                               **TOL)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        ExternalDMatrix.from_arrays(x, yc, chunk_rows=100, paging="stream", device="cpu")
 
 
 @pytest.mark.parametrize("knob,value", [("on_oom", "external"), ("checkpoint_every", 2),
                                         ("mesh", "a mesh"), ("compression", "f16")])
 def test_unported_knobs_raise_by_name(reg_data, knob, value):
+    """mesh and compression raise naming themselves; on_oom and
+    checkpoint_every are ported and reach the booster (checkpoint_every
+    alone raises the reference's ValueError: it needs checkpoint_path)."""
     x, y = reg_data
-    with pytest.raises(NotImplementedError, match=knob):
-        XGBRegressor(n_estimators=2, max_bins=32, **CPU, **{knob: value}).fit(x, y)
+    est = XGBRegressor(n_estimators=2, max_bins=32, **CPU, **{knob: value})
+    if knob == "on_oom":
+        assert est.fit(x, y).booster_.resilience_events == []
+    elif knob == "checkpoint_every":
+        with pytest.raises(ValueError, match="checkpoint_path"):
+            est.fit(x, y)
+    else:
+        with pytest.raises(NotImplementedError, match=knob):
+            est.fit(x, y)
 
 
 def test_estimators_without_sklearn():

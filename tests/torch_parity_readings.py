@@ -31,6 +31,16 @@ splits on the tree's sampled and GOSS-weighted rows, at the node's
 monotone bounds; for GOSS also `goss_witness`):
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py stochastic
+
+`resilience` reads the tolerances of tests/test_torch_resilience.py and
+tests/test_torch_kill_resume.py (the warn_skip and clamp policies under the
+same nan_grad fault, a reference snapshot resumed by both packages), and
+`external` those of tests/test_torch_external.py (the chunked default,
+lossguide, subsample and GOSS fits, with whether the port's chunked fit is
+torch.equal to its in-memory fit), over data seeds 0-9:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py resilience
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py external
 """
 import json
 
@@ -504,6 +514,129 @@ def rank_fit_readings(seeds=range(10)):
         yield reading
 
 
+def _fit_atol(jb, tb, rows, margins=True, chunked=None):
+    """The atol leaves, training margins and predicted margins of rows (and,
+    with `chunked`, of that ExternalDMatrix) need beside rtol 1e-5."""
+    got = [_atol_needed(tb.ensemble.leaf_value.numpy(), np.asarray(jb.ensemble.leaf_value))]
+    if margins:
+        got.append(_atol_needed(tb.margins.numpy(), np.asarray(jb.margins)))
+    got += [_atol_needed(tb.predict_margins(r).numpy(), np.asarray(jb.predict_margins(r)))
+            for r in rows]
+    if chunked is not None:
+        got.append(_atol_needed(tb.predict_margins(chunked).numpy(),
+                                np.asarray(jb.predict_margins(rows[0]))))
+    return max(got)
+
+
+# The numeric policies of tests/test_torch_resilience.py: 6 rounds, depth 3,
+# 32 bins, binary:logistic, nan_grad at round 3 (NaN: clamped to zero).
+RESILIENCE_KW = dict(n_rounds=6, max_depth=3, max_bins=32, objective="binary:logistic")
+
+
+def resilience_readings(seeds=range(10)):
+    """Each numeric policy under the same nan_grad fault in both packages,
+    and a reference snapshot (4 rounds of 10 done, depth 3) resumed by both:
+    equal events, the structure, and the atol leaves and margins need
+    beside rtol 1e-5 (null where the structure differs; `first` is then the
+    first differing (tree, slot))."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    from repro.testing import faults as JF
+    from repro_torch.testing import faults as TF
+
+    class Stop(Exception):
+        pass
+
+    def stop(r, rec):
+        if r >= 5:
+            raise Stop
+
+    for seed in seeds:
+        x, labels, x_new = fit_data(seed)
+        y = labels["binary:logistic"]
+        jd = JDMatrix(x, label=y, max_bins=32)
+        td = DeviceDMatrix(x, label=y, max_bins=32, cuts=np.asarray(jd.cuts), device="cpu")
+        for policy in ("warn_skip", "clamp"):
+            fits = []
+            for F, B, d in ((JF, JBooster, jd), (TF, Booster, td)):
+                with F.inject("nan_grad", round=3), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    fits.append(B(**RESILIENCE_KW, numeric_check=policy).fit(d))
+            jb, tb = fits
+            first = first_difference(jb, tb)
+            yield {"fit_seed": seed, "resilience": policy, "structure_same": first is None,
+                   "events_equal": jb.resilience_events == tb.resilience_events
+                   and jb.skipped_rounds == tb.skipped_rounds,
+                   "first": first,
+                   "atol_needed": None if first else _fit_atol(jb, tb, (x, x_new))}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "run.ckpt"
+            kw = dict(RESILIENCE_KW, n_rounds=10)
+            try:
+                JBooster(**kw).fit(jd, checkpoint_every=4, checkpoint_path=str(path),
+                                   callback=stop)
+            except Stop:
+                pass
+            copy = Path(tmp) / "copy.ckpt"
+            copy.write_bytes(path.read_bytes())
+            jb = JBooster.resume(str(path), jd)
+            tb = Booster.resume(str(copy), td)
+        first = first_difference(jb, tb)
+        yield {"fit_seed": seed, "resilience": "resume_reference_snapshot",
+               "structure_same": first is None, "first": first,
+               "atol_needed": None if first else _fit_atol(jb, tb, (x, x_new))}
+
+
+# The chunked fits of tests/test_torch_external.py: 4 rounds, depth 4, 32
+# bins, binary:logistic, 333 rows a chunk, on the reference's cuts; the
+# sampled fits draw the reference's uniforms.
+EXTERNAL = {
+    "default": {},
+    "lossguide": {"growth": "lossguide", "max_leaves": 6},
+    "subsample": {"subsample": 0.5, "seed": 11},
+    "goss": {"sampling_method": "goss", "seed": 11},
+}
+EXTERNAL_CHUNK_ROWS = 333
+
+
+def external_readings(seeds=range(10)):
+    """Each chunked fit in both packages: the structure (the witness where
+    it differs), the atol leaves, margins and predictions (raw rows, and
+    the port's ExternalDMatrix) need beside rtol 1e-5, and whether the
+    port's chunked fit is torch.equal to its in-memory fit."""
+    from repro.core import ExternalDMatrix as JExternal
+    from repro_torch.core import ExternalDMatrix
+
+    draw, TSMP.uniform = TSMP.uniform, replay_uniform
+    try:
+        for name, knobs in EXTERNAL.items():
+            for seed in seeds:
+                x, labels, x_new = fit_data(seed)
+                y = labels["binary:logistic"]
+                kw = dict(n_rounds=4, max_depth=4, max_bins=32, objective="binary:logistic",
+                          **knobs)
+                jd = JDMatrix(x, label=y, max_bins=32)
+                cuts = np.asarray(jd.cuts)
+                je = JExternal.from_arrays(x, y, chunk_rows=EXTERNAL_CHUNK_ROWS, max_bins=32,
+                                           cuts=cuts)
+                td = DeviceDMatrix(x, label=y, max_bins=32, cuts=cuts, device="cpu")
+                te = ExternalDMatrix.from_arrays(x, y, chunk_rows=EXTERNAL_CHUNK_ROWS, ref=td)
+                jb, tb = JBooster(**kw).fit(je), Booster(**kw).fit(te)
+                flat = Booster(**kw).fit(td)
+                tie = tie_witness(kw, jd, jb, tb, y)
+                yield {"fit_seed": seed, "external": name, "structure_same": tie is None,
+                       "tie": tie,
+                       "atol_needed": None if tie else _fit_atol(jb, tb, (x, x_new), chunked=te),
+                       "chunked_equals_resident": all(
+                           torch.equal(getattr(tb.ensemble, f), getattr(flat.ensemble, f))
+                           for f in (*STRUCTURE, "leaf_value", "gain"))
+                       and torch.equal(tb.margins, flat.margins)}
+    finally:
+        TSMP.uniform = draw
+
+
 if __name__ == "__main__":
     import sys
 
@@ -512,6 +645,10 @@ if __name__ == "__main__":
     chosen = tuple(sys.argv[1:])
     if chosen == ("stochastic",):
         lines = (*constrained_gain_readings(), *stochastic_fit_readings())
+    elif chosen == ("resilience",):
+        lines = resilience_readings()
+    elif chosen == ("external",):
+        lines = external_readings()
     else:
         rank = "rank:pairwise" in chosen or not chosen
         chosen = tuple(o for o in chosen if o != "rank:pairwise")

@@ -155,7 +155,7 @@ def main() -> int:
                     return lib.rt_histogram_private(
                         *ptrs, g.data_ptr(), pos.data_ptr(), o.data_ptr(), n, f, w, nn,
                         MAX_BINS, bits, plan.node_tile, plan.feat_group,
-                        plan.words_per_block, plan.blocks_per_sm, THREADS, stream)
+                        plan.words_per_block, plan.blocks_per_sm, THREADS, 0, 0, stream)
                 return parts.parts_histogram(
                     PARTS[kind], plan.blocks_per_sm, *ptrs, g.data_ptr(), pos.data_ptr(),
                     o.data_ptr(), n, f, w, nn, MAX_BINS, plan.node_tile, plan.feat_group,
