@@ -155,7 +155,33 @@ Phases, each printing one JSON line:
                 (one retry with a warning, then the host's words),
                 always (ChunkIntegrityError naming the chunk), `chunk_load`
                 twice (two retries, then the host's words).
-  14. resilience — `nan_grad` armed at round NAN_ROUND of the 10-round
+  14. stream  — the main matrix as a streamed `ExternalDMatrix`
+                (`paging="stream"`, ref= the flat matrix) at EXT_CHUNK_ROWS
+                (EXT_CHUNK_ROWS_LARGE from 2M rows on) and EXT_ODD_CHUNK_ROWS
+                rows a chunk, each at prefetch_chunks 2 and 0, beside a
+                resident chunked fit of the same chunks (its stack unloaded
+                before, so the fit's page-in counts). Gates: #1 launches
+                10 x n_chunks (once a chunk a round), the row-id kernel as
+                often as the streamed bins paged row segments (at most
+                50 x n_chunks), the split scan 60; accuracy within 0.003 of
+                the resident fit's and > 0.7; `nbytes_device` 0 after the
+                fit and after predict; device slots = prefetch_chunks + 1 (at
+                most n_chunks);
+                the fit's peak device memory above what was allocated
+                before it below the resident fit's by at least (stack
+                bytes - (prefetch + 1) x chunk bytes) / 2; `predict` on the
+                streamed matrix bit for bit the flat one; on FAULT_ROWS rows
+                in FAULT_CHUNKS chunks, `chunk_load` once (one retry
+                warning, the fit completes) and `chunk_corrupt` always
+                (ChunkIntegrityError naming chunk 0). Readings: STREAM_PAIRS
+                warm alternating pairs of the streamed and the resident fit
+                and of prefetch 2 and 0 (medians, ratios); the pinned copy
+                of one chunk by events (back to back) and the transfer floor
+                it sets (chunks_paged x chunk bytes / rate); chunks_paged
+                and rows_touched; the syncs of a streamed and a resident
+                fit (`count_syncs`); a streamed GOSS fit's counters; the
+                card's name and power limit.
+  15. resilience — `nan_grad` armed at round NAN_ROUND of the 10-round
                 default fit: "raise" raises NumericError naming the round,
                 "warn_skip" skips it (its leaves zero, the margins finite),
                 "clamp" records `gradients_clamped` (margins finite); a
@@ -176,12 +202,12 @@ Phases, each printing one JSON line:
                 with on_oom="external" (one `oom_fallback` at n_rows // 2, the
                 fit through the chunk stack, launches 10/50/60, accuracy >
                 0.7) and without (SimulatedOOM).
-  15. ops     — the path the reference gives `histogram_packed` and
+  16. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  16. check   — each kernel against its plain PyTorch version on the same
+  17. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -211,7 +237,7 @@ Phases, each printing one JSON line:
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
                 shapes are.
-  17. time    — CUDA-event ms of each kernel, its plain version and, where one
+  18. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -243,11 +269,12 @@ Phases, each printing one JSON line:
                 chunk stack of the external phase), by events and back to
                 back, each beside its bound in bytes, and its chunked plain
                 version.
-With --profile, five further fits are traced after the resilience phase,
+With --profile, six further fits are traced after the resilience phase,
 each printing its device busy time, idle share, launches and top kernels:
 the default, the dense default, EVAL_ROUNDS rounds with and without the
-evals, and subsample=0.5 (tables profile_{fit,dense,evals,no_evals,
-subsample}.txt in the output directory).
+evals, subsample=0.5, and the default on the streamed matrix (tables
+profile_{fit,dense,evals,no_evals,subsample,stream}.txt in the output
+directory, by device time and then by host time).
 Then the kernels line (each kernel's launches on the path that runs it:
 the main path's, histogram_packed's in the ops phase, decompress's in the
 dense default fit, pairwise_grad's in the rank fit), the `nvidia-smi` line and, last,
@@ -406,6 +433,7 @@ SWEEP_ROWS, SWEEP_STEPS = 1_000, 64  # the monotone sweep: held-out rows x ascen
 EXT_CHUNK_ROWS, EXT_CHUNK_ROWS_LARGE, EXT_ODD_CHUNK_ROWS = 131_072, 1_048_576, 100_003
 EXT_EVAL_CHUNK_ROWS, EXT_BATCH_ROWS = 30_000, 125_000
 EXT_PAIRS = 3  # warm alternating pairs of the chunked and the flat default fit
+STREAM_PAIRS = 3  # warm alternating pairs: streamed vs resident, prefetch 2 vs 0
 FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
 # Resilience: the round whose gradients the nan_grad fault overwrites; kill
 # and resume of a 10-round fit that snapshots every 3 rounds and is killed
@@ -570,7 +598,8 @@ def profile_fit(dtrain, name: str = "fit", knobs: dict | None = None,
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_{name}.txt").write_text(
-        events.table(sort_by="self_cuda_time_total", row_limit=60))
+        events.table(sort_by="self_cuda_time_total", row_limit=60) + "\n"
+        + events.table(sort_by="self_cpu_time_total", row_limit=40))
     emit({"phase": "profile", "fit": name, **knobs, "fit_s_untraced": untraced,
           "fit_s_traced": traced,
           "device_busy_s": busy, "idle_share_untraced": 1 - busy / untraced,
@@ -636,7 +665,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace further fits with torch.profiler (the default, "
                          "the dense default, 40 rounds with and without the evals, "
-                         "subsample=0.5): "
+                         "subsample=0.5, the streamed default): "
                          "device time by kernel and the device's idle share "
                          "(tables profile_*.txt in the output directory)")
     args = ap.parse_args()
@@ -1520,7 +1549,164 @@ def main() -> int:
             and faulted["load_twice"]["stack_equals_host"]):
         raise SystemExit(f"external page-in faults: {faulted}")
 
-    # --- 14. resilience: numeric sentinel, kill and resume, faults ------------
+    # --- 14. streamed external memory ----------------------------------------------
+    # The main matrix as a streamed ExternalDMatrix (ref= the flat matrix):
+    # the stack stays on the host and every pass pages it a chunk at a time
+    # through the pager's ring (prefetch + 1 pinned and device slots, copies
+    # on their own stream), the kernels launched once a chunk. Beside each,
+    # a resident chunked fit of the same chunks, its stack paged in by the
+    # fit (unloaded before), so its peak memory counts the stack.
+    # The phase runs in a function of its own, so that its names never
+    # shadow those of the phases after it.
+    def stream_phase() -> None:
+        def fit_peak(dmat, **knobs):
+            """(booster, seconds, launches, peak device bytes above the
+            allocation before the fit)."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            b = Booster(**booster_kw, **knobs).fit(dmat)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return b, secs, ops.launches(), torch.cuda.max_memory_allocated() - base
+
+        for chunk_rows in (ext_chunk, EXT_ODD_CHUNK_ROWS):
+            dres = ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=chunk_rows, ref=dtrain,
+                                               paging="resident")
+            dst = ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=chunk_rows, ref=dtrain,
+                                              paging="stream")
+            dres.unload()
+            rbst, res_s, _, res_peak = fit_peak(dres)
+            racc = accuracy(rbst.predict(x_te))
+            dres.unload()
+            stack_bytes = dst.nbytes_host
+            chunk_bytes = stack_bytes // dst.n_chunks
+            for prefetch in (2, 0):
+                dst.prefetch_chunks = prefetch
+                sbst, st_s, got, st_peak = fit_peak(dst)
+                st = dst.stream_stats
+                after_fit = dst.nbytes_device
+                sacc = accuracy(sbst.predict(x_te))
+                predict_exact = bool(torch.equal(sbst.predict_margins(dst),
+                                                 sbst.predict_margins(dtrain)))
+                want_saving = (stack_bytes - (prefetch + 1) * chunk_bytes) / 2
+                line = {"phase": "stream", "chunk_rows": chunk_rows, "n_chunks": dst.n_chunks,
+                        "prefetch_chunks": prefetch, "stack_bytes": stack_bytes,
+                        "chunk_bytes": chunk_bytes, "first_fit_s": st_s,
+                        "resident_first_fit_s": res_s, "launches": got,
+                        "row_segments": st.row_segments, "chunks_paged": st.chunks_paged,
+                        "rows_touched": st.rows_touched, "device_slots": st.device_slots,
+                        "nbytes_device_after_fit": after_fit,
+                        "nbytes_device_after_predict": dst.nbytes_device,
+                        "fit_peak_above_before": st_peak,
+                        "resident_fit_peak_above_before": res_peak,
+                        "peak_saving_wanted": want_saving, "held_out_accuracy": sacc,
+                        "resident_accuracy": racc, "predict_equals_flat": predict_exact,
+                        "trees_same_structure_as_resident": same_structure(sbst.ensemble,
+                                                                           rbst.ensemble)}
+                emit(line)
+                expect_launches(f"streamed fit at {chunk_rows} rows a chunk, prefetch {prefetch}",
+                                got, {"histogram_private": ROUNDS * dst.n_chunks,
+                                      "histogram_rows": st.row_segments,
+                                      "split_scan": ROUNDS * DEPTH})
+                if not (st.row_segments <= (ROUNDS * (DEPTH - 1)) * dst.n_chunks
+                        and abs(sacc - racc) <= 0.003 and sacc > 0.7 and after_fit == 0
+                        and dst.nbytes_device == 0
+                        and st.device_slots == min(prefetch + 1, dst.n_chunks)
+                        and res_peak - st_peak >= want_saving and predict_exact):
+                    raise SystemExit(f"stream phase failed: {line}")
+            del rbst, sbst
+            if chunk_rows == ext_chunk:
+                dres_main, dst_main = dres, dst
+            else:
+                del dres, dst
+        # Readings on the reference chunk size: warm alternating pairs of the
+        # streamed and the resident fit (its stack left on the card between its
+        # fits, as a resident fit keeps it), of prefetch 2 and 0; the pinned
+        # copy rate of one chunk and the transfer floor it sets; syncs; GOSS.
+        dst, dres = dst_main, dres_main
+        dst.prefetch_chunks = 2
+        pairs: dict[str, list[float]] = {"stream": [], "resident": [], "prefetch_2": [],
+                                         "prefetch_0": []}
+        for i in range(STREAM_PAIRS):
+            for name in ("stream", "resident") if i % 2 == 0 else ("resident", "stream"):
+                pairs[name].append(host_s(lambda: Booster(**booster_kw).fit(
+                    dst if name == "stream" else dres)))
+            for p in (2, 0) if i % 2 == 0 else (0, 2):
+                dst.prefetch_chunks = p
+                pairs[f"prefetch_{p}"].append(host_s(lambda: Booster(**booster_kw).fit(dst)))
+        dst.prefetch_chunks = 2
+        dres.unload()
+        med = {k: sorted(v)[STREAM_PAIRS // 2] for k, v in pairs.items()}
+        pinned = torch.from_numpy(dst._host_packed[0].view(np.int32)).pin_memory()
+        slot = torch.empty(pinned.shape, dtype=torch.int32, device=dev)
+        for _ in range(5):
+            slot.copy_(pinned, non_blocking=True)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(50):  # back to back, as a pass's copies run
+            slot.copy_(pinned, non_blocking=True)
+        ev1.record()
+        torch.cuda.synchronize()
+        copy_ms = ev0.elapsed_time(ev1) / 50
+        rate = pinned.numel() * 4 / (copy_ms / 1e3)
+        Booster(**booster_kw).fit(dst)
+        full = dst.stream_stats
+        floor_s = full.chunks_paged * pinned.numel() * 4 / rate
+        syncs_stream = count_syncs(lambda: Booster(**booster_kw).fit(dst))
+        syncs_resident = count_syncs(lambda: Booster(**booster_kw).fit(dres))
+        dres.unload()
+        goss_knobs = STOCH_FITS["goss"][0]
+        gbst = Booster(**booster_kw, **goss_knobs).fit(dst)
+        goss = dst.stream_stats
+        read_line = {"phase": "stream", "chunk_rows": dst.chunk_rows, "pairs": STREAM_PAIRS,
+                     "fit_s": pairs, "median_stream_s": med["stream"],
+                     "median_resident_s": med["resident"],
+                     "stream_over_resident": med["stream"] / med["resident"],
+                     "median_prefetch_2_s": med["prefetch_2"],
+                     "median_prefetch_0_s": med["prefetch_0"],
+                     "prefetch_0_over_2": med["prefetch_0"] / med["prefetch_2"],
+                     "pinned_chunk_copy_ms": copy_ms, "pinned_copy_bytes_per_s": rate,
+                     "chunks_paged": full.chunks_paged, "rows_touched": full.rows_touched,
+                     "transfer_floor_s": floor_s,
+                     "stream_over_floor": med["stream"] / floor_s,
+                     "syncs_stream": syncs_stream, "syncs_resident": syncs_resident,
+                     "goss": {"chunks_paged": goss.chunks_paged, "rows_touched": goss.rows_touched,
+                              "held_out_accuracy": accuracy(gbst.predict(x_te))},
+                     "nvidia_smi": nvidia_smi()}
+        emit(read_line)
+        # Page-in faults through a streamed fit, on a fresh matrix of the first
+        # rows: chunk_load once (one retry warning, the fit completes) and
+        # chunk_corrupt always (ChunkIntegrityError naming the chunk).
+        stream_faults = {}
+        for name_f, site, arm in (
+                ("load_once", "chunk_load", dict(error=faults.TransientLoadError, times=1)),
+                ("corrupt_always", "chunk_corrupt", dict(times=None, index=9, bit=7))):
+            fresh = ExternalDMatrix.from_arrays(x_tr[:fault_rows], y_tr[:fault_rows],
+                                                chunk_rows=-(-fault_rows // FAULT_CHUNKS),
+                                                ref=dtrain, load_backoff=0.0, paging="stream")
+            with warnings.catch_warnings(record=True) as seen, faults.inject(site, **arm) as spec:
+                warnings.simplefilter("always")
+                try:
+                    fb = Booster(**booster_kw).fit(fresh)
+                    err, done = None, fb.n_rounds_trained
+                except ChunkIntegrityError as exc:
+                    err, done = str(exc), None
+            stream_faults[name_f] = {"fired": spec.fired,
+                                     "warnings": [str(w.message) for w in seen],
+                                     "error": err, "rounds": done}
+        emit({"phase": "stream", "faults": stream_faults})
+        lo, co = stream_faults["load_once"], stream_faults["corrupt_always"]
+        if not (lo["fired"] == 1 and len(lo["warnings"]) == 1 and "retry 1/" in lo["warnings"][0]
+                and lo["rounds"] == ROUNDS and co["error"] is not None
+                and "ExternalDMatrix chunk 0" in co["error"]):
+            raise SystemExit(f"stream page-in faults: {stream_faults}")
+
+    stream_phase()
+
+    # --- 15. resilience: numeric sentinel, kill and resume, faults ------------
     # nan_grad armed at round NAN_ROUND of the 10-round default fit, under
     # each policy; a raise fit without a fault reads its flags once a chunk.
     policy = {}
@@ -1669,6 +1855,8 @@ def main() -> int:
         profile_fit(dtrain, "evals", {"n_rounds": EVAL_ROUNDS}, eval_kw)
         profile_fit(dtrain, "no_evals", {"n_rounds": EVAL_ROUNDS})
         profile_fit(dtrain, "subsample", STOCH_FITS["subsample"][0])
+        profile_fit(ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=ext_chunk, ref=dtrain,
+                                                paging="stream"), "stream")
 
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1732,7 +1920,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 15. the ops path of histogram_packed and decompress -----------------
+    # --- 16. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -1799,7 +1987,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 16. kernels against their plain versions ---------------------------
+    # --- 17. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -2137,7 +2325,7 @@ def main() -> int:
                      "1e-6 where no pair is comparable", "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 17. times -------------------------------------------------------------
+    # --- 18. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")

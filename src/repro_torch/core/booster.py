@@ -59,15 +59,20 @@ subsampled tree over the compacted buffer of its rows; the kernel path
 as the reference does. With every knob at its default the fit is the
 program without sampling, whatever the seed.
 
-External memory: `fit`, `update`, `eval`, `predict` and the eval sets
-take an `ExternalDMatrix`, whose chunk stack is paged onto the device once
-and grows every tree there (both histogram kernels read the whole stack in
-one launch a level). `fit(on_oom="external")` retries a fit that ran out
-of device memory through an ExternalDMatrix, halving `chunk_rows` each
-time, with a warning and a `resilience_events` entry; a plain fit raises
-the OOM. With resident paging only, that fallback does not lower the
-fit's device memory (see `fit`): it relieves a real OOM once streamed
-paging lands.
+External memory: `fit`, `update`, `resume`, `eval`, `predict` and the
+eval sets take an `ExternalDMatrix`. With resident paging its chunk stack
+is paged onto the device once and grows every tree there (both histogram
+kernels read the whole stack in one launch a level). With streamed paging
+(`paging="stream"`, or an "auto" stack above half the card's memory) the
+rounds grow from `stream.StreamedChunkedBins`: the stack stays on the host
+and is paged a chunk at a time, the kernels launched once a chunk, so at
+most prefetch_chunks + 1 chunks are on the device; the training margins
+enter and every prediction leaves a chunk at a time. Every other knob
+(evals, early stopping, `update`, `checkpoint_every`, `numeric_check`,
+sampling, monotone constraints) works on either. `fit(on_oom="external")`
+retries a fit that ran out of device memory through an ExternalDMatrix,
+halving `chunk_rows` each time, with a warning and a `resilience_events`
+entry; a plain fit raises the OOM (see `fit` for what it relieves).
 
 Fault tolerance (DESIGN.md §13): `numeric_check` ("raise", "warn_skip",
 "clamp") computes a finite flag a round from the raw gradients, the
@@ -107,6 +112,7 @@ from repro_torch.core import quantile as Q
 from repro_torch.core import resilience as RES
 from repro_torch.core import sampling as SMP
 from repro_torch.core import split as S
+from repro_torch.core import stream as STRM
 from repro_torch.core import tree as T
 from repro_torch.core.dmatrix import DeviceDMatrix, ExternalDMatrix, cuts_equal
 from repro_torch.device import as_tensor
@@ -330,7 +336,7 @@ class Booster:
     ) -> "Booster":
         """Train cfg.n_rounds rounds from scratch on dtrain's device, from a
         DeviceDMatrix or an ExternalDMatrix (its chunk stack paged onto the
-        device once).
+        device once, or with streamed paging a chunk at a time).
 
         evals: sequence of (matrix, name) pairs (or bare matrices, named
           eval0, eval1, ...) built with `ref=dtrain`; ExternalDMatrix eval
@@ -358,13 +364,16 @@ class Booster:
         on_oom: "raise" (default) or "external" — on a device out-of-memory
           error the fit is retried through an ExternalDMatrix with halved
           chunk_rows (repeatedly, until it fits or chunks hit one row), as
-          the reference does. Only resident paging is ported: the chunk
-          stack takes at least the flat words' device memory, the caller's
-          in-memory matrix stays on the device, and halving chunk_rows only
-          changes the padding. So until streamed paging lands (ROADMAP
-          queue 1 item 4) the fallback does not relieve a real device OOM:
-          it retries at each halving, decoding the host stack each time,
-          and re-raises the OOM once chunks hit one row.
+          the reference does. The fallback matrix keeps the failed one's
+          paging ("auto" for an in-memory matrix). Where that resolves to
+          "stream" (a stack above half the card's memory, or a streamed
+          matrix re-chunked), the retry holds only the pager's ring of
+          prefetch_chunks + 1 chunks and O(n) row state on the device, so
+          a real OOM of the stack is relieved, and each halving shrinks the
+          ring. What does not shrink: the caller's in-memory matrix stays on
+          the device (as in the reference), and a resident stack takes at
+          least the flat words' memory, so a resident fallback relieves
+          nothing but padding.
         The multi-device keywords are the reference's and not ported yet:
         a non-default value raises NotImplementedError.
         """
@@ -569,11 +578,14 @@ class Booster:
 
     def _initial_margins(self, dmat) -> torch.Tensor:
         """Margins to (re-)enter training with: base score if unfitted, else
-        bin-space prediction of the current ensemble."""
+        bin-space prediction of the current ensemble (a chunk at a time on a
+        streamed matrix, which is never paged in whole)."""
         if self.ensemble is None:
             k = self.obj.n_outputs(self.cfg.n_classes)
             return torch.full((dmat.n_rows, k), self.base_score, dtype=torch.float32,
                               device=dmat.device)
+        if isinstance(dmat, ExternalDMatrix) and dmat.resolved_paging() == "stream":
+            return self._predict_margins_external(self.ensemble, dmat)
         return PR.predict_binned_on(self.ensemble, dmat.packed_bins(), self.cfg.max_bins - 1,
                                     self.cfg.max_depth)
 
@@ -597,29 +609,33 @@ class Booster:
         return out
 
     def _bins(self, dmat):
-        """The representation the rounds read: the packed words, the chunk
-        stack of an ExternalDMatrix (paged onto the device once), or with
-        compress_matrix=False the dense bins (one decompress on the card)."""
+        """The representation the rounds read: the packed words; the chunk
+        stack of an ExternalDMatrix, paged onto the device once, or with
+        streamed paging `StreamedChunkedBins` (also kept as the matrix's
+        `stream_stats`); or with compress_matrix=False the dense bins (one
+        decompress on the card)."""
         if isinstance(dmat, ExternalDMatrix):
+            if dmat.resolved_paging() == "stream":
+                dmat.stream_stats = STRM.StreamedChunkedBins(dmat)
+                return dmat.stream_stats
             return dmat.packed_bins()
         return dmat.packed_bins() if self.cfg.compress_matrix else dmat.matrix.unpack()
 
     def _add_trees(self, trees: list[T.Tree], data, margins: torch.Tensor) -> torch.Tensor:
         """Add one round's trees (unscaled leaves, tree c feeding output c)
-        to margins, by bin-space traversal of `data`."""
+        to margins, by bin-space traversal of `data`: on a bins type all k
+        trees in one `traverse` (one pass over a streamed stack a round)."""
         mb, depth = self.cfg.max_bins - 1, self.cfg.max_depth
-        if not isinstance(data, torch.Tensor):  # either packed layout
-            def leaves(tr):
-                return PR.traverse_trees_on(
-                    data, *(a[None] for a in (tr.feature, tr.split_bin, tr.default_left,
-                                              tr.leaf_value, tr.is_leaf)), mb, depth)[0]
+        if not isinstance(data, torch.Tensor):  # any bins type
+            leaves = PR.traverse_trees_on(
+                data, *(torch.stack([getattr(tr, f) for tr in trees]) for f in (
+                    "feature", "split_bin", "default_left", "leaf_value", "is_leaf")),
+                mb, depth).t()
         else:
-            def leaves(tr):
-                return PR.traverse_tree_binned(
-                    tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
-                    data, mb, depth)
-        return margins + self.cfg.learning_rate * torch.stack([leaves(tr) for tr in trees],
-                                                              dim=1)
+            leaves = torch.stack([PR.traverse_tree_binned(
+                tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
+                data, mb, depth) for tr in trees], dim=1)
+        return margins + self.cfg.learning_rate * leaves
 
     def _run_rounds(self, dtrain, n_rounds: int, evals, early_stopping_rounds,
                     verbose_every, callback, checkpoint_every=None,

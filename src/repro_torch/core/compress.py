@@ -57,16 +57,28 @@ def unpack(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
     return b.reshape(packed.shape[0], -1)[:, :n_rows].t().to(torch.int32)
 
 
+def _traverse_on(bins, feature, split_bin, default_left, leaf_value, is_leaf,
+                 missing_bin: int, max_depth: int) -> torch.Tensor:
+    """Leaf outputs (t, n_rows) of t tree arenas (t, a) over a resident
+    packed layout: all rows one level per step, each step's bins through
+    `bins.feature_bins` (one word gather and a shift/mask per (tree, row))."""
+    from repro_torch.core import predict as PR  # predict imports this module
+
+    return PR._traverse(feature, split_bin, default_left, leaf_value, is_leaf, bins.n_rows,
+                        missing_bin, max_depth, bins.feature_bins)
+
+
 @dataclass(frozen=True)
 class PackedBins:
     """The bit-packed matrix as the training representation: the tree grows
     straight from these words, the dense (n, f) bins never exist.
 
-    It and `ChunkedPackedBins` answer the same three questions, so growth,
-    routing and traversal never ask which layout they read: `feature_bins`
-    (a row's bin of one feature), `histograms` (a level in full, the
-    privatised kernel) and `histograms_rows` (a compacted row buffer, the
-    row-id kernel)."""
+    It, `ChunkedPackedBins` and the streamed `stream.StreamedChunkedBins`
+    answer the same four questions, so growth, routing and traversal never
+    ask which layout they read: `feature_bins` (a row's bin of one
+    feature), `histograms` (a level in full, the privatised kernel),
+    `histograms_rows` (a compacted row buffer, the row-id kernel) and
+    `traverse` (trees walked to their leaves over all rows)."""
 
     packed: torch.Tensor  # (n_features, n_words) int32 bit patterns
     bits: int
@@ -94,6 +106,8 @@ class PackedBins:
 
         return H.build_histograms_packed_rows(self.packed, gh_sel, pos_sel, row_ids,
                                               n_nodes, max_bins, self.bits)
+
+    traverse = _traverse_on
 
 
 @dataclass(frozen=True)
@@ -150,6 +164,9 @@ class ChunkedPackedBins:
         return H.build_histograms_chunked_rows(self.packed, gh_sel, pos_sel, row_ids,
                                                n_nodes, max_bins, self.bits,
                                                self.chunk_rows)
+
+    traverse = _traverse_on
+
 
 
 def _chunk_word_index(bits: int, chunk_rows: int, n_chunks: int, row_ids: torch.Tensor):

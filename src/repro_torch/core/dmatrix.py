@@ -20,25 +20,27 @@ Two batch-iterator constructors, as in the reference:
     from `cuts="exact"`, an array or `ref=`), each chunk is quantised and
     bit-packed on its own, and the packed chunks live on the host as one
     (n_chunks, n_features, words_per_chunk) uint32 stack with a crc32 per
-    chunk. Training pages the stack onto the device once ("resident"
-    paging) and grows every tree from it there; both histogram kernels
-    read the whole stack in one launch a level.
+    chunk. Training either pages the stack onto the device once
+    ("resident" paging: both histogram kernels read the whole stack in
+    one launch a level) or streams it ("stream" paging, `core/stream.py`:
+    the stack stays on the host and `ChunkPager` stages one chunk at a
+    time through a ring of pinned and device slots on a copy stream, the
+    kernels launched once a chunk).
 
     dext = ExternalDMatrix(batches, chunk_rows=131072)   # cuda by default
     bst = Booster(n_rounds=100).fit(dext)
+    dbig = ExternalDMatrix(batches, paging="stream", prefetch_chunks=2)
 
-On the CPU a fit on an ExternalDMatrix is bit for bit the fit on the
-DeviceDMatrix of the same rows and cuts (the plain versions add in row
-order either way); on the card it agrees within the fits' tolerance, since
-the histogram kernels add with atomics in no fixed order. Streamed paging
-(`paging="stream"`, ROADMAP queue 1 item 4's streamed half) and the
-sharded sketch (`sketch_shards > 1`, queue 1 item 5) are not ported: they
-raise NotImplementedError.
+On the CPU a fit on an ExternalDMatrix, resident or streamed, is bit for
+bit the fit on the DeviceDMatrix of the same rows and cuts (the plain
+versions add in row order either way); on the card it agrees within the
+fits' tolerance, since the histogram kernels add with atomics in no fixed
+order. The sharded sketch (`sketch_shards > 1`, ROADMAP queue 1 item 5) is
+not ported: it raises NotImplementedError.
 """
 from __future__ import annotations
 
-import queue
-import threading
+import collections
 import warnings
 
 import numpy as np
@@ -342,84 +344,116 @@ class DeviceDMatrix:
 
 
 class ChunkPager:
-    """Bounded background prefetcher over a sequence of chunk indices.
+    """Bounded prefetcher over a sequence of chunk indices, through a ring
+    of `slots` chunk slots.
 
-    A daemon thread walks `indices`, calls `load_fn(i)` for each (the
-    host->device staging step — crc verify + the copy to the device), and
-    parks the results in a queue of at most `depth` staged chunks. The
-    consumer iterates `(index, chunk)` pairs: while it computes on chunk k,
-    the worker is already transferring chunk k+1 (double-buffered at
-    depth=2). The copy and the crc32 both release the GIL.
+    `load_fn(i)` does a chunk's host work (the fault sites, the crc32 check
+    and retries: `ExternalDMatrix._host_chunk`). Iterating yields `(index,
+    chunk)` pairs in the order of `indices`. The pager keeps up to `depth`
+    chunks issued ahead of the one the consumer holds, so the ring has
+    depth + 1 slots (fewer when there are fewer indices); `depth <= 0` loads
+    each chunk when it is asked for. The same yields in the same order
+    either way: the consumer's arithmetic never depends on the depth.
 
-    `depth <= 0` (or a single chunk) degrades to a plain synchronous loop
-    — same yields, same order, no thread — which is the bit-identity
-    anchor: the consumer's arithmetic never depends on the staging mode.
+    On a card (`device` a CUDA device) each slot owns one chunk's words in
+    pinned host memory and on the device, allocated once for the pager
+    (`device_slots` counts the device ones). Issuing chunk i: the host work,
+    a memcpy into its slot's pinned buffer, then `copy_(...,
+    non_blocking=True)` into the slot's device buffer on the pager's own
+    copy stream and an event recorded after it. The consumer's stream waits
+    on that event before the chunk is handed out, so the copies of the
+    chunks issued ahead run while the kernels on the current one do. Two
+    reuse hazards, both guarded:
+      * a pinned buffer is not written before the copy that reads it has
+        run: the host waits on that copy's event first;
+      * a device buffer is not overwritten before the kernels that read it
+        have run: the consumer's stream records an event when the consumer
+        asks for the next chunk, and the copy stream waits on it before the
+        next copy into that slot.
+    The chunk handed out IS the slot's device buffer: read it before asking
+    for the next chunk, or clone it. Elsewhere (`device` None: the CPU, or a
+    stack already on the device) `load_fn` returns the chunk itself, a
+    tensor of its own.
 
-    Exceptions raised by `load_fn` (after its own retry policy is
-    exhausted) are forwarded through the queue and re-raised in the
-    consumer; the worker stops producing past a failure so a broken source
-    cannot keep filling the ring. `close()` (called automatically when
-    iteration ends, breaks, or raises) stops the worker and drains the
-    queue so blocked puts can observe the stop flag.
+    The issuing runs on the consumer's thread. A worker thread that staged
+    the chunks (the reference's design) cost more in handing the
+    interpreter lock back and forth than it overlapped: on the card a
+    streamed fit took twice as long with it at prefetch 2 as at prefetch 0
+    (PERF.md §6, `tools/pager_parts.py`).
+
+    An exception raised by `load_fn` (after its own retry policy is
+    exhausted) is raised to the consumer in its chunk's turn, after the
+    chunks before it; nothing past it is issued. `close()` (called when
+    iteration ends, breaks or raises) orders the consumer's stream after
+    every copy issued, so the slots may be freed.
     """
 
-    def __init__(self, load_fn, indices, depth: int):
+    def __init__(self, load_fn, indices, depth: int, device: torch.device | None = None,
+                 slot_shape: tuple[int, int] | None = None):
         self._load = load_fn
         self._indices = list(indices)
-        self._queue: queue.Queue | None = None
-        self._stop: threading.Event | None = None
-        self._thread: threading.Thread | None = None
-        if depth > 0 and len(self._indices) > 1:
-            self._queue = queue.Queue(maxsize=depth)
-            self._stop = threading.Event()
-            self._thread = threading.Thread(
-                target=self._worker, name="chunk-pager", daemon=True
-            )
-            self._thread.start()
+        self.slots = max(1, min(depth + 1, len(self._indices)))
+        self._cuda = device is not None and device.type == "cuda"
+        self.device_slots = 0
+        if self._cuda:
+            self._device = device
+            self._pinned = [torch.empty(slot_shape, dtype=torch.int32, pin_memory=True)
+                            for _ in range(self.slots)]
+            self._dev = [torch.empty(slot_shape, dtype=torch.int32, device=device)
+                         for _ in range(self.slots)]
+            self.device_slots = self.slots
+            self._copied: list = [None] * self.slots  # each slot's last copy event
+            self._released: list = [None] * self.slots  # its last reader's event
+            self._copy_stream = torch.cuda.Stream(device=device)
 
-    def _worker(self) -> None:
-        for i in self._indices:
-            if self._stop.is_set():
-                return
-            try:
-                item = (i, self._load(i), None)
-            except BaseException as exc:  # forwarded, not swallowed
-                item = (i, None, exc)
-            while not self._stop.is_set():
-                try:
-                    self._queue.put(item, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-            if item[2] is not None:
-                return
+    def _issue(self, i: int, slot: int):
+        """Chunk i into `slot`: (chunk, copy event or None, exception or None)."""
+        try:
+            host = self._load(i)
+        except Exception as exc:  # raised to the consumer in this chunk's turn
+            return None, None, exc
+        if not self._cuda:
+            return host, None, None
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()  # the pinned buffer's last copy has run
+        self._pinned[slot].copy_(torch.from_numpy(host.view(np.int32)))
+        with torch.cuda.stream(self._copy_stream):
+            if self._released[slot] is not None:
+                self._copy_stream.wait_event(self._released[slot])  # its readers ran
+            self._dev[slot].copy_(self._pinned[slot], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        self._copied[slot] = copied
+        return self._dev[slot], copied, None
 
     def __iter__(self):
+        issued: collections.deque = collections.deque()
+        n = len(self._indices)
         try:
-            if self._thread is None:
-                for i in self._indices:
-                    yield i, self._load(i)
-                return
-            for _ in self._indices:
-                i, chunk, exc = self._queue.get()
+            for pos, i in enumerate(self._indices):
+                while len(issued) < self.slots and pos + len(issued) < n:
+                    if issued and issued[-1][2] is not None:
+                        break  # nothing past a failed chunk is issued
+                    nxt = pos + len(issued)
+                    issued.append(self._issue(self._indices[nxt], nxt % self.slots))
+                chunk, copied, exc = issued.popleft()
                 if exc is not None:
                     raise exc
+                if copied is not None:
+                    torch.cuda.current_stream(self._device).wait_event(copied)
                 yield i, chunk
+                if self._cuda:
+                    released = torch.cuda.Event()
+                    released.record(torch.cuda.current_stream(self._device))
+                    self._released[pos % self.slots] = released
         finally:
             self.close()
 
     def close(self) -> None:
-        """Stop the worker and release staged chunks (idempotent)."""
-        if self._thread is not None:
-            self._stop.set()
-            try:
-                while True:
-                    self._queue.get_nowait()
-            except queue.Empty:
-                pass
-            self._thread.join()
-            self._thread = None
-            self._queue = None
+        """Order the consumer's stream after every copy issued, so the slots
+        may be freed (idempotent)."""
+        if self._cuda:
+            torch.cuda.current_stream(self._device).wait_stream(self._copy_stream)
 
     def __enter__(self) -> "ChunkPager":
         return self
@@ -455,10 +489,13 @@ class ExternalDMatrix:
     quantised and bit-packed on its own (on the device, one chunk at a
     time), and the packed chunks are kept on the host as one
     (n_chunks, n_features, words_per_chunk) uint32 stack, with a crc32 of
-    each chunk recorded at build. `packed_bins()` pages the stack onto the
-    device once (cached; `unload()` drops it) as a `ChunkedPackedBins` that
-    the booster grows every tree from: both histogram kernels read the
-    whole stack in one launch a level ("resident" paging).
+    each chunk recorded at build. With resident paging `packed_bins()`
+    pages the stack onto the device once (cached; `unload()` drops it) as a
+    `ChunkedPackedBins` that the booster grows every tree from: both
+    histogram kernels read the whole stack in one launch a level. With
+    streamed paging the booster grows from `stream.StreamedChunkedBins`,
+    which pages chunks through `chunk_pager` pass after pass, and
+    `stream_stats` keeps the last streamed fit's counters.
 
     Labels, group ids and per-round gradients stay on the device (they are
     O(n), the matrix is O(n * f)).
@@ -491,14 +528,17 @@ class ExternalDMatrix:
         not at all. A mismatch raises ChunkIntegrityError naming the chunk.
       load_retries / load_backoff: page-in failures (I/O errors, integrity
         failures) are retried this many times with exponential backoff.
-      paging: "resident" (the stack paged onto the device once), or "auto"
-        (default), which is "resident" unless the stack would take more
-        than half the card's memory. Streamed paging (`"stream"`, and an
-        "auto" that resolves to it) is ROADMAP queue 1 item 4's streamed
-        half and raises NotImplementedError.
-      prefetch_chunks: chunks a background thread stages ahead when chunks
-        are paged one at a time (`iter_device_chunks` on a matrix that is
-        not resident); 0 loads them synchronously.
+      paging: "resident" (the stack paged onto the device once), "stream"
+        (the stack stays on the host; a fit pages it one chunk at a time,
+        about 13 passes over it a depth-6 round, with at most
+        prefetch_chunks + 1 chunks on the device), or "auto" (default),
+        which is "stream" when the stack would take more than half the
+        card's memory and "resident" otherwise.
+      prefetch_chunks: chunks the pager issues ahead of the one in use when
+        chunks are paged one at a time (a streamed fit, and
+        `iter_device_chunks` on a matrix that is not resident): on a card
+        their copies run while the kernels on the current chunk do; 0
+        loads each chunk when it is asked for.
       device: "cuda" (the default, None) or "cpu"; with `ref`, ref's.
     """
 
@@ -617,6 +657,7 @@ class ExternalDMatrix:
         self.load_backoff = load_backoff
         self.paging = paging
         self.prefetch_chunks = prefetch_chunks
+        self.stream_stats = None  # the last streamed fit's bins (core/stream.py)
 
     @classmethod
     def from_dmatrix(cls, dmat: "DeviceDMatrix", *, chunk_rows: int,
@@ -729,30 +770,27 @@ class ExternalDMatrix:
         return self._device_stack.numel() * 4
 
     def resolved_paging(self) -> str:
-        """The effective paging mode, "resident".
+        """The effective paging mode: "resident" or "stream".
 
-        "auto" is "resident" unless the device is a card and the stack
-        would take more than half its memory (`torch.cuda.mem_get_info`'s
-        total), leaving room for gradients, histograms and transients;
-        there, and for an explicit "stream", it would be streamed paging,
-        which is not ported: NotImplementedError."""
-        mode = self.paging
-        if mode == "auto":
-            mode = "resident"
-            if self.device.type == "cuda":
-                total = torch.cuda.mem_get_info(self.device)[1]
-                if self.nbytes_host > 0.5 * total:
-                    mode = "stream"
-        if mode == "stream":
-            raise NotImplementedError(_STREAM_UNPORTED)
-        return mode
+        "auto" is "stream" when the device is a card and the stack would
+        take more than half its memory (`torch.cuda.mem_get_info`'s total),
+        leaving room for gradients, histograms and transients, as the
+        reference resolves it from its device's memory limit; "resident"
+        otherwise, the CPU always."""
+        if self.paging != "auto":
+            return self.paging
+        if self.device.type == "cuda":
+            total = torch.cuda.mem_get_info(self.device)[1]
+            if self.nbytes_host > 0.5 * total:
+                return "stream"
+        return "resident"
 
     def packed_bins(self) -> C.ChunkedPackedBins:
         """Page the compressed chunk stack onto the device (cached) as the
-        representation the training rounds read. Page-in verifies per-chunk
-        crc32s and retries transient failures."""
+        representation the resident rounds read, whatever `paging` says (a
+        streamed fit never calls it). Page-in verifies per-chunk crc32s and
+        retries transient failures."""
         if self._device_stack is None:
-            self.resolved_paging()
             self._device_stack = self._page_in()
         return C.ChunkedPackedBins(
             packed=self._device_stack,
@@ -798,9 +836,9 @@ class ExternalDMatrix:
             retry_on=(OSError, RES.ChunkIntegrityError), on_retry=note,
         )
 
-    def _load_chunk(self, i: int) -> torch.Tensor:
-        """Page ONE chunk host -> device: the per-chunk analogue of
-        `_page_in`, with the same fault sites, verify policy and
+    def _host_chunk(self, i: int) -> np.ndarray:
+        """Chunk i's host words, checked: the per-chunk analogue of
+        `_page_in`'s host work, with the same fault sites, verify policy and
         retry/backoff. A retry clears the chunk's verified flag so the
         re-attempt re-checks the crc even under the "once" policy."""
 
@@ -815,7 +853,7 @@ class ExternalDMatrix:
                     context=f"ExternalDMatrix chunk {i}",
                 )
                 self._verified[i] = True
-            return self._to_device(chunk)
+            return chunk
 
         def note(n, exc):
             self._verified[i] = False
@@ -829,14 +867,21 @@ class ExternalDMatrix:
             retry_on=(OSError, RES.ChunkIntegrityError), on_retry=note,
         )
 
+    def _load_chunk(self, i: int) -> torch.Tensor:
+        """Page ONE chunk host -> device, a tensor of its own (`_host_chunk`
+        then a copy)."""
+        return self._to_device(self._host_chunk(i))
+
     def chunk_pager(self, indices=None, prefetch: int | None = None) -> ChunkPager:
         """A `ChunkPager` over `indices` (default: every chunk in order).
 
         When the stack is already on the device the pager serves its slices
-        synchronously (they were verified when paged in); otherwise a
-        background worker stages up to `prefetch` chunks (default
-        `self.prefetch_chunks`) ahead of the consumer via `_load_chunk`.
-        Iterate `(index, chunk)` pairs; iteration cleans up the worker."""
+        (they were verified when paged in). Otherwise the pager issues up to
+        `prefetch` chunks (default `self.prefetch_chunks`) ahead of the
+        consumer: on a card through its ring of pinned and device slots on
+        a copy stream (a chunk handed out is a slot, valid until the next is
+        asked for), on the CPU as fresh tensors. Iterate `(index, chunk)`
+        pairs."""
         if indices is None:
             indices = range(self.n_chunks)
         if self._device_stack is not None:
@@ -844,12 +889,16 @@ class ExternalDMatrix:
             return ChunkPager(lambda i: stack[i], indices, 0)
         if prefetch is None:
             prefetch = self.prefetch_chunks
+        if self.device.type == "cuda":
+            return ChunkPager(self._host_chunk, indices, prefetch, device=self.device,
+                              slot_shape=self._host_packed.shape[1:])
         return ChunkPager(self._load_chunk, indices, prefetch)
 
     def iter_device_chunks(self):
         """Yield each packed chunk as a device tensor, ONE at a time (the
         predict path): unless the stack is already resident, the full stack
-        is never on the device, and `nbytes_device` stays 0."""
+        is never on the device, and `nbytes_device` stays 0. On a card a
+        chunk is the pager's slot: valid until the next is asked for."""
         for _, chunk in self.chunk_pager():
             yield chunk
 
@@ -870,20 +919,11 @@ class ExternalDMatrix:
         )
 
 
-_STREAM_UNPORTED = (
-    "streamed paging (paging='stream', or an 'auto' whose stack would take "
-    "more than half the card's memory) is not ported yet: ROADMAP queue 1 "
-    "item 4's streamed half (core/stream.py); use paging='resident'"
-)
-
-
 def _check_paging(paging: str, prefetch_chunks: int) -> None:
     if paging not in ("auto", "resident", "stream"):
         raise ValueError(
             f"paging must be 'auto', 'resident' or 'stream', got {paging!r}"
         )
-    if paging == "stream":
-        raise NotImplementedError(_STREAM_UNPORTED)
     if prefetch_chunks < 0:
         raise ValueError(f"prefetch_chunks must be >= 0, got {prefetch_chunks}")
 

@@ -2,13 +2,14 @@
 `repro.core.partition`. `update_positions` routes on dense bins,
 `update_positions_packed` on the flat words, and `update_positions_on`,
 which growth calls and which stands for the reference's
-`update_positions_packed_rows` and `update_positions_chunked(_rows)`, on
-either packed layout
-(`compress.PackedBins` or the external-memory chunk stack
-`compress.ChunkedPackedBins`), over all rows or a buffer's row ids. On the
-chunk stack it reads each row's bin by global row id; routing is
-elementwise, so it needs no pass over chunks and gives the flat routing's
-result.
+`update_positions_packed_rows`, `update_positions_chunked(_rows)` and the
+streamed executor's routing, on any bins type (`compress.PackedBins`, the
+external-memory chunk stack `compress.ChunkedPackedBins`, or
+`stream.StreamedChunkedBins`), over all rows or a buffer's row ids,
+through `bins.feature_bins`. On the resident chunk stack it reads each
+row's bin by global row id; on the streamed stack `feature_bins` fills
+the bins in one pass over the chunks. Routing is elementwise, so either
+gives the flat routing's result.
 
 Arena indexing: complete binary tree, children of node k are 2k+1 / 2k+2.
 positions[i] = arena node id of row i, or -1 once the row rests in a leaf.
@@ -66,7 +67,7 @@ def update_positions_packed(
 
 
 def update_positions_on(
-    bins: C.PackedBins | C.ChunkedPackedBins,
+    bins,  # a bins type: PackedBins, ChunkedPackedBins or StreamedChunkedBins
     positions: torch.Tensor,  # (n,) or, with row_ids, (m,) int32 arena node ids
     split_mask: torch.Tensor,
     feature: torch.Tensor,
@@ -75,7 +76,7 @@ def update_positions_on(
     missing_bin: int,
     row_ids: torch.Tensor | None = None,  # (m,) int row id of each buffer slot
 ) -> torch.Tensor:
-    """update_positions_packed on either packed layout: each row's
+    """update_positions_packed on any bins type: each row's
     (or, with `row_ids`, each buffer slot's) split-feature bin through
     `bins.feature_bins`."""
     return _route(positions, split_mask, feature, split_bin, default_left, missing_bin,

@@ -1,11 +1,12 @@
 """Ensemble arena and bin-space prediction (paper §2.4); counterpart of
 `repro.core.predict`.
 
-`traverse_trees_on` (either packed layout: the flat words or the
-external-memory chunk stack) and `traverse_tree_binned` (dense bins,
-`compress_matrix=False`) are the training margin update: trees in bin
-space, all rows one level per step (plain torch gathers; the reference
-runs them in XLA too), sharing one walk (`_traverse`). Bin-space margins
+`traverse_trees_on` (any bins type's `traverse`: the flat words, the
+external-memory chunk stack, or the streamed stack a chunk at a time) and
+`traverse_tree_binned` (dense bins, `compress_matrix=False`) are the
+training margin update: trees in bin space, all rows one level per step
+(plain torch gathers; the reference runs them in XLA too), sharing one
+walk (`_traverse`). Bin-space margins
 add each class's trees in tree order (`fold_classes`, `_sum_trees`), so a
 row's margin is the same whichever rows share the call.
 Raw-row prediction (`predict_raw`, and `serve/traversal.py`) goes through
@@ -132,17 +133,18 @@ def traverse_tree_binned(
 
 
 def traverse_trees_on(
-    bins: C.PackedBins | C.ChunkedPackedBins,
+    bins,
     feature, split_bin, default_left, leaf_value, is_leaf,
     missing_bin: int, max_depth: int,
 ) -> torch.Tensor:
-    """Leaf outputs (t, n_rows) of t tree arenas (t, a) over either packed
-    layout, the flat words or the external-memory chunk stack: per level one
-    word gather per (tree, row) plus a shift/mask (`bins.feature_bins`); the
-    dense bins never exist. The walk is elementwise per row, so on the chunk
-    stack the leaves are the flat walk's."""
-    return _traverse(feature, split_bin, default_left, leaf_value, is_leaf, bins.n_rows,
-                     missing_bin, max_depth, bins.feature_bins)
+    """Leaf outputs (t, n_rows) of t tree arenas (t, a) over a bins type
+    (`compress.PackedBins`, `compress.ChunkedPackedBins`,
+    `stream.StreamedChunkedBins`): `bins.traverse`, per level one word
+    gather per (tree, row) plus a shift/mask; the dense bins never exist.
+    The walk is elementwise per row, so on the chunk stack, resident or
+    streamed, the leaves are the flat walk's."""
+    return bins.traverse(feature, split_bin, default_left, leaf_value, is_leaf,
+                         missing_bin, max_depth)
 
 
 def traverse_trees_packed(
@@ -207,10 +209,11 @@ def predict_binned(ens: Ensemble, bins: torch.Tensor, missing_bin: int,
         ens.is_leaf[t], bins, missing_bin, max_depth))
 
 
-def predict_binned_on(ens: Ensemble, bins: C.PackedBins | C.ChunkedPackedBins,
-                      missing_bin: int, max_depth: int) -> torch.Tensor:
-    """Margins (n_rows, n_classes) from either packed layout (the
-    reference's `predict_binned_packed` and `predict_binned_chunked`)."""
+def predict_binned_on(ens: Ensemble, bins, missing_bin: int, max_depth: int) -> torch.Tensor:
+    """Margins (n_rows, n_classes) from a bins type (the reference's
+    `predict_binned_packed` and `predict_binned_chunked`), one tree's walk
+    at a time: on the streamed stack that is a pass a tree, so margins of
+    a streamed matrix go through `Booster` a chunk at a time instead."""
     return _sum_trees(ens, bins.n_rows, lambda t: traverse_trees_on(
         bins, ens.feature[t:t + 1], ens.split_bin[t:t + 1], ens.default_left[t:t + 1],
         ens.leaf_value[t:t + 1], ens.is_leaf[t:t + 1], missing_bin, max_depth)[0])

@@ -2,8 +2,11 @@
 `repro.core.tree` for single-device growth on the packed matrix
 (`PackedBins`), on the external-memory chunk stack (`ChunkedPackedBins`:
 both histogram kernels read the whole stack in one launch a level, and
-routing reads each row's word from its chunk) or on dense (n, f) int32
-bins (`compress_matrix=False`).
+routing reads each row's word from its chunk), on the streamed stack
+(`stream.StreamedChunkedBins`: one launch a chunk, the stack paged chunk by
+chunk) or on dense (n, f) int32 bins (`compress_matrix=False`). Every bins
+type answers the same calls (`histograms`, `histograms_rows`,
+`feature_bins`), so growth never asks which one it reads.
 
 The tree grows level-synchronously into a fixed arena of 2^(max_depth+1) - 1
 node slots. Every level: one histogram over all its nodes, split evaluation
@@ -72,7 +75,7 @@ def level_offset(level: int) -> int:
 
 
 def grow_tree(
-    bins: C.PackedBins | C.ChunkedPackedBins | torch.Tensor,
+    bins,  # a bins type (PackedBins, ChunkedPackedBins, StreamedChunkedBins) or dense bins
     gh: torch.Tensor,  # (n, 2) float32
     cuts: torch.Tensor,  # (f, n_cuts) float32
     max_depth: int,
@@ -83,21 +86,21 @@ def grow_tree(
     hist_builder=None,  # optional builder (kernels.ops), every level in full
     ctx: SMP.TreeContext | None = None,  # sampling and constraints
 ) -> Tree:
-    """Grow one tree from the packed matrix, the chunk stack or the dense
-    (n, f) bins and the rows' (g, h) pairs (with `ctx.row_ids` set: the
-    sampled buffer's). `hist_builder(bins, gh, positions, n_nodes,
-    max_bins)` receives the matrix as given; it is refused on the chunk
-    stack, as the reference refuses it."""
+    """Grow one tree from a bins type (the packed matrix, the chunk stack,
+    resident or streamed) or the dense (n, f) bins and the rows' (g, h)
+    pairs (with `ctx.row_ids` set: the sampled buffer's).
+    `hist_builder(bins, gh, positions, n_nodes, max_bins)` receives the
+    matrix as given; it is refused on either chunk stack, as the reference
+    refuses it."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
-    # Either packed layout (the flat words or the chunk stack) answers the
-    # same calls; only dense bins take other paths.
-    packed_mode = isinstance(bins, (C.PackedBins, C.ChunkedPackedBins))
+    # Every bins type answers the same calls; only dense bins take other paths.
+    packed_mode = not isinstance(bins, torch.Tensor) and hasattr(bins, "histograms_rows")
     if not packed_mode and not (isinstance(bins, torch.Tensor) and bins.ndim == 2):
-        raise TypeError("grow_tree takes the packed matrix (compress.PackedBins), "
-                        "the chunk stack (compress.ChunkedPackedBins) or dense "
-                        "(n, f) bins")
-    if isinstance(bins, C.ChunkedPackedBins) and hist_builder is not None:
+        raise TypeError("grow_tree takes a bins type (compress.PackedBins, "
+                        "compress.ChunkedPackedBins, stream.StreamedChunkedBins) or "
+                        "dense (n, f) bins")
+    if packed_mode and not isinstance(bins, C.PackedBins) and hist_builder is not None:
         raise NotImplementedError(
             "custom/kernel hist builders are not chunk-aware; use the "
             "default builders for external-memory training"
@@ -257,7 +260,7 @@ def grow_tree(
 
 
 def _histograms_by_subtraction(
-    bins: C.PackedBins | C.ChunkedPackedBins | torch.Tensor,
+    bins,  # a bins type or dense (n, f) bins
     gh: torch.Tensor,  # (n, 2)
     local: torch.Tensor,  # (n,) int32 level-local child index, n_nodes = inactive
     hist_prev: torch.Tensor,  # (n_nodes/2, f, max_bins, 2) parents' full hist
@@ -311,14 +314,13 @@ def _histograms_by_subtraction(
     ])
     pos_c = parent_ext[torch.clamp(buf, max=n)]
     gh_c = gh[torch.clamp(buf, max=n - 1)]
-    # Padding slots carry row id n (with `row_ids`, the matrix's n_rows);
-    # their position is the dump slot, so they contribute nothing (and their
-    # packed words are not read).
-    if not isinstance(bins, torch.Tensor):  # either packed layout
+    # Padding slots carry row id n; with `row_ids`, slots map to rows and a
+    # padding slot to the buffer's last row, as in the reference (so a
+    # streamed fit splits the buffer into the reference's segments). Their
+    # position is the dump slot, so they contribute nothing.
+    if not isinstance(bins, torch.Tensor):  # any bins type
         if row_ids is not None:
-            buf = torch.cat([row_ids.to(torch.int64),
-                             torch.full((1,), bins.n_rows, dtype=torch.int64,
-                                        device=dev)])[buf]
+            buf = row_ids.to(torch.int64)[torch.clamp(buf, max=n - 1)]
         hist_small = bins.histograms_rows(gh_c, pos_c, buf, n_par, max_bins)
     else:
         hist_small = H.build_histograms(bins[torch.clamp(buf, max=n - 1)], gh_c, pos_c,

@@ -20,7 +20,11 @@ All three compute the contract of `repro.core.histogram` (packed words,
   8-byte atomic, each warp starting at its own feature.
 
 Both private kernels take their grid from `launch_plan`, each with its own
-target of resident blocks per SM. Given `chunk_rows`, both read the
+target of resident blocks per SM. Both flush their private histograms with
+global atomics into an output that the wrapper zeroes, or, given `out=`,
+into the caller's buffer as it stands: the streamed external-memory path
+(`core/stream.py`) adds one chunk's launch after another into one running
+histogram that way. Given `chunk_rows`, both read the
 external-memory chunk stack instead of the flat words: `packed` is then
 (n_chunks, F, words_per_chunk), row r's words are chunk r // chunk_rows's
 at offset r % chunk_rows, a chunk's padding rows (and the rows past the
@@ -119,6 +123,19 @@ def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tenso
     return gh.clone() if gh.data_ptr() % 8 else gh
 
 
+def _output(out: torch.Tensor | None, n_nodes: int, f: int, max_bins: int,
+            dev: torch.device) -> torch.Tensor:
+    """The histogram the kernel adds into: zeros, or the caller's `out`
+    (checked, never zeroed)."""
+    if out is None:
+        return torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    B.expect(out, "out", torch.float32, 4)
+    if tuple(out.shape) != (n_nodes, f, max_bins, 2) or out.device != dev:
+        raise ValueError(f"out must be ({n_nodes}, {f}, {max_bins}, 2) float32 on {dev}, "
+                         f"got {tuple(out.shape)} on {out.device}")
+    return out
+
+
 def _words(packed: torch.Tensor, chunk_rows: int | None) -> tuple[int, int, int]:
     """(features, words a feature row, rows the words hold) of the flat
     words or of the chunk stack, whose chunks' words the kernels walk as one
@@ -144,17 +161,18 @@ def build_histograms_packed_kernel(
     max_bins: int,
     bits: int,
     chunk_rows: int | None = None,  # given: packed is the chunk stack
+    out: torch.Tensor | None = None,  # given: added into, not zeroed
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 on the card, through
     privatised shared-memory histograms; over the chunk stack in one launch
-    when `chunk_rows` is given."""
+    when `chunk_rows` is given; added into `out` when given."""
     gh = _check_inputs(packed, gh, positions, n_nodes, bits, chunk_rows)
     f, w, held = _words(packed, chunk_rows)
     n = gh.shape[0]
     if (w * (32 // bits) if held is None else held) < n:
         raise ValueError(f"the packed words hold fewer than {n} rows")
     dev = packed.device
-    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    out = _output(out, n_nodes, f, max_bins, dev)
     if w == 0 or f == 0:
         return out
     plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
@@ -179,11 +197,13 @@ def build_histograms_rows_kernel(
     max_bins: int,
     bits: int,
     chunk_rows: int | None = None,  # given: packed is the chunk stack
+    out: torch.Tensor | None = None,  # given: added into, not zeroed
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 of the rows in a compacted
-    buffer. A slot at the dump position, or whose row id lies outside the
-    packed words (the stack's n_chunks * chunk_rows rows when `chunk_rows`
-    is given), contributes nothing and its row is never read."""
+    buffer, added into `out` when given. A slot at the dump position, or
+    whose row id lies outside the packed words (the stack's n_chunks *
+    chunk_rows rows when `chunk_rows` is given), contributes nothing and its
+    row is never read."""
     gh_sel = _check_inputs(packed, gh_sel, pos_sel, n_nodes, bits, chunk_rows)
     B.expect(row_ids, "row_ids", torch.int32, 1)
     if row_ids.shape[0] != pos_sel.shape[0]:
@@ -192,7 +212,7 @@ def build_histograms_rows_kernel(
     f, w, _ = _words(packed, chunk_rows)
     m = pos_sel.shape[0]
     dev = packed.device
-    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    out = _output(out, n_nodes, f, max_bins, dev)
     if m == 0 or w == 0 or f == 0:
         return out
     plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index))

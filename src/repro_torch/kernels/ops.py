@@ -60,20 +60,37 @@ def histogram_packed_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch
     return R.histogram_packed_ref(packed, gh, positions, n_nodes, max_bins, bits)
 
 
+def _slab_nodes(out: torch.Tensor | None, n_nodes: int, chunk_rows) -> torch.Tensor | None:
+    """A running slab's first n_nodes nodes, the kernels' `out=` (the dump
+    slot is the plain versions' alone); slabs are for the flat words."""
+    if out is None:
+        return None
+    if chunk_rows is not None:
+        raise ValueError("out= adds flat words (one chunk) into a slab, not the chunk stack")
+    if out.ndim != 4 or out.shape[0] != n_nodes + 1:
+        raise ValueError(f"out must be an (n_nodes + 1, F, max_bins, 2) slab of "
+                         f"{n_nodes + 1} nodes, got {tuple(out.shape)}")
+    return out[:n_nodes]
+
+
 def histogram_private_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
                          n_nodes: int, max_bins: int, bits: int,
-                         chunk_rows: int | None = None) -> torch.Tensor:
+                         chunk_rows: int | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram from packed words through the
     privatised kernel; with `chunk_rows`, from the (n_chunks, F,
-    words_per_chunk) chunk stack, in one launch."""
+    words_per_chunk) chunk stack, in one launch. Given `out`, a running
+    (n_nodes + 1, F, max_bins, 2) slab (its last node the dump slot), the
+    rows are added into it (`core.histogram.histogram_chunk_update`)."""
+    nodes = _slab_nodes(out, n_nodes, chunk_rows)
     if packed.is_cuda:
         return build_histograms_packed_kernel(
             packed.contiguous(), gh.contiguous(), positions.to(torch.int32).contiguous(),
-            n_nodes, max_bins, bits, chunk_rows)
+            n_nodes, max_bins, bits, chunk_rows, out=nodes)
     if chunk_rows is not None:
         return R.histogram_chunked_ref(packed, gh, positions, n_nodes, max_bins, bits,
                                        chunk_rows)
-    return R.histogram_ref(packed, gh, positions, n_nodes, max_bins, bits)
+    return R.histogram_ref(packed, gh, positions, n_nodes, max_bins, bits, out=out)
 
 
 def build_histograms_kernel_packed(data: PackedBins, gh: torch.Tensor,
@@ -97,18 +114,23 @@ def build_histograms_kernel(bins: torch.Tensor, gh: torch.Tensor, positions: tor
 
 def histogram_rows(packed: torch.Tensor, gh_sel: torch.Tensor, pos_sel: torch.Tensor,
                    row_ids: torch.Tensor, n_nodes: int, max_bins: int,
-                   bits: int, chunk_rows: int | None = None) -> torch.Tensor:
+                   bits: int, chunk_rows: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram of a compacted row buffer; with
-    `chunk_rows`, over the chunk stack (global row ids), in one launch."""
+    `chunk_rows`, over the chunk stack (global row ids), in one launch.
+    Given `out`, a running slab as for `histogram_private_op`, the slots
+    are added into it (`core.histogram.histogram_rows_chunk_update`)."""
+    nodes = _slab_nodes(out, n_nodes, chunk_rows)
     if packed.is_cuda:
         return build_histograms_rows_kernel(
             packed.contiguous(), gh_sel.contiguous(), pos_sel.to(torch.int32).contiguous(),
-            row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits, chunk_rows)
+            row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits, chunk_rows,
+            out=nodes)
     if chunk_rows is not None:
         return R.histogram_rows_chunked_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
                                             max_bins, bits, chunk_rows)
     return R.histogram_rows_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
-                                max_bins, bits)
+                                max_bins, bits, out=out)
 
 
 def decompress_op(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:

@@ -32,13 +32,16 @@ def histogram_ref(
     n_nodes: int,
     max_bins: int,
     bits: int,
+    out: torch.Tensor | None = None,  # (n_nodes + 1, F, max_bins, 2) slab to add into
 ) -> torch.Tensor:
     """Plain version of the privatised histogram kernel: unpack, then
     scatter-add. Returns (n_nodes, F, max_bins, 2) in gh's dtype: float32
     as the kernel computes it, or float64 for a reference whose own
-    rounding stays far below the kernel's."""
+    rounding stays far below the kernel's. Given `out`, the rows are
+    scattered into that running slab in row order (`build_histograms`'
+    `flat`)."""
     bins = unpack(packed, bits, gh.shape[0])
-    return H.build_histograms(bins, gh, positions, n_nodes, max_bins)
+    return H.build_histograms(bins, gh, positions, n_nodes, max_bins, flat=out)
 
 
 # `histogram_packed` computes the same function as the privatised kernel.
@@ -53,12 +56,13 @@ def histogram_rows_ref(
     n_nodes: int,
     max_bins: int,
     bits: int,
+    out: torch.Tensor | None = None,  # (n_nodes + 1, F, max_bins, 2) slab to add into
 ) -> torch.Tensor:
     """Plain version of the row-id histogram kernel: one word gather and a
     shift/mask per (slot, feature), then the scatter-add in slot order. A
     slot whose row id lies outside the packed words goes to the dump slot,
     as one at the dump position does. Returns (n_nodes, F, max_bins, 2) in
-    gh_sel's dtype."""
+    gh_sel's dtype; given `out`, scattered into that running slab."""
     spw = symbols_per_word(bits)
     rid = row_ids.to(torch.int64)
     inside = (rid >= 0) & (rid < packed.shape[1] * spw)
@@ -66,7 +70,7 @@ def histogram_rows_ref(
     words = words_as_uint(packed[:, rid // spw])  # (F, m)
     bins = ((words >> ((rid % spw) * bits)) & ((1 << bits) - 1)).t()
     pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
-    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins)
+    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins, flat=out)
 
 
 def histogram_chunked_ref(

@@ -10,6 +10,11 @@ tree t feeds class t % n_classes.
 `traverse_ensemble_raw` and `traverse_ensemble_packed` give the per-tree
 leaves (n_trees, n_rows) over raw rows and over the bit-packed quantised
 matrix; `predict_margins_fused_packed` folds the packed ones into margins.
+For external memory, `ensemble_leaves_chunk` gives one packed chunk's
+leaves (the unit of a paged predict) and `predict_margins_fused_chunked`
+the margins over a resident chunk stack, chunk by chunk; each class adds
+its trees in tree order (`core.predict.fold_classes`), so both are bit for
+bit `core.predict.predict_binned_on` over the same rows.
 The reference builds these with XLA, outside any kernel; here they are
 plain torch on the tensors' device, a block of TREES_BLOCK trees advancing
 one level per step: the kernel's plain version (`kernels.ref`) over raw
@@ -61,6 +66,32 @@ def predict_margins_fused_packed(ens: PR.Ensemble, packed: torch.Tensor, bits: i
     leaves = traverse_ensemble_packed(ens.feature, ens.split_bin, ens.default_left,
                                       ens.leaf_value, ens.is_leaf, packed, bits, n_rows,
                                       missing_bin, max_depth)
+    return PR.fold_classes(leaves, ens)
+
+
+def ensemble_leaves_chunk(ens: PR.Ensemble, chunk_words: torch.Tensor, bits: int,
+                          chunk_rows: int, n_rows: int, missing_bin: int,
+                          max_depth: int) -> torch.Tensor:
+    """(n_trees, chunk_rows) leaf outputs of ONE packed chunk (F,
+    words_per_chunk), walked at its padded chunk_rows size: the unit of a
+    paged predict over an ExternalDMatrix. `n_rows` is the reference's
+    argument; the chunk's padding rows are the caller's to drop."""
+    del n_rows
+    return traverse_ensemble_packed(ens.feature, ens.split_bin, ens.default_left,
+                                    ens.leaf_value, ens.is_leaf, chunk_words, bits,
+                                    chunk_rows, missing_bin, max_depth)
+
+
+def predict_margins_fused_chunked(ens: PR.Ensemble, packed: torch.Tensor, bits: int,
+                                  chunk_rows: int, n_rows: int, missing_bin: int,
+                                  max_depth: int) -> torch.Tensor:
+    """Margins (n_rows, n_classes) over a device-resident (n_chunks, F,
+    words_per_chunk) chunk stack: each chunk's leaves (`ensemble_leaves_chunk`)
+    in global row order, the padding dropped, folded class by class in tree
+    order: bit for bit `core.predict.predict_binned_on` over the stack."""
+    leaves = torch.cat([ensemble_leaves_chunk(ens, packed[c], bits, chunk_rows, n_rows,
+                                              missing_bin, max_depth)
+                        for c in range(packed.shape[0])], dim=1)[:, :n_rows]
     return PR.fold_classes(leaves, ens)
 
 

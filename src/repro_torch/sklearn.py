@@ -140,7 +140,8 @@ class _BoosterEstimator(BaseEstimator):
         self.quantile_alpha = quantile_alpha
         self.verbose = verbose
         # chunk_rows=None trains in memory; an int routes the training set
-        # through ExternalDMatrix.from_arrays (external memory, resident).
+        # through ExternalDMatrix.from_arrays (external memory, its "auto"
+        # paging: streamed when the stack tops half the card's memory).
         self.chunk_rows = chunk_rows
         self.subsample = subsample
         self.sampling_method = sampling_method

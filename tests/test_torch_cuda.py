@@ -959,3 +959,113 @@ def test_resume_on_card(rng, tmp_path):
     assert torch.equal(got.ensemble.feature[:3], snap.ensemble.feature)
     assert torch.equal(got.ensemble.leaf_value[:3], snap.ensemble.leaf_value)
     assert bool(torch.isfinite(got.predict(x)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [2, 0])
+def test_stream_pager_round_trip_on_card(rng, prefetch):
+    """The streamed pager on the card: prefetch + 1 device slots (1 at 0),
+    and each chunk read back equals its host words, also when the
+    consumer's stream is held up by a sleeping kernel before it reads each
+    chunk (a slot overwritten before its reader ran would show here)."""
+    from repro_torch.core import DeviceDMatrix, ExternalDMatrix
+
+    dev = _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    e = ExternalDMatrix.from_arrays(x, y, chunk_rows=333, ref=d, paging="stream",
+                                    prefetch_chunks=prefetch)
+    for sleep in (0, 1_000_000):
+        pager = e.chunk_pager()
+        assert pager.device_slots == prefetch + 1
+        got = []
+        for i, words in pager:
+            assert words.device.type == "cuda"
+            if sleep:
+                torch.cuda._sleep(sleep)
+            got.append((i, words.clone()))
+        torch.cuda.synchronize(dev)
+        assert [i for i, _ in got] == list(range(e.n_chunks))
+        for i, words in got:
+            assert np.array_equal(words.cpu().numpy().view(np.uint32), e._host_packed[i])
+    assert e.nbytes_device == 0
+
+
+@pytest.mark.cuda
+def test_slab_accumulation_on_card(rng):
+    """Both histogram kernels with out=: each chunk of a stack added into
+    one slab, against one flat launch over the same rows (real-valued
+    (g, h): atomics in another order, rtol 1e-5, atol 2e-5)."""
+    from repro_torch.core import histogram as TH
+
+    dev = _cuda()
+    n, f, max_bins, n_nodes, chunk_rows = 4096, 28, 256, 8, 1000
+    flat, stack, bits = _chunk_stack(rng, n, f, max_bins, chunk_rows, 0.0)
+    gh = torch.from_numpy(np.stack([rng.normal(size=n), rng.random(n)], 1).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(0, n_nodes + 1, size=n).astype(np.int32))
+    gh, pos, flat, stack = gh.to(dev), pos.to(dev), flat.to(dev), stack.to(dev)
+    slab = TH.new_slab(n_nodes, f, max_bins, dev)
+    for c in range(stack.shape[0]):
+        s, t = c * chunk_rows, min((c + 1) * chunk_rows, n)
+        TH.histogram_chunk_update(slab, stack[c], gh[s:t], pos[s:t], n_nodes, max_bins, bits)
+    want = build_histograms_packed_kernel(flat, gh, pos, n_nodes, max_bins, bits)
+    np.testing.assert_allclose(TH.finalize_slab_histogram(slab, n_nodes, max_bins).cpu().numpy(),
+                               want.cpu().numpy(), rtol=1e-5, atol=2e-5)
+    rid = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False)).astype(np.int32)).to(dev)
+    sel = pos[rid.long()] % n_nodes
+    slab = TH.new_slab(n_nodes, f, max_bins, dev)
+    for c in range(stack.shape[0]):
+        m = (rid >= c * chunk_rows) & (rid < (c + 1) * chunk_rows)
+        TH.histogram_rows_chunk_update(slab, stack[c], gh[rid.long()][m], sel[m],
+                                       rid[m] - c * chunk_rows, n_nodes, max_bins, bits)
+    want = build_histograms_rows_kernel(flat, gh[rid.long()], sel, rid, n_nodes, max_bins, bits)
+    np.testing.assert_allclose(TH.finalize_slab_histogram(slab, n_nodes, max_bins).cpu().numpy(),
+                               want.cpu().numpy(), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [2, 0])
+def test_streamed_fit_on_card(rng, prefetch):
+    """A streamed fit against the resident chunked fit: #1 once a chunk a
+    round, the row-id kernel once a paged row segment, the split scan once
+    a level; training accuracy within 0.003; the stack never on the card;
+    predict on the streamed matrix bit for bit the flat predict."""
+    from repro_torch.core import Booster, DeviceDMatrix, ExternalDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    kw = dict(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic")
+    res = Booster(**kw).fit(ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=d,
+                                                        paging="resident"))
+    e = ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=d, paging="stream",
+                                    prefetch_chunks=prefetch)
+    ops.reset_launches()
+    bst = Booster(**kw).fit(e)
+    got = ops.launches()
+    st = e.stream_stats
+    assert got["histogram_private"] == 3 * e.n_chunks
+    assert got["histogram_rows"] == st.row_segments <= 9 * e.n_chunks
+    assert got["split_scan"] == 12 and st.device_slots == prefetch + 1
+    assert e.nbytes_device == 0
+
+    def acc(b):
+        return float(((b.predict(x) > 0.5).cpu().numpy() == y).mean())
+
+    assert abs(acc(bst) - acc(res)) <= 0.003
+    assert torch.equal(bst.predict_margins(e), bst.predict_margins(d))
+    assert e.nbytes_device == 0
+
+
+@pytest.mark.cuda
+def test_auto_paging_streams_on_a_small_card(rng, monkeypatch):
+    """"auto" resolves from the card's memory: a stack above half of
+    `torch.cuda.mem_get_info`'s total streams."""
+    from repro_torch.core import DeviceDMatrix, ExternalDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    e = ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=DeviceDMatrix(x, label=y))
+    assert e.resolved_paging() == "resident"
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1024, 2 * 1024))
+    assert e.nbytes_host > 1024 and e.resolved_paging() == "stream"

@@ -199,8 +199,11 @@ def test_from_dmatrix_rechunk_and_from_arrays(data):
 
 def test_unported_paging_and_sharded_sketch_raise(data):
     x, y, *_ = data
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ExternalDMatrix.from_arrays(x, y, chunk_rows=500, paging="stream", **CPU)
+    # Streamed paging is ported (test_torch_stream.py): it trains.
+    st = ExternalDMatrix.from_arrays(x, y, chunk_rows=500, paging="stream", max_bins=32,
+                                     **CPU)
+    assert st.resolved_paging() == "stream"
+    assert Booster(**KW).fit(st).n_rounds_trained == KW["n_rounds"] and st.nbytes_device == 0
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ExternalDMatrix.from_arrays(x, y, chunk_rows=500, sketch_shards=2, **CPU)
     # One chunk makes one shard: the sequential sketch, as in the reference.

@@ -271,7 +271,7 @@ def test_chunk_rows_raises(cls_data):
     reference's does: the same sketch cuts (the sketch is the reference's,
     copied), so the probabilities agree within the fit tolerance."""
     from repro.sklearn import XGBClassifier as JClassifier
-    from repro_torch.core import ExternalDMatrix
+    from repro_torch.core import Booster, ExternalDMatrix
 
     x, yc = cls_data
     kw = dict(n_estimators=8, max_depth=3, max_bins=32, chunk_rows=100)
@@ -281,8 +281,11 @@ def test_chunk_rows_raises(cls_data):
     np.testing.assert_array_equal(mine.booster_.cuts.numpy(), np.asarray(theirs.booster_.cuts))
     np.testing.assert_allclose(mine.predict_proba(x), np.asarray(theirs.predict_proba(x)),
                                **TOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ExternalDMatrix.from_arrays(x, yc, chunk_rows=100, paging="stream", device="cpu")
+    # Streamed paging is ported (test_torch_stream.py): it trains.
+    st = ExternalDMatrix.from_arrays(x, (yc == mine.classes_[1]).astype(np.float32),
+                                     chunk_rows=100, paging="stream", max_bins=32, device="cpu")
+    assert st.resolved_paging() == "stream"
+    assert Booster(n_rounds=2, max_bins=32).fit(st).n_rounds_trained == 2
 
 
 @pytest.mark.parametrize("knob,value", [("on_oom", "external"), ("checkpoint_every", 2),
