@@ -202,12 +202,41 @@ Phases, each printing one JSON line:
                 with on_oom="external" (one `oom_fallback` at n_rows // 2, the
                 fit through the chunk stack, launches 10/50/60, accuracy >
                 0.7) and without (SimulatedOOM).
-  16. ops     — the path the reference gives `histogram_packed` and
+  16. dist    — multi-device training on this one card: the main matrix (its
+                rows cut to a multiple of 4) sharded over DIST_SHARDS positions
+                (`dist.make_mesh(..., device="cuda")`), one thread a shard.
+                Gates: the psum fit at 2 and 4 shards launches #1 60 x S
+                (every level in full on each shard), row-id 0, the split scan
+                60 x S (every shard evaluates), decompress 1 (the words
+                repacked a shard, cached); accuracy > 0.7 and within 0.003 of
+                the kernel-path fit; every shard's trees equal bit for bit in
+                every round; `predict` bit for bit the plain traversal. The
+                collective alone on the 4 shards' root histograms: q16 psum,
+                ring, hier and the (2, 2) hier equal and the CPU's bit for bit,
+                the f32 ring the CPU's bit for bit, the f16 ring within
+                2 S 2^-11 m_sum of the exact sum, tolerance 0 the f32 ring's
+                result with every shard's tally 1. Strategy fits at 4 shards
+                (ring, hier, hier on a (2, 2) mesh, f16 and q16 rings):
+                launches, accuracy within 0.003 of the psum fit, comm_stats
+                the CPU's dict, no fallback. At 2 shards: subsample 0.5 and
+                GOSS (each shard's masked gh of round 0 gathered = the one-card
+                masked gh bit for bit; accuracy > 0.7), a resident
+                ExternalDMatrix of 8 chunks (the chunked #1 60 x S) and
+                `compress_matrix=False` (decompress 1, #1 0), each within
+                0.003 of the 2-shard psum fit. `sharded_sketch_cuts(mesh=)` at
+                2 and 4 shards: every cut of a feature whose cuts are all
+                finite within 2 (S + 3) / 1024 of its target rank. A shard
+                that raises ends the fit with its exception within
+                DIST_FAIL_S, no thread left. Readings: fit_s, comm_stats bytes,
+                ms a level-5 allreduce of each strategy and compression, the
+                sketch's seconds, DIST_PAIRS warm rotations of 1-, 2- and
+                4-shard fits.
+  17. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  17. check   — each kernel against its plain PyTorch version on the same
+  18. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -237,7 +266,7 @@ Phases, each printing one JSON line:
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
                 shapes are.
-  18. time    — CUDA-event ms of each kernel, its plain version and, where one
+  19. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -269,11 +298,12 @@ Phases, each printing one JSON line:
                 chunk stack of the external phase), by events and back to
                 back, each beside its bound in bytes, and its chunked plain
                 version.
-With --profile, six further fits are traced after the resilience phase,
+With --profile, seven further fits are traced after the dist phase,
 each printing its device busy time, idle share, launches and top kernels:
 the default, the dense default, EVAL_ROUNDS rounds with and without the
-evals, subsample=0.5, and the default on the streamed matrix (tables
-profile_{fit,dense,evals,no_evals,subsample,stream}.txt in the output
+evals, subsample=0.5, the default on the streamed matrix and the 2-shard
+default fit (tables
+profile_{fit,dense,evals,no_evals,subsample,stream,dist}.txt in the output
 directory, by device time and then by host time).
 Then the kernels line (each kernel's launches on the path that runs it:
 the main path's, histogram_packed's in the ops phase, decompress's in the
@@ -291,6 +321,7 @@ import re
 from signal import SIGKILL
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -433,6 +464,10 @@ SWEEP_ROWS, SWEEP_STEPS = 1_000, 64  # the monotone sweep: held-out rows x ascen
 EXT_CHUNK_ROWS, EXT_CHUNK_ROWS_LARGE, EXT_ODD_CHUNK_ROWS = 131_072, 1_048_576, 100_003
 EXT_EVAL_CHUNK_ROWS, EXT_BATCH_ROWS = 30_000, 125_000
 EXT_PAIRS = 3  # warm alternating pairs of the chunked and the flat default fit
+DIST_SHARDS = (2, 4)  # shard counts of the dist phase, every position on cuda:0
+DIST_PAIRS = 3  # warm rotations of the 1-, 2- and 4-shard default fits
+DIST_FAIL_S = 30.0  # a fit whose shard raises must end within this many seconds
+DIST_SKETCH_CAPACITY = 1024  # sharded_sketch_cuts' default summary size
 STREAM_PAIRS = 3  # warm alternating pairs: streamed vs resident, prefetch 2 vs 0
 FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
 # Resilience: the round whose gradients the nan_grad fault overwrites; kill
@@ -665,7 +700,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace further fits with torch.profiler (the default, "
                          "the dense default, 40 rounds with and without the evals, "
-                         "subsample=0.5, the streamed default): "
+                         "subsample=0.5, the streamed default, the 2-shard default): "
                          "device time by kernel and the device's idle share "
                          "(tables profile_*.txt in the output directory)")
     args = ap.parse_args()
@@ -695,6 +730,7 @@ def main() -> int:
         truncate_rounds,
     )
     from repro_torch.core.resilience import ChunkIntegrityError, NumericError
+    from repro_torch import dist as D
     from repro_torch.core.tree import _histograms_by_subtraction
     from repro_torch.core.histogram import node_sums
     from repro_torch.data import make_dataset
@@ -1849,6 +1885,249 @@ def main() -> int:
         raise SystemExit(f"resilience faults failed: {ckw} {oom}")
     del obst, always, once, dte
 
+    # --- 16. multi-device training: 2 and 4 shards on cuda:0 ----------------------
+    # The main matrix (its rows cut to a multiple of 4) sharded over meshes
+    # whose positions all sit on this card, one thread a shard.
+    n_dist = args.rows - args.rows % 4
+    d_dist = dtrain if n_dist == args.rows else DeviceDMatrix(
+        x_tr[:n_dist], label=y_tr[:n_dist], ref=dtrain)
+    meshes = {s_: D.make_mesh((s_,), ("data",), device=dev) for s_ in DIST_SHARDS}
+    acc_kernel = fitted["kernel"][1]
+    dist_fits, dist_bad = {}, []
+
+    def dist_fit(name, s_, knobs=None, data=None, **fit_kw):
+        """A sharded fit with its own counts: (booster, line)."""
+        fit_kw.setdefault("mesh", meshes[s_])
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        b_ = Booster(**booster_kw, **(knobs or {})).fit(d_dist if data is None else data, **fit_kw)
+        torch.cuda.synchronize()
+        line_ = {"fit": name, "shards": s_, **(knobs or {}), "fit_s": time.perf_counter() - t0,
+                 "launches": ops.launches(), "held_out_accuracy": accuracy(b_.predict(x_te)),
+                 "comm_stats": b_.comm_stats}
+        dist_fits[name] = (b_, line_)
+        return b_, line_
+
+    def want_dist(s_, decompress=0, private=None):
+        return {"histogram_private": ROUNDS * DEPTH * s_ if private is None else private,
+                "histogram_rows": 0, "split_scan": ROUNDS * DEPTH * s_, "decompress": decompress}
+
+    def tree_fields(t):
+        return (t.feature, t.split_bin, t.default_left, t.is_leaf, t.leaf_value, t.gain)
+
+    for s_ in DIST_SHARDS:
+        # The first fit at a shard count repacks the words a shard: one
+        # decompress (the matrix's unpack()), cached for the next fits.
+        b_, line_ = dist_fit(f"psum_{s_}", s_)
+        expect_launches(f"dist psum fit at {s_} shards", line_["launches"],
+                        want_dist(s_, decompress=1))
+        # Replication: every shard grows the same trees, every round.
+        runner = D.make_chunk_runner(b_.cfg, b_.obj, d_dist, meshes[s_])
+        margins = torch.full((n_dist, 1), b_.base_score, device=dev)
+        same = True
+        for r in range(ROUNDS):
+            out = runner.round_fn(runner.inputs(r, margins))
+            same &= all(torch.equal(a_, c_) for o in out[1:] for t0_, tp in zip(out[0][0], o[0])
+                        for a_, c_ in zip(tree_fields(t0_), tree_fields(tp)))
+            margins = torch.cat([o[1] for o in out])
+        # predict of the sharded model: the traversal kernel, bit for bit the
+        # plain traversal.
+        ens_ = b_.ensemble
+        plain = ref.ensemble_margins_ref(ens_.feature, ens_.threshold, ens_.default_left,
+                                         ens_.leaf_value, ens_.is_leaf, xte_dev, ens_.n_classes,
+                                         DEPTH) + ens_.base_score
+        line_.update(replicated=same, predict_exact=bool(torch.equal(
+            b_.predict_margins(xte_dev), plain)))
+        if not (same and line_["predict_exact"] and line_["held_out_accuracy"] > 0.7
+                and abs(line_["held_out_accuracy"] - acc_kernel) <= 0.003):
+            dist_bad.append(line_)
+        emit({"phase": "dist", **line_, "accuracy_kernel_path": acc_kernel})
+
+    # The collective alone on the card: the 4 shards' root histograms of the
+    # main matrix, every strategy, against the CPU's. The (g, h) are those
+    # after the main fit's 10 rounds: full float32 mantissas, so f16 and q16
+    # encode them with an error.
+    s4 = max(DIST_SHARDS)
+    runner = D.make_chunk_runner(bst.cfg, bst.obj, d_dist, meshes[s4])
+    per = runner.n_per
+    gh0 = bst.obj.grad(bst.margins[:n_dist], d_dist.label)[:, 0, :].contiguous()
+    zeros = torch.zeros(per, dtype=torch.int32, device=dev)
+    roots = [build_histograms_packed_kernel(runner.bins[p].packed, gh0[p * per:(p + 1) * per],
+                                            zeros, 1, MAX_BINS, dtrain.bits) for p in range(s4)]
+    mesh22 = D.make_mesh((2, 2), ("data", "pod"), device=dev)
+    cpu_meshes = {"4": D.make_mesh((s4,), ("data",), device="cpu"),
+                  "2x2": D.make_mesh((2, 2), ("data", "pod"), device="cpu")}
+
+    def reduce_all(mesh_, axes_, name_, comp_, tol_, xs):
+        c_ = D.get_collective(name_, mesh_, axes_, compression=comp_, tolerance=tol_)
+
+        def body(x_):
+            c_.begin_round()
+            return c_.allreduce_hist(x_), c_.fallback_count()
+
+        out_ = D.spmd(mesh_, body, [x_.to(mesh_.device(p_)) for p_, x_ in enumerate(xs)])
+        return [o[0] for o in out_], [int(o[1]) for o in out_]
+
+    card_q = {nm: reduce_all(meshes[s4], ("data",), nm, "q16", 0.05, roots)[0]
+              for nm in ("psum", "ring", "hier")}
+    card_q["hier_2x2"] = reduce_all(mesh22, ("data", "pod"), "hier", "q16", 0.05, roots)[0]
+    cpu_q = reduce_all(cpu_meshes["4"], ("data",), "psum", "q16", 0.05, [r_.cpu() for r_ in roots])[0]
+    q_same = all(torch.equal(t_.cpu(), cpu_q[0]) for v in card_q.values() for t_ in v)
+    ring32, fb32 = reduce_all(meshes[s4], ("data",), "ring", None, 0.05, roots)
+    ring32_cpu = reduce_all(cpu_meshes["4"], ("data",), "ring", None, 0.05,
+                            [r_.cpu() for r_ in roots])[0]
+    f32_same = all(torch.equal(a_.cpu(), c_) for a_, c_ in zip(ring32, ring32_cpu))
+    exact = torch.stack(roots).double().sum(dim=0)
+    m_sum = float(sum(float(r_.abs().max()) for r_ in roots))
+    ring16, fb16 = reduce_all(meshes[s4], ("data",), "ring", "f16", 0.05, roots)
+    f16_err = max(float((t_.double() - exact).abs().max()) for t_ in ring16)
+    f16_bound = 2 * s4 * 2.0**-11 * m_sum  # each cast of a partial: half an f16 ulp of <= m_sum
+    tight, fb_tight = reduce_all(meshes[s4], ("data",), "ring", "f16", 0.0, roots)
+    tight_q, fb_tight_q = reduce_all(meshes[s4], ("data",), "ring", "q16", 0.0, roots)
+    tight_exact = all(torch.equal(a_, c_) and torch.equal(b_, c_)
+                      for a_, b_, c_ in zip(tight, tight_q, ring32))
+    # ms a level of each strategy and compression at level 5's histogram
+    # (32 nodes), every shard's reduce, host-timed through the threads.
+    lvl5 = [torch.randn((32, dtrain.n_features, MAX_BINS, 2), device=dev) for _ in range(s4)]
+    level_ms = {}
+    for nm, mesh_, axes_ in (("psum", meshes[s4], ("data",)), ("ring", meshes[s4], ("data",)),
+                             ("hier", meshes[s4], ("data",)), ("hier_2x2", mesh22, ("data", "pod"))):
+        for comp_ in (None, "f16", "q16"):
+            reduce_all(mesh_, axes_, nm.split("_")[0], comp_, 0.05, lvl5)
+            level_ms[f"{nm}_{comp_ or 'f32'}"] = host_s(lambda: [reduce_all(
+                mesh_, axes_, nm.split("_")[0], comp_, 0.05, lvl5) for _ in range(5)]) / 5 * 1e3
+    coll_line = {"phase": "dist", "collective_alone": {
+        "shards": s4, "q16_all_equal_and_cpu": q_same, "f32_ring_equals_cpu": f32_same,
+        "f32_fallbacks": fb32, "f16_max_err": f16_err, "f16_bound": f16_bound,
+        "f16_fallbacks": fb16, "tolerance0_exact": tight_exact,
+        "tolerance0_tally": {"f16": fb_tight, "q16": fb_tight_q},
+        "level5_ms": level_ms}}
+    emit(coll_line)
+    if not (q_same and f32_same and f16_err <= f16_bound and tight_exact
+            and fb_tight == fb_tight_q == [1] * s4 and fb32 == [0] * s4 and fb16 == [0] * s4):
+        dist_bad.append(coll_line)
+
+    # Strategy fits at 4 shards: accuracy within 0.003 of the f32 psum fit,
+    # comm_stats the CPU's analytic dict, no fallback at the default tolerance.
+    acc_psum = dist_fits[f"psum_{s4}"][1]["held_out_accuracy"]
+    for name, mesh_, axes_, coll_, comp_ in (
+            ("ring", meshes[s4], ("data",), "ring", None),
+            ("hier", meshes[s4], ("data",), "hier", None),
+            ("hier_2x2", mesh22, ("data", "pod"), "hier", None),
+            ("f16", meshes[s4], ("data",), "ring", "f16"),
+            ("q16", meshes[s4], ("data",), "ring", "q16")):
+        b_, line_ = dist_fit(name, s4, mesh=mesh_, data_axes=axes_, collective=coll_,
+                             compression=comp_)
+        cpu_mesh = cpu_meshes["2x2" if mesh_ is mesh22 else "4"]
+        want_cs = D.round_comm_stats(
+            D.get_collective(coll_, cpu_mesh, axes_, compression=comp_), max_depth=DEPTH,
+            n_features=dtrain.n_features, max_bins=MAX_BINS).as_dict()
+        line_["comm_stats_equal_cpu"] = b_.comm_stats == want_cs
+        emit({"phase": "dist", **line_})
+        expect_launches(f"dist {name} fit", line_["launches"], want_dist(s4))
+        if not (line_["comm_stats_equal_cpu"] and b_.comm_stats["fallback_events"] == 0
+                and abs(line_["held_out_accuracy"] - acc_psum) <= 0.003):
+            dist_bad.append(line_)
+
+    # Sampled fits at 2 shards: each shard's masked gh, gathered, bit for bit
+    # the one-card masked selection of the same path; accuracy > 0.7.
+    s2 = min(DIST_SHARDS)
+    per2 = n_dist // s2
+    for name, knobs in (("subsample", {"subsample": 0.5}),
+                        ("goss", {"sampling_method": "goss", "top_rate": 0.2, "other_rate": 0.1})):
+        params = SMP.stochastic_params(Booster(**booster_kw, **knobs).cfg)
+        path = (0, 0, 0)  # seed 0, round 0, class 0
+        one = SMP.make_tree_context(params, path, gh0, dtrain.n_features, compact=False)[1]
+        shards = D.spmd(meshes[s2], lambda p_: SMP.make_tree_context(
+            params, path, gh0[p_ * per2:(p_ + 1) * per2], dtrain.n_features, compact=False,
+            n_total=n_dist, row_offset=p_ * per2, axis_name=("data",))[1], list(range(s2)))
+        b_, line_ = dist_fit(name, s2, knobs)
+        line_["selections_equal_one_card"] = bool(torch.equal(torch.cat(shards), one))
+        emit({"phase": "dist", **line_})
+        expect_launches(f"dist {name} fit", line_["launches"], want_dist(s2))
+        if not (line_["selections_equal_one_card"] and line_["held_out_accuracy"] > 0.7):
+            dist_bad.append(line_)
+
+    # A resident chunk stack split in whole chunks (8 chunks, 4 a shard),
+    # the chunked instantiation of #1; the dense bins (one unpack()).
+    acc2 = dist_fits[f"psum_{s2}"][1]["held_out_accuracy"]
+    chunk = n_dist // 8
+    ext = ExternalDMatrix.from_arrays(x_tr[:n_dist], y_tr[:n_dist], chunk_rows=chunk,
+                                      ref=dtrain, paging="resident")
+    ext.packed_bins()  # paged in before the counts
+    for name, knobs, data, want in (
+            ("chunked", None, ext, want_dist(s2)),
+            ("dense", {"compress_matrix": False}, None, want_dist(s2, decompress=1, private=0))):
+        b_, line_ = dist_fit(name, s2, knobs, data)
+        if name == "chunked":
+            line_.update(chunk_rows=chunk, n_chunks=ext.n_chunks)
+        emit({"phase": "dist", **line_})
+        expect_launches(f"dist {name} fit", line_["launches"], want)
+        if not (line_["held_out_accuracy"] > 0.7
+                and abs(line_["held_out_accuracy"] - acc2) <= 0.003):
+            dist_bad.append(line_)
+    del ext
+
+    # The sharded sketch: each shard's columns sorted on its position, merged
+    # on the host; every finite cut of a feature without collapsed cuts within
+    # the reference's rank bound 2 (S + 3) / capacity of its target.
+    xs_dev = torch.as_tensor(x_tr[:n_dist], device=dev)
+    finite = torch.isfinite(xs_dev)
+    cols = torch.sort(torch.where(finite, xs_dev, float("inf")), dim=0).values.t().contiguous()
+    n_valid = finite.sum(dim=0)
+    nvb = MAX_BINS - 1
+    sketch = {}
+    for s_ in DIST_SHARDS:
+        t0 = time.perf_counter()
+        cuts_s = D.sharded_sketch_cuts(x_tr[:n_dist], max_bins=MAX_BINS, mesh=meshes[s_])
+        sk_s = time.perf_counter() - t0
+        full = torch.isfinite(cuts_s).all(dim=1)
+        ranks = torch.searchsorted(cols, cuts_s.contiguous()).double()
+        target = (torch.arange(1, nvb, device=dev, dtype=torch.float64)[None, :] / nvb
+                  * (n_valid[:, None].double() - 1))
+        err = ((ranks - target).abs() / n_valid[:, None].double())[full]
+        eps = 2.0 * (s_ + 3) / DIST_SKETCH_CAPACITY
+        sketch[s_] = {"seconds": sk_s, "features_checked": int(full.sum()),
+                      "max_rank_error": float(err.max()) if err.numel() else None, "bound": eps}
+        if not (int(full.sum()) > 0 and float(err.max()) <= eps):
+            dist_bad.append({"sketch": s_, **sketch[s_]})
+    del xs_dev, finite, cols
+
+    # A shard that raises ends the fit with its exception, in time.
+    def failing_obj(m_, y_):
+        sh_ = D.group.current()
+        if sh_ is not None and sh_.position == 1:
+            raise ArithmeticError("shard 1 failed")
+        return torch.sigmoid(m_[:, 0]) - y_, torch.ones_like(y_)
+
+    threads_before = threading.active_count()
+    t0 = time.perf_counter()
+    try:
+        Booster(**booster_kw).fit(d_dist, obj=failing_obj, mesh=meshes[s2])
+        failure = "no error"
+    except ArithmeticError as exc:
+        failure = str(exc)
+    failure_s = time.perf_counter() - t0
+    # Readings: warm fits at 1, 2 and 4 shards in 3 rotations.
+    warm: dict[str, list[float]] = {str(s_): [] for s_ in (1, *DIST_SHARDS)}
+    for i in range(DIST_PAIRS):
+        order = (1, *DIST_SHARDS)[i % 3:] + (1, *DIST_SHARDS)[:i % 3]
+        for s_ in order:
+            kw_ = {} if s_ == 1 else {"mesh": meshes[s_]}
+            warm[str(s_)].append(host_s(lambda: Booster(**booster_kw).fit(d_dist, **kw_)))
+    emit({"phase": "dist", "sketch": sketch, "failure": failure, "failure_s": failure_s,
+          "threads_left": threading.active_count() - threads_before,
+          "warm_fit_s": warm, "warm_fit_s_median": {k: float(np.median(v)) for k, v in warm.items()},
+          "comm_bytes_per_round": {k: v[1]["comm_stats"]["bytes_per_round"]
+                                   for k, v in dist_fits.items()},
+          "nvidia_smi": nvidia_smi()})
+    if failure != "shard 1 failed" or failure_s > DIST_FAIL_S \
+            or threading.active_count() != threads_before:
+        dist_bad.append({"failure": failure, "seconds": failure_s})
+    if dist_bad:
+        raise SystemExit(f"dist phase failed: {dist_bad}")
+    del dist_fits, runner, roots, lvl5
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
@@ -1857,6 +2136,7 @@ def main() -> int:
         profile_fit(dtrain, "subsample", STOCH_FITS["subsample"][0])
         profile_fit(ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=ext_chunk, ref=dtrain,
                                                 paging="stream"), "stream")
+        profile_fit(d_dist, "dist", fit_kw={"mesh": meshes[min(DIST_SHARDS)]})
 
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1920,7 +2200,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 16. the ops path of histogram_packed and decompress -----------------
+    # --- 17. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -1987,7 +2267,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 17. kernels against their plain versions ---------------------------
+    # --- 18. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -2325,7 +2605,7 @@ def main() -> int:
                      "1e-6 where no pair is comparable", "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 18. times -------------------------------------------------------------
+    # --- 19. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")

@@ -90,9 +90,15 @@ agrees within the fits' tolerance (the histogram kernels' atomics add in
 no fixed order), as `update` does. Faults are provoked through
 `repro_torch.testing.faults`.
 
-Not ported yet: multi-device fits (`mesh=` and its keywords). They keep the
-reference's names and defaults; a non-default value raises
-NotImplementedError naming it.
+Multi-device fits (DESIGN.md §15): `fit(dtrain, mesh=dist.make_mesh((S,),
+("data",)), collective=, compression=, comm_tolerance=)`, and `update` and
+`resume` with the same keywords, shard the rows over the mesh
+(`dist.runner`): each round runs on every shard in a thread of its own,
+histograms are combined by the collective every level, and the round's
+trees and the global margins come back to the booster's device, where the
+eval sets, the metrics and the chunk's one host read stay. The fit's
+analytic wire accounting is `comm_stats`, with the measured
+`fallback_events`.
 """
 from __future__ import annotations
 
@@ -203,20 +209,22 @@ class BoosterConfig:
         return S.SplitParams(self.reg_lambda, self.gamma, self.min_child_weight)
 
 
-# Keywords of the reference's fit/update that this port lacks, with their
-# defaults: any other value raises NotImplementedError naming the keyword.
-_UNPORTED_KEYWORDS = {
-    "mesh": None, "data_axes": ("data",), "collective": "psum",
-    "compression": None, "comm_tolerance": 0.05,
-}
-
-
-def _refuse_unported(**given) -> None:
-    for kw, value in given.items():
-        default = _UNPORTED_KEYWORDS[kw]
-        if (tuple(value) if kw == "data_axes" else value) != default:
-            raise NotImplementedError(
-                f"{kw}={value!r} is not ported yet (only {kw}={default!r})")
+def _apply_trees(cfg: BoosterConfig, trees: list[T.Tree], data,
+                 margins: torch.Tensor) -> torch.Tensor:
+    """Add one round's trees (unscaled leaves, tree c feeding output c) to
+    margins, by bin-space traversal of `data`: on a bins type all k trees
+    in one `traverse` (one pass over a streamed stack a round)."""
+    mb, depth = cfg.max_bins - 1, cfg.max_depth
+    if not isinstance(data, torch.Tensor):  # any bins type
+        leaves = PR.traverse_trees_on(
+            data, *(torch.stack([getattr(tr, f) for tr in trees]) for f in (
+                "feature", "split_bin", "default_left", "leaf_value", "is_leaf")),
+            mb, depth).t()
+    else:
+        leaves = torch.stack([PR.traverse_tree_binned(
+            tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
+            data, mb, depth) for tr in trees], dim=1)
+    return margins + cfg.learning_rate * leaves
 
 
 class Booster:
@@ -253,7 +261,7 @@ class Booster:
         self._train_dmat: DeviceDMatrix | None = None  # the matrix `margins` are of
         self._obj: O.Objective | None = None  # fit(obj=...) override
         self._metrics: tuple[M.Metric, ...] | None = None
-        self.comm_stats: dict | None = None  # the reference's single-device value
+        self.comm_stats: dict | None = None  # the last sharded fit's accounting
         self.skipped_rounds: list[int] = []
         self.resilience_events: list[dict] = []
 
@@ -374,11 +382,19 @@ class Booster:
           the device (as in the reference), and a resident stack takes at
           least the flat words' memory, so a resident fallback relieves
           nothing but padding.
-        The multi-device keywords are the reference's and not ported yet:
-        a non-default value raises NotImplementedError.
+        mesh: a `dist.Mesh` (`dist.make_mesh`): rows are sharded over
+          `data_axes` and each level's histograms combined across the shards
+          (paper Algorithm 1); the same Booster comes out. The rows must
+          divide evenly across the shards; `group_ids` and streamed paging
+          are refused.
+        collective: the histogram reduction with mesh=: a registry name
+          ("psum", "ring", "hier"), a `dist.Collective` subclass or an
+          instance.
+        compression: None, "f16" or "q16": compressed histogram bin sums,
+          checked on the device and reduced exactly where the error bound
+          exceeds `comm_tolerance` (relative). The fit's accounting lands on
+          `comm_stats`.
         """
-        _refuse_unported(mesh=mesh, data_axes=data_axes, collective=collective,
-                         compression=compression, comm_tolerance=comm_tolerance)
         if on_oom not in ("raise", "external"):
             raise ValueError(f"on_oom must be 'raise' or 'external', got {on_oom!r}")
 
@@ -409,7 +425,9 @@ class Booster:
                 self._run_rounds(dmat, self.cfg.n_rounds, evals, early_stopping_rounds,
                                  verbose_every, callback,
                                  checkpoint_every=checkpoint_every,
-                                 checkpoint_path=checkpoint_path)
+                                 checkpoint_path=checkpoint_path, mesh=mesh,
+                                 data_axes=data_axes, collective=collective,
+                                 compression=compression, comm_tolerance=comm_tolerance)
                 return self
             except Exception as exc:
                 if on_oom != "external" or not RES.is_oom(exc):
@@ -475,10 +493,10 @@ class Booster:
         tolerance: the histogram kernels add floats with atomics in no
         fixed order, so a near-tied split may fall the other way. The
         objective is fixed at fit time; metrics may be changed per update.
-        `checkpoint_every` / `checkpoint_path` are fit's.
+        `checkpoint_every` / `checkpoint_path` and the sharding keywords
+        (`mesh`, `data_axes`, `collective`, `compression`, `comm_tolerance`)
+        are fit's.
         """
-        _refuse_unported(mesh=mesh, data_axes=data_axes, collective=collective,
-                         compression=compression, comm_tolerance=comm_tolerance)
         self._require_fitted()
         if dtrain.label is None:
             raise ValueError("dtrain must be constructed with label= to update")
@@ -491,7 +509,9 @@ class Booster:
             self._metrics = self._resolve_metrics(eval_metric, custom_metric)
         self._run_rounds(dtrain, n_rounds, evals, early_stopping_rounds,
                          verbose_every, callback, checkpoint_every=checkpoint_every,
-                         checkpoint_path=checkpoint_path)
+                         checkpoint_path=checkpoint_path, mesh=mesh, data_axes=data_axes,
+                         collective=collective, compression=compression,
+                         comm_tolerance=comm_tolerance)
         return self
 
     @classmethod
@@ -529,11 +549,11 @@ class Booster:
         Checkpointing continues with the original cadence to the same file
         by default (override with checkpoint_every/checkpoint_path); the
         file is rewritten as a completed checkpoint when the fit finishes.
+        The sharding keywords are fit's: a snapshot of a sharded fit resumes
+        on one device or on a mesh, and one device's on a mesh.
         """
         from repro_torch.checkpoint import io as CIO
 
-        _refuse_unported(mesh=mesh, data_axes=data_axes, collective=collective,
-                         compression=compression, comm_tolerance=comm_tolerance)
         bst, rs = CIO.load_booster_with_resume(path, device=dtrain.device)
         if rs is None:
             raise CIO.CheckpointError(
@@ -573,7 +593,9 @@ class Booster:
         cpath = checkpoint_path if checkpoint_path is not None else path
         es = int(rs.get("early_stopping_rounds", 0)) or None
         bst._run_rounds(dtrain, remaining, evals_n, es, ve, callback,
-                        checkpoint_every=ck, checkpoint_path=cpath, resume_state=rs)
+                        checkpoint_every=ck, checkpoint_path=cpath, resume_state=rs,
+                        mesh=mesh, data_axes=data_axes, collective=collective,
+                        compression=compression, comm_tolerance=comm_tolerance)
         return bst
 
     def _initial_margins(self, dmat) -> torch.Tensor:
@@ -621,25 +643,11 @@ class Booster:
             return dmat.packed_bins()
         return dmat.packed_bins() if self.cfg.compress_matrix else dmat.matrix.unpack()
 
-    def _add_trees(self, trees: list[T.Tree], data, margins: torch.Tensor) -> torch.Tensor:
-        """Add one round's trees (unscaled leaves, tree c feeding output c)
-        to margins, by bin-space traversal of `data`: on a bins type all k
-        trees in one `traverse` (one pass over a streamed stack a round)."""
-        mb, depth = self.cfg.max_bins - 1, self.cfg.max_depth
-        if not isinstance(data, torch.Tensor):  # any bins type
-            leaves = PR.traverse_trees_on(
-                data, *(torch.stack([getattr(tr, f) for tr in trees]) for f in (
-                    "feature", "split_bin", "default_left", "leaf_value", "is_leaf")),
-                mb, depth).t()
-        else:
-            leaves = torch.stack([PR.traverse_tree_binned(
-                tr.feature, tr.split_bin, tr.default_left, tr.leaf_value, tr.is_leaf,
-                data, mb, depth) for tr in trees], dim=1)
-        return margins + self.cfg.learning_rate * leaves
-
     def _run_rounds(self, dtrain, n_rounds: int, evals, early_stopping_rounds,
                     verbose_every, callback, checkpoint_every=None,
-                    checkpoint_path=None, resume_state=None) -> None:
+                    checkpoint_path=None, resume_state=None, mesh=None,
+                    data_axes=("data",), collective="psum", compression=None,
+                    comm_tolerance=0.05) -> None:
         if n_rounds <= 0:
             raise ValueError(f"n_rounds must be positive, got {n_rounds}")
         cfg, obj = self.cfg, self.obj
@@ -672,13 +680,14 @@ class Booster:
                 f"monotone_constraints has {len(cfg.monotone_constraints)} "
                 f"entries but dtrain has {dtrain.n_features} features"
             )
-        external = isinstance(dtrain, ExternalDMatrix)
-        if cfg.use_kernel_histograms and external:
+        if mesh is None and cfg.use_kernel_histograms and isinstance(dtrain, ExternalDMatrix):
             raise NotImplementedError(
                 "use_kernel_histograms is not supported with ExternalDMatrix "
                 "(the kernel path's builders are not chunk-aware); train with "
                 "the default builders"
             )
+        if mesh is not None and dtrain.group_ids is not None:
+            raise NotImplementedError("group_ids (rank:pairwise) is single-device only")
         evals = self._normalise_evals(evals, dtrain)
         record_every = verbose_every or (1 if (callback or evals) else 0)
         metrics = self._metrics if record_every > 0 else ()
@@ -687,7 +696,18 @@ class Booster:
         k = obj.n_outputs(cfg.n_classes)
 
         y = dtrain.label
-        data = self._bins(dtrain)
+        if mesh is not None:
+            # Sharded: the runner holds each shard's rows on its device and
+            # hands back a round's trees and the global margins here.
+            from repro_torch import dist as D
+
+            runner = D.make_chunk_runner(cfg, obj, dtrain, mesh, data_axes,
+                                         collective=collective, compression=compression,
+                                         comm_tolerance=comm_tolerance, device=self.device)
+            self.comm_stats = runner.comm_stats.as_dict()
+        else:
+            data = self._bins(dtrain)
+            self.comm_stats = None
         eval_data = [self._bins(d) for d, _ in evals]
         if resume_state is not None:
             # The snapshot's margins re-enter the loop exactly as carried:
@@ -714,6 +734,48 @@ class Booster:
                             else KO.build_histograms_kernel)
         stoch = SMP.stochastic_params(cfg)
         sentinel = cfg.numeric_check != "off"
+        fault = None  # the chunk's armed nan_grad fault
+
+        def step(r_abs: int, margins: torch.Tensor):
+            """One round on one device: (trees, new margins, finite flag or
+            None, None)."""
+            gh_all = obj.grad(margins, y, **extra)  # (n, k, 2), round-start gradients
+            if fault is not None and r_abs == int(fault.payload.get("round", 0)):
+                gh_all = torch.full_like(gh_all, float(fault.payload.get("value", np.nan)))
+            gh_raw = gh_all
+            if cfg.numeric_check == "clamp":
+                gh_all = RES.clamp_gradients(gh_all)
+            trees = []
+            for c in range(k):
+                gh_c, ctx = gh_all[:, c, :].contiguous(), None
+                if stoch is not None:
+                    # Compact buffers with the default growth, masked (g, h)
+                    # with a hist_builder, as the reference does.
+                    ctx, gh_c = SMP.make_tree_context(
+                        stoch, (cfg.seed, r_abs, c), gh_c,
+                        dtrain.n_features, compact=hist_builder is None)
+                trees.append(T.grow_tree(
+                    data, gh_c, self.cuts, cfg.max_depth, cfg.max_bins,
+                    cfg.split_params, growth=cfg.growth,
+                    max_leaves=cfg.max_leaves or 2**cfg.max_depth,
+                    hist_builder=hist_builder, ctx=ctx))
+            new_margins = _apply_trees(cfg, trees, data, margins)
+            ok = None
+            if sentinel:
+                ok = RES.finite_flags(gh_raw, *(t.leaf_value for t in trees), new_margins)
+                if cfg.numeric_check == "warn_skip":
+                    # Neutralise the round: zero leaves (the trees add
+                    # nothing to any margin), -inf gains (importances
+                    # ignore them), the round-start margins carried on.
+                    trees = [t._replace(
+                        leaf_value=torch.where(ok, t.leaf_value, 0.0),
+                        gain=torch.where(ok, t.gain, float("-inf")))
+                        for t in trees]
+                    new_margins = torch.where(ok, new_margins, margins)
+            return trees, new_margins, ok, None
+
+        round_step = runner.step if mesh is not None else step
+        fallback_events = 0
 
         FA.check("oom")
         # Chunks end at the next multiple of e (early stopping), of
@@ -738,46 +800,17 @@ class Booster:
             fault = FA.active("nan_grad")
             chunk_metrics = []  # a round's metrics, stacked: train, then each set
             flags = []  # a round's finite flag (sentinel on)
+            fallbacks = []  # a round's count of compressed allreduces that fell back
             for r in range(done, nxt):
-                gh_all = obj.grad(margins, y, **extra)  # (n, k, 2), round-start gradients
-                if fault is not None and rounds_before + r == int(fault.payload.get("round", 0)):
-                    gh_all = torch.full_like(gh_all, float(fault.payload.get("value", np.nan)))
-                gh_raw = gh_all
-                if cfg.numeric_check == "clamp":
-                    gh_all = RES.clamp_gradients(gh_all)
-                trees = []
-                for c in range(k):
-                    gh_c, ctx = gh_all[:, c, :].contiguous(), None
-                    if stoch is not None:
-                        # Compact buffers with the default growth, masked (g, h)
-                        # with a hist_builder, as the reference does.
-                        ctx, gh_c = SMP.make_tree_context(
-                            stoch, (cfg.seed, rounds_before + r, c), gh_c,
-                            dtrain.n_features, compact=hist_builder is None)
-                    trees.append(T.grow_tree(
-                        data, gh_c, self.cuts, cfg.max_depth, cfg.max_bins,
-                        cfg.split_params, growth=cfg.growth,
-                        max_leaves=cfg.max_leaves or 2**cfg.max_depth,
-                        hist_builder=hist_builder, ctx=ctx))
-                new_margins = self._add_trees(trees, data, margins)
-                if sentinel:
-                    ok = RES.finite_flags(gh_raw, *(t.leaf_value for t in trees),
-                                          new_margins)
-                    if cfg.numeric_check == "warn_skip":
-                        # Neutralise the round: zero leaves (the trees add
-                        # nothing to any margin), -inf gains (importances
-                        # ignore them), the round-start margins carried on.
-                        trees = [t._replace(
-                            leaf_value=torch.where(ok, t.leaf_value, 0.0),
-                            gain=torch.where(ok, t.gain, float("-inf")))
-                            for t in trees]
-                        new_margins = torch.where(ok, new_margins, margins)
+                trees, margins, ok, fb = round_step(rounds_before + r, margins)
+                if ok is not None:
                     flags.append(ok)
-                margins = new_margins
+                if fb is not None:
+                    fallbacks.append(fb)
                 run_trees.extend(trees)
                 values = [m.fn(margins, y, **extra) for m in metrics]
                 for j, (d, _) in enumerate(evals):
-                    eval_margins[j] = self._add_trees(trees, eval_data[j], eval_margins[j])
+                    eval_margins[j] = _apply_trees(cfg, trees, eval_data[j], eval_margins[j])
                     values += [m.fn(eval_margins[j], d.label, **eval_extras[j])
                                for m in metrics]
                 if values:
@@ -785,13 +818,18 @@ class Booster:
                         torch.as_tensor(v, dtype=torch.float32, device=self.device)
                         for v in values]))
             # The chunk's one host read: its metrics (length, 1 + n_evals,
-            # n_metrics) and its finite flags (length,), together.
+            # n_metrics), its finite flags (length,) and its fallback counts
+            # (length,), together.
             n_vals = length * (1 + len(evals)) * len(metrics)
             read = [torch.stack(chunk_metrics).reshape(-1)] if metrics else []
             if flags:
                 read.append(torch.stack(flags).to(torch.float32))
+            if fallbacks:
+                read.append(torch.stack(fallbacks).to(torch.float32))
             host = torch.cat(read).cpu().numpy() if read else np.zeros(0, np.float32)
-            self._handle_numeric_flags(host[n_vals:] > 0.5 if flags else None,
+            n_flags = len(flags)
+            fallback_events += int(host[n_vals + n_flags:].sum())
+            self._handle_numeric_flags(host[n_vals:n_vals + n_flags] > 0.5 if flags else None,
                                        rounds_before + done)
             tr_host, ev_host = [], []
             if metrics:
@@ -823,6 +861,9 @@ class Booster:
                     early_stopping_rounds=e, checkpoint_every=ck,
                     verbose_every=verbose_every, eval_names=eval_names,
                 )
+
+        if self.comm_stats is not None:
+            self.comm_stats["fallback_events"] = fallback_events
 
         # Deferred final history record: the cadence records round r when
         # r % record_every == 0, the last trained round unconditionally.

@@ -35,8 +35,8 @@ On the CPU a fit on an ExternalDMatrix, resident or streamed, is bit for
 bit the fit on the DeviceDMatrix of the same rows and cuts (the plain
 versions add in row order either way); on the card it agrees within the
 fits' tolerance, since the histogram kernels add with atomics in no fixed
-order. The sharded sketch (`sketch_shards > 1`, ROADMAP queue 1 item 5) is
-not ported: it raises NotImplementedError.
+order. `sketch_shards=k` builds one sketch a shard of chunks and merges
+them by `dist.tree_merge`, as the reference does.
 """
 from __future__ import annotations
 
@@ -253,6 +253,9 @@ class DeviceDMatrix:
         self.device = dev
         bins = Q.quantize(x, cuts)
         self.matrix: C.CompressedMatrix = C.compress(bins, cuts, max_bins)
+        # Per-shard repacked words of sharded fits, keyed by shard count and
+        # devices: paid once a (matrix, mesh), not once a fit (dist.runner).
+        self._shard_pack_cache: dict = {}
         self.label = None if label is None else as_tensor(label, dev).reshape(-1)
         if self.label is not None and self.label.shape[0] != self.n_rows:
             raise ValueError(
@@ -519,9 +522,9 @@ class ExternalDMatrix:
         float matrix gathered once for `compute_cuts`: the cuts of the
         in-memory matrix), or a precomputed (n_features, max_bins - 2) array.
       sketch_capacity: per-feature summary size for cuts="sketch".
-      sketch_shards: 1 only. The reference's sharded build combines
-        per-shard sketches by `repro.dist`'s tree merge, which is not
-        ported (ROADMAP queue 1 item 5): more shards raise.
+      sketch_shards: with cuts="sketch", one sketch a shard (chunk i to
+        shard i % k, at most one shard a chunk), combined by the log-depth
+        tree merge (`dist.sketch.tree_merge`); 1 = one sequential sketch.
       verify_chunks: crc32 policy for page-in. True or "once" (default):
         each chunk is verified the first time it is paged in and again
         after any load retry; "always": on every page-in; False or "never":
@@ -587,17 +590,25 @@ class ExternalDMatrix:
                     raise ValueError(
                         f"sketch_shards must be >= 1, got {sketch_shards}"
                     )
-                if min(sketch_shards, len(xs)) > 1:
-                    raise NotImplementedError(
-                        "sketch_shards > 1 combines per-shard sketches by "
-                        "repro.dist's tree merge, which is not ported yet "
-                        "(ROADMAP queue 1 item 5: multi-device); use "
-                        "sketch_shards=1"
-                    )
-                sketch = Q.StreamingQuantileSketch(n_features, max_bins,
-                                                   capacity=sketch_capacity)
-                for chunk in xs:
-                    _push_chunk_sorted(sketch, chunk, dev)
+                shards = min(sketch_shards, len(xs))
+                if shards > 1:
+                    # One sketch a shard of chunks (chunk i to shard i % k),
+                    # combined by the log-depth tree merge (dist.sketch).
+                    from repro_torch.dist.sketch import tree_merge
+
+                    sketches = []
+                    for s in range(shards):
+                        sk = Q.StreamingQuantileSketch(n_features, max_bins,
+                                                       capacity=sketch_capacity)
+                        for chunk in xs[s::shards]:
+                            _push_chunk_sorted(sk, chunk, dev)
+                        sketches.append(sk)
+                    sketch = tree_merge(sketches)
+                else:
+                    sketch = Q.StreamingQuantileSketch(n_features, max_bins,
+                                                       capacity=sketch_capacity)
+                    for chunk in xs:
+                        _push_chunk_sorted(sketch, chunk, dev)
                 cut_arr = sketch.get_cuts(dev)
             else:
                 raise ValueError(

@@ -41,8 +41,10 @@ GOSS rides the same two executions: keep the top `a * n` rows by |g|,
 uniformly sample `b * n` of the rest and multiply their (g, h) by
 `(1 - a) / b`.
 
-The reference's sharded arguments (`n_total`, `row_offset`, `axis_name`)
-are not ported: multi-device fits are ROADMAP queue 1 item 5.
+Sharded fits (`dist.runner`) use the masked mode with the reference's
+arguments: `n_total` rows drawn from the path, `row_offset` this shard's
+slice, and for GOSS `axis_name`, over which the gradients are gathered
+first, so every shard holds the single-device selection.
 """
 from __future__ import annotations
 
@@ -275,6 +277,14 @@ def level_feature_mask(ctx: TreeContext, level: int, n_nodes: int,
     return mask
 
 
+def _whole_range(what: str, n_total: int, n_local: int) -> None:
+    if n_total != n_local:
+        raise ValueError(
+            f"compact {what} needs the full row range on one shard "
+            f"(n_total={n_total}, local={n_local})"
+        )
+
+
 def make_tree_context(
     params: StochasticParams,
     tree_key: tuple,
@@ -289,37 +299,53 @@ def make_tree_context(
     """The tree's context and the gh that grow_tree takes with it.
 
     compact=True: gh gathered to the (m, 2) sampled-row buffer whose row
-    ids are ctx.row_ids. compact=False (masked mode): gh with unselected
-    rows zeroed, ctx.row_ids None. GOSS multiplies the sampled small-gradient
-    rows' g and h by float32((1 - a) / b) in both modes, so each row's
-    products are the same floats either way."""
+    ids are ctx.row_ids. compact=False (masked mode, sharded fits and the
+    kernel path): gh with unselected rows zeroed, ctx.row_ids None. GOSS
+    multiplies the sampled small-gradient rows' g and h by
+    float32((1 - a) / b) in both modes, so each row's products are the same
+    floats either way.
+
+    Sharded (inside `dist.spmd`): `n_total` is the global row count and
+    `row_offset` this shard's first global row. The selection is drawn over
+    n_total from the tree's path and sliced, so every shard holds the
+    single-device selection whatever the shard count. GOSS needs the global
+    |g|: with `axis_name` (the data axes) gh is all-gathered in the
+    runner's row order first, and every shard computes the same selection."""
     n_local = gh.shape[0]
-    if n_total not in (None, n_local) or row_offset != 0 or axis_name is not None:
-        raise NotImplementedError(
-            "sharded sampling (n_total, row_offset, axis_name) is not ported yet: "
-            "multi-device fits are ROADMAP queue 1 item 5")
-    n = n_local
+    n_total = n_local if n_total is None else int(n_total)
+    # The shard's slice of the global selection, its start clamped into
+    # range as `lax.dynamic_slice` clamps it.
+    lo = max(0, min(int(row_offset), n_total - n_local))
     row_ids = None
     if params.goss:
-        m_top, m_other = goss_sizes(n, params)
-        sel, rest = goss_selection(tree_key, gh[:, 0].abs(), m_top, m_other)
+        m_top, m_other = goss_sizes(n_total, params)
+        if not compact and axis_name is not None and n_total != n_local:
+            from repro_torch.dist import group as G  # dist imports this module
+
+            gh_all = G.all_gather(gh, axis_name)
+        else:
+            gh_all = gh  # one shard: its rows are all the rows
+        sel, rest = goss_selection(tree_key, gh_all[:, 0].abs(), m_top, m_other)
         amp = (1.0 - params.top_rate) / params.other_rate  # Python double, then float32
         w = torch.where(rest, torch.full((), amp, dtype=torch.float32, device=gh.device),
                         torch.ones((), dtype=torch.float32, device=gh.device))
         if compact:
+            _whole_range("GOSS", n_total, n_local)
             row_ids = compact_row_ids(sel, m_top + m_other)
             rid = row_ids.to(torch.int64)
             gh = gh[rid] * w[rid][:, None]
         else:
+            sel, w = sel[lo:lo + n_local], w[lo:lo + n_local]
             gh = torch.where(sel[:, None], gh * w[:, None], 0.0)
     elif params.row_sampling:
-        m = sample_size(n, params.subsample)
-        sel = row_selection_mask(tree_key, n, m, gh.device)
+        m = sample_size(n_total, params.subsample)
+        sel = row_selection_mask(tree_key, n_total, m, gh.device)
         if compact:
+            _whole_range("row sampling", n_total, n_local)
             row_ids = compact_row_ids(sel, m)
             gh = gh[row_ids.to(torch.int64)]
         else:
-            gh = torch.where(sel[:, None], gh, 0.0)
+            gh = torch.where(sel[lo:lo + n_local, None], gh, 0.0)
     ctx = TreeContext(key=tuple(tree_key), row_ids=row_ids,
                       feature_mask=tree_feature_mask(tree_key, n_features, params, gh.device),
                       params=params, device=gh.device)

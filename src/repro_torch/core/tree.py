@@ -21,6 +21,11 @@ scatter over the gathered dense rows otherwise), and derives the sibling as
 parent - child. A given `hist_builder` turns subtraction off and builds
 every level in full.
 
+Sharded growth (`collective`, inside `dist.spmd`): the bins and (g, h)
+are one shard's rows, every level is histogrammed in full and reduced by
+the collective (the paper's AllReduceHistograms), and every shard grows
+the same tree from the reduced histograms.
+
 Growth strategies: "depthwise" expands every node whose best gain > 0;
 "lossguide" spends a `max_leaves` budget, letting only the top-k gains of
 each level split, k = the budget left.
@@ -85,13 +90,20 @@ def grow_tree(
     max_leaves: int = 0,  # only used by lossguide
     hist_builder=None,  # optional builder (kernels.ops), every level in full
     ctx: SMP.TreeContext | None = None,  # sampling and constraints
+    collective=None,  # a dist.Collective: this shard's rows, histograms reduced
 ) -> Tree:
     """Grow one tree from a bins type (the packed matrix, the chunk stack,
     resident or streamed) or the dense (n, f) bins and the rows' (g, h)
     pairs (with `ctx.row_ids` set: the sampled buffer's).
     `hist_builder(bins, gh, positions, n_nodes, max_bins)` receives the
     matrix as given; it is refused on either chunk stack, as the reference
-    refuses it."""
+    refuses it.
+
+    With a `collective` (inside `dist.spmd`) the bins and gh are this
+    shard's rows: the root sum goes through `collective.allreduce` and each
+    level's histogram, built in full (no subtraction trick), through
+    `collective.allreduce_hist`, so every shard grows the same tree; rows
+    are sampled in masked mode only, and streamed bins are refused."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
     # Every bins type answers the same calls; only dense bins take other paths.
@@ -100,6 +112,12 @@ def grow_tree(
         raise TypeError("grow_tree takes a bins type (compress.PackedBins, "
                         "compress.ChunkedPackedBins, stream.StreamedChunkedBins) or "
                         "dense (n, f) bins")
+    if collective is not None and packed_mode and not isinstance(
+            bins, (C.PackedBins, C.ChunkedPackedBins)):
+        raise NotImplementedError(
+            "streamed out-of-core growth is single-shard with the default "
+            "builders; use resident paging for sharded or kernel fits"
+        )
     if packed_mode and not isinstance(bins, C.PackedBins) and hist_builder is not None:
         raise NotImplementedError(
             "custom/kernel hist builders are not chunk-aware; use the "
@@ -117,6 +135,11 @@ def grow_tree(
             raise NotImplementedError(
                 "custom/kernel hist builders are not row-subset aware; use "
                 "masked-mode subsampling (ctx.row_ids=None) with them"
+            )
+        if collective is not None:
+            raise NotImplementedError(
+                "sharded growth uses masked-mode subsampling "
+                "(ctx.row_ids=None); compact buffers are single-shard only"
             )
         if not packed_mode:
             # Dense bins: gather the sampled rows once, then grow as usual.
@@ -143,7 +166,8 @@ def grow_tree(
     active = torch.zeros(na, dtype=torch.bool, device=dev)
 
     positions = torch.zeros(n, dtype=torch.int32, device=dev)  # all at the root
-    node_sum[0] = gh.sum(dim=0)
+    root_sum = gh.sum(dim=0)
+    node_sum[0] = root_sum if collective is None else collective.allreduce(root_sum)
     active[0] = True
     # lossguide leaf budget: a tree starts as 1 leaf; each split adds 1.
     budget = torch.tensor(max(max_leaves - 1, 0) if growth == "lossguide" else na,
@@ -158,17 +182,20 @@ def grow_tree(
         # --- BuildPartialHistograms ---------------------------------------
         in_level = (positions >= off) & (positions < off + n_nodes)
         local = torch.where(in_level, positions - off, n_nodes).to(torch.int32)
+        full = level == 0 or collective is not None  # sharded: no subtraction
         if hist_builder is not None:
             hist = hist_builder(bins, gh, local, n_nodes, max_bins)
-        elif level == 0 and row_ids is not None:
+        elif full and row_ids is not None:
             hist = bins.histograms_rows(gh, local, row_ids, n_nodes, max_bins)
-        elif level == 0 and packed_mode:
+        elif full and packed_mode:
             hist = bins.histograms(gh, local, n_nodes, max_bins)
-        elif level == 0:
+        elif full:
             hist = H.build_histograms(bins, gh, local, n_nodes, max_bins)
         else:
             hist = _histograms_by_subtraction(bins, gh, local, hist_prev,
                                               n_nodes, max_bins, row_ids=row_ids)
+        if collective is not None:  # AllReduceHistograms
+            hist = collective.allreduce_hist(hist)
         hist_prev = hist
 
         # --- EvaluateSplit --------------------------------------------------

@@ -7,6 +7,12 @@ kernel launch builds, into `build/repro_torch_kernels/` at the root of the
 checkout. The library's name carries a hash of the sources and flags, so a
 changed source never loads a stale build. Every C entry point returns
 `cudaGetLastError()` after its launch; `check` raises when it is not 0.
+
+The wrappers launch through `launch` and count through `count`, both safe
+for the shard threads of a sharded fit (`dist.group.spmd`): `launch` makes
+the tensors' card the current device for the call (the current device is
+a thread's own), and `count` adds to a wrapper's `launches` under a lock,
+so no two threads lose a count.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -56,6 +63,8 @@ class BuildInfo:
 
 
 _loaded: tuple[ctypes.CDLL, BuildInfo] | None = None
+_load_lock = threading.Lock()  # one build and load, whichever thread asks first
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -121,14 +130,15 @@ def build() -> BuildInfo:
 def library() -> tuple[ctypes.CDLL, BuildInfo]:
     """The loaded kernel library (built on first use) and its build info."""
     global _loaded
-    if _loaded is None:
-        info = build()
-        lib = ctypes.CDLL(str(info.path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded = (lib, info)
+    with _load_lock:
+        if _loaded is None:
+            info = build()
+            lib = ctypes.CDLL(str(info.path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded = (lib, info)
     return _loaded
 
 
@@ -140,6 +150,20 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` with `args` and PyTorch's current
+    stream on `device`, with `device` as the current device, and raise if
+    the launch failed."""
+    with torch.cuda.device(device):
+        check(getattr(lib(), entry)(*args, stream(device)), entry.removeprefix("rt_"))
+
+
+def count(wrapper) -> None:
+    """One more launch of `wrapper` (its `launches`), under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def expect(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

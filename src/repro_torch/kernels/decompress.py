@@ -29,10 +29,10 @@ def decompress(packed: torch.Tensor, bits: int, n_rows: int) -> torch.Tensor:
     out = torch.empty((n_rows, f), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    err = B.lib().rt_decompress(packed.data_ptr(), out.data_ptr(), n_rows, f, w,
-                                bits, B.stream(dev))
-    B.check(err, "decompress")
-    decompress.launches += 1
+    B.launch("rt_decompress", dev,
+             packed.data_ptr(), out.data_ptr(), n_rows, f, w,
+             bits)
+    B.count(decompress)
     return out
 
 

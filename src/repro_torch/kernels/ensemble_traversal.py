@@ -143,12 +143,10 @@ def ensemble_margins_kernel(
     out = torch.empty((n_rows, n_classes), dtype=torch.float32, device=dev)
     plan = traversal_plan(n_trees, arena, n_classes, n_features,
                           B.device_limits(dev.index).smem_block)
-    err = B.lib().rt_ensemble_margins(
-        nodes.data_ptr(), x.data_ptr(), out.data_ptr(), n_trees, arena, n_rows, n_features,
-        n_classes, max_depth, *plan, THREADS, B.stream(dev),
-    )
-    B.check(err, "ensemble_margins")
-    ensemble_margins_kernel.launches += 1
+    B.launch("rt_ensemble_margins", dev,
+             nodes.data_ptr(), x.data_ptr(), out.data_ptr(), n_trees, arena, n_rows, n_features,
+             n_classes, max_depth, *plan, THREADS)
+    B.count(ensemble_margins_kernel)
     return out
 
 

@@ -177,14 +177,11 @@ def build_histograms_packed_kernel(
         return out
     plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
                        PRIVATE_BLOCKS_PER_SM)
-    err = B.lib().rt_histogram_private(
-        packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
-        plan.words_per_block, plan.blocks_per_sm, THREADS, *_chunk_args(packed, chunk_rows),
-        B.stream(dev),
-    )
-    B.check(err, "histogram_private")
-    build_histograms_packed_kernel.launches += 1
+    B.launch("rt_histogram_private", dev,
+             packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
+             plan.words_per_block, plan.blocks_per_sm, THREADS, *_chunk_args(packed, chunk_rows))
+    B.count(build_histograms_packed_kernel)
     return out
 
 
@@ -216,14 +213,12 @@ def build_histograms_rows_kernel(
     if m == 0 or w == 0 or f == 0:
         return out
     plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index))
-    err = B.lib().rt_histogram_rows(
-        packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
-        row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
-        plan.node_tile, plan.feat_group, plan.words_per_block, THREADS,
-        *_chunk_args(packed, chunk_rows), B.stream(dev),
-    )
-    B.check(err, "histogram_rows")
-    build_histograms_rows_kernel.launches += 1
+    B.launch("rt_histogram_rows", dev,
+             packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
+             row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
+             plan.node_tile, plan.feat_group, plan.words_per_block, THREADS,
+             *_chunk_args(packed, chunk_rows))
+    B.count(build_histograms_rows_kernel)
     return out
 
 
@@ -246,12 +241,10 @@ def histogram_packed(
     out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
     if w == 0 or f == 0:
         return out
-    err = B.lib().rt_histogram_packed(
-        packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        n, f, w, n_nodes, max_bins, bits, THREADS, B.stream(dev),
-    )
-    B.check(err, "histogram_packed")
-    histogram_packed.launches += 1
+    B.launch("rt_histogram_packed", dev,
+             packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             n, f, w, n_nodes, max_bins, bits, THREADS)
+    B.count(histogram_packed)
     return out
 
 

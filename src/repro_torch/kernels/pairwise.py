@@ -35,11 +35,10 @@ def pairwise_grad(
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    err = B.lib().rt_pairwise_grad(scores.data_ptr(), labels.data_ptr(), order.data_ptr(),
-                                   start.data_ptr(), end.data_ptr(), out.data_ptr(), n,
-                                   B.stream(dev))
-    B.check(err, "pairwise_grad")
-    pairwise_grad.launches += 1
+    B.launch("rt_pairwise_grad", dev,
+             scores.data_ptr(), labels.data_ptr(), order.data_ptr(),
+             start.data_ptr(), end.data_ptr(), out.data_ptr(), n)
+    B.count(pairwise_grad)
     return out
 
 

@@ -30,12 +30,9 @@ def quantile_cuts_from_sorted(
         raise ValueError(f"srt must be non-empty, got shape {tuple(srt.shape)}")
     dev = srt.device
     out = torch.empty((f, max_bins - 2), dtype=torch.float32, device=dev)
-    err = B.lib().rt_quantile_cuts(
-        srt.data_ptr(), n_valid.data_ptr(), out.data_ptr(), n, f, max_bins,
-        B.stream(dev),
-    )
-    B.check(err, "quantile_cuts")
-    quantile_cuts_from_sorted.launches += 1
+    B.launch("rt_quantile_cuts", dev,
+             srt.data_ptr(), n_valid.data_ptr(), out.data_ptr(), n, f, max_bins)
+    B.count(quantile_cuts_from_sorted)
     return out
 
 

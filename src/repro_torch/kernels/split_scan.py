@@ -61,13 +61,10 @@ def split_scan(
         return out
     if hist.data_ptr() % 8:  # the kernel reads each (g, h) as one float2
         hist = hist.clone()
-    err = B.lib().rt_split_scan(
-        hist.data_ptr(), parent_sum.data_ptr(), out.data_ptr(), mask_ptr, mono_ptr,
-        bounds_ptr, n_nodes, f, max_bins, float(reg_lambda), float(min_child_weight),
-        B.stream(dev),
-    )
-    B.check(err, "split_scan")
-    split_scan.launches += 1
+    B.launch("rt_split_scan", dev,
+             hist.data_ptr(), parent_sum.data_ptr(), out.data_ptr(), mask_ptr, mono_ptr,
+             bounds_ptr, n_nodes, f, max_bins, float(reg_lambda), float(min_child_weight))
+    B.count(split_scan)
     return out
 
 

@@ -8,8 +8,10 @@ Examples:
       --rows 20000 --rounds 50
   PYTHONPATH=src python -m repro_torch.launch.train_gbdt --device cpu --rows 4000
 
-Multi-device fits (`--devices N > 1`, the reference's shard_map path) are
-not ported (ROADMAP queue 1 item 5): they raise NotImplementedError.
+`--devices N` shards the training rows over a mesh of N positions
+(`dist.make_mesh((N,), ("data",))`; the rows are cut to a multiple of N,
+as the reference cuts them): one position a card when the machine has N
+cards, else all N on the one card (or on the CPU with `--device cpu`).
 """
 from __future__ import annotations
 
@@ -37,11 +39,6 @@ def main(argv=None) -> None:
                     help="where the matrices and the booster live")
     args = ap.parse_args(argv)
 
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: multi-device fits are not ported yet "
-            "(ROADMAP queue 1 item 5); run with --devices 1")
-
     import torch
 
     from repro_torch.core import Booster, BoosterConfig, DeviceDMatrix
@@ -54,6 +51,7 @@ def main(argv=None) -> None:
 
     x, y, spec = make_dataset(args.dataset, n_rows=args.rows)
     n_tr = int(0.8 * len(x))
+    n_tr = (n_tr // args.devices) * args.devices  # shard-divisible (no-op at 1)
     cfg = BoosterConfig(
         n_rounds=args.rounds,
         max_depth=args.max_depth,
@@ -71,6 +69,13 @@ def main(argv=None) -> None:
     dval = DeviceDMatrix(x[n_tr:], label=y[n_tr:], ref=dtrain)
     t_build = synced() - t0
 
+    mesh = None
+    if args.devices > 1:
+        from repro_torch.dist import make_mesh
+
+        enough = args.device == "cuda" and torch.cuda.device_count() >= args.devices
+        mesh = make_mesh((args.devices,), ("data",), device=None if enough else args.device)
+
     t0 = synced()
     bst = Booster(cfg).fit(
         dtrain,
@@ -78,6 +83,7 @@ def main(argv=None) -> None:
         early_stopping_rounds=args.early_stopping or None,
         verbose_every=max(args.rounds // 5, 1),
         callback=lambda r, rec: print(rec, flush=True),
+        mesh=mesh,
     )
     t_fit = synced() - t0
 

@@ -21,9 +21,10 @@ plus one keyword the reference lacks: `device=None` (the card) or "cpu",
 the device the estimator's matrices and booster live on. `chunk_rows=`
 trains through `ExternalDMatrix.from_arrays` (external memory), and
 `numeric_check`, `on_oom` and `checkpoint_*` reach the booster as in the
-reference. Knobs the port does not have yet raise NotImplementedError
-naming them: `mesh`, `collective` and `compression` (through
-`Booster.fit`).
+reference, and so do the scale-out knobs: `mesh` (a `dist.make_mesh`
+mesh) shards the rows, `collective` ("psum", "ring", "hier") picks the
+histogram reduction and `compression` (None, "f16", "q16") its payload;
+`comm_stats_` is the sharded fit's accounting.
 """
 from __future__ import annotations
 
@@ -295,8 +296,9 @@ class _BoosterEstimator(BaseEstimator):
 
     @property
     def comm_stats_(self) -> dict | None:
-        """Communication accounting of the latest fit: None, the
-        reference's value for a single-device fit (the only kind here)."""
+        """Communication accounting of the latest fit (`mesh=`): collective,
+        compression, wire bytes a round, collective calls a round, fallback
+        events. None for a single-device fit (mesh=None)."""
         self._check_fitted()
         return self.booster_.comm_stats
 

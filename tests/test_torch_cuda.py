@@ -1069,3 +1069,140 @@ def test_auto_paging_streams_on_a_small_card(rng, monkeypatch):
     assert e.resolved_paging() == "resident"
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1024, 2 * 1024))
     assert e.nbytes_host > 1024 and e.resolved_paging() == "stream"
+
+
+# --- multi-device training (repro_torch.dist) on one card ----------------------------
+
+def _shard_hists(rng, p, shape=(4, 6, 16, 2)):
+    """Each shard's histogram: g signed, h positive, magnitudes by shard."""
+    g = rng.normal(size=(p, *shape[:-1])) * (1 + np.arange(p))[:, None, None, None]
+    h = rng.random((p, *shape[:-1])) * 3
+    return np.stack([g, h], axis=-1).astype(np.float32)
+
+
+def _allreduce(mesh, name, comp, tol, xs, axes=("data",)):
+    """Each position's allreduce_hist of its input and its fallback count."""
+    from repro_torch import dist as D
+
+    c = D.get_collective(name, mesh, axes, compression=comp, tolerance=tol)
+    dev = mesh.device(0)
+
+    def body(x):
+        c.begin_round()
+        return c.allreduce_hist(x), c.fallback_count()
+
+    out = D.spmd(mesh, body, [torch.from_numpy(x).to(dev) for x in xs])
+    return torch.stack([o[0] for o in out]).cpu(), [int(o[1]) for o in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_collectives_on_card(rng, shards):
+    """The collectives on cuda:0 against the CPU's: q16 psum, ring and hier
+    equal and the CPU's bit for bit; f32 and f16 rings the CPU's bit for
+    bit (IEEE adds and casts in the same order), f16 within 2^-10 of the
+    exact sum; tolerance 0 the exact result with the tally counted."""
+    from repro_torch import dist as D
+
+    _cuda()
+    xs = _shard_hists(rng, shards)
+    card = D.make_mesh((shards,), ("data",), device="cuda")
+    cpu = D.make_mesh((shards,), ("data",), device="cpu")
+    q = [_allreduce(card, n, "q16", 0.05, xs)[0] for n in ("psum", "ring", "hier")]
+    for other in q[1:]:
+        assert torch.equal(other, q[0])
+    assert torch.equal(q[0], _allreduce(cpu, "psum", "q16", 0.05, xs)[0])
+    exact = torch.from_numpy(xs.sum(axis=0, dtype=np.float64).astype(np.float32))
+    for comp in (None, "f16"):
+        ring, fb = _allreduce(card, "ring", comp, 0.05, xs)
+        assert torch.equal(ring, _allreduce(cpu, "ring", comp, 0.05, xs)[0]) and fb == [0] * shards
+        torch.testing.assert_close(ring, exact.expand_as(ring), rtol=2 ** -10,
+                                   atol=2 ** -10 * float(np.abs(xs).max()))
+    tight, fb = _allreduce(card, "ring", "f16", 0.0, xs)
+    assert fb == [1] * shards
+    assert torch.equal(tight, _allreduce(card, "ring", None, 0.05, xs)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 8])
+def test_launch_counts_exact_across_shard_threads(rng, shards):
+    """Shard threads launching at once lose no count: 5 repeats of every
+    shard launching #1 and the split scan 40 times each."""
+    from repro_torch import dist as D
+
+    dev = _cuda()
+    packed, gh, pos, bits = _hist_inputs(rng, 4096, 28, 256, 4)
+    args = (packed.to(dev), torch.from_numpy(gh).to(dev), torch.from_numpy(pos).to(dev))
+    hist, parent = _split_inputs(rng, 4, 28, 256)
+    hist, parent = torch.from_numpy(hist).to(dev), torch.from_numpy(parent).to(dev)
+    mesh = D.make_mesh((shards,), ("data",), device="cuda")
+
+    def body(_):
+        for _ in range(40):
+            build_histograms_packed_kernel(*args, 4, 256, bits)
+            split_scan(hist, parent)
+
+    for _ in range(5):
+        ops.reset_launches()
+        D.spmd(mesh, body, list(range(shards)))
+        got = ops.launches()
+        assert got["histogram_private"] == got["split_scan"] == 40 * shards, got
+
+
+@pytest.mark.cuda
+def test_sharded_fit_on_card(rng):
+    """A 2-shard fit on cuda:0: #1 every level on each shard (rounds x
+    depth x 2), no row-id launch, the split scan on each shard; every
+    shard's trees the same; accuracy within 0.003 of the one-device fit;
+    save -> load -> predict bit for bit."""
+    from repro_torch import dist as D
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    n = len(x) // 2 * 2
+    x, y = x[:n], y[:n]
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    kw = dict(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic")
+    mesh = D.make_mesh((2,), ("data",), device="cuda")
+    ops.reset_launches()
+    bst = Booster(**kw).fit(d, mesh=mesh)
+    got = ops.launches()
+    assert got["histogram_private"] == got["split_scan"] == 3 * 4 * 2, got
+    assert got["histogram_rows"] == 0
+    assert bst.comm_stats["devices"] == 2
+
+    def acc(b):
+        return float(((b.predict(x) > 0.5).cpu().numpy() == y).mean())
+
+    assert abs(acc(bst) - acc(Booster(**kw).fit(d))) <= 0.003
+    runner = D.make_chunk_runner(Booster(**kw).cfg, Booster(**kw).obj, d, mesh)
+    margins = torch.zeros((n, 1), device=d.device)
+    out = runner.round_fn([D.RoundInputs(runner.bins[p], margins[p * n // 2:(p + 1) * n // 2],
+                                         runner.y[p], runner.cuts[p]) for p in range(2)])
+    for a, b in zip(out[0][0][0], out[1][0][0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_shards_on_two_cards(rng):
+    """With two cards each shard launches on its own: the device guard
+    makes a shard thread's card current, so #1 on cuda:1 from a thread whose
+    current card was cuda:0 matches its plain version."""
+    from repro_torch import dist as D
+
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    packed, gh, pos, bits = _hist_inputs(rng, 4096, 28, 256, 4)
+    mesh = D.make_mesh((2,), ("data",))
+    want = ref.histogram_ref(packed, torch.from_numpy(gh), torch.from_numpy(pos), 4, 256, bits)
+
+    def body(p):
+        dev = mesh.device(p)
+        return build_histograms_packed_kernel(packed.to(dev), torch.from_numpy(gh).to(dev),
+                                              torch.from_numpy(pos).to(dev), 4, 256, bits).cpu()
+
+    torch.cuda.set_device(0)
+    for got in D.spmd(mesh, body, [0, 1]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)

@@ -23,6 +23,7 @@ from repro.core import DeviceDMatrix as JDMatrix
 from repro.core import predict as JPR
 from repro_torch.core import Booster, DeviceDMatrix
 from repro_torch.core import predict as TPR
+from repro_torch.dist import make_mesh
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 KW = dict(n_rounds=12, max_depth=4, max_bins=32, objective="binary:logistic",
@@ -271,19 +272,50 @@ def test_concat_truncate_slice_match_reference(n_classes):
 
 
 @pytest.mark.parametrize("keyword,value", [
-    ("mesh", object()), ("data_axes", ("rows",)),
+    ("mesh", make_mesh((2,), ("data",), device="cpu")), ("data_axes", ("rows",)),
     ("collective", "ring"), ("compression", "f16"), ("comm_tolerance", 0.1),
     ("checkpoint_every", 2), ("checkpoint_path", "model.ckpt"), ("on_oom", "external"),
 ])
 def test_unported_keywords_raise(data, keyword, value, tmp_path, monkeypatch):
-    """The multi-device keywords raise NotImplementedError naming them.
-    checkpoint_every, checkpoint_path and on_oom are ported: alone,
-    checkpoint_every raises the reference's ValueError (it needs a path), a
-    checkpoint_path gets the completed fit's checkpoint, and
+    """Every keyword of the reference's fit is ported. The multi-device
+    ones shard the fit over a 2-position CPU mesh, in fit and in update
+    (test_torch_dist.py holds the fits against the reference): `mesh`
+    alone is a psum fit with the sharded fit's accounting; `data_axes`
+    names the mesh's axis (an axis the mesh lacks is the reference's
+    KeyError); `collective` and `compression` show in `comm_stats`;
+    `comm_tolerance` bounds the compressed error (a negative one is the
+    reference's ValueError). checkpoint_every, checkpoint_path and on_oom:
+    alone, checkpoint_every raises the reference's ValueError (it needs a
+    path), a checkpoint_path gets the completed fit's checkpoint, and
     on_oom="external" fits as usual when nothing runs out of memory."""
     (x, y), _, _ = data
     d = DeviceDMatrix(x[:200], label=y[:200], max_bins=32, device="cpu")
     monkeypatch.chdir(tmp_path)
+    sharding = {"mesh", "data_axes", "collective", "compression", "comm_tolerance"}
+    if keyword in sharding:
+        axis = value[0] if keyword == "data_axes" else "data"
+        kw = {"mesh": make_mesh((2,), (axis,), device="cpu"), keyword: value}
+        if keyword == "comm_tolerance":
+            kw["compression"] = "q16"
+        one = Booster(**dict(KW, n_rounds=1)).fit(d)
+        bst = Booster(**dict(KW, n_rounds=1)).fit(d, **kw)
+        cs = bst.comm_stats
+        assert cs["devices"] == 2 and cs["fallback_events"] == 0
+        assert cs["collective"] == kw.get("collective", "psum")
+        assert cs["compression"] == kw.get("compression")
+        if "compression" not in kw:  # exact: the one-device fit's trees
+            np.testing.assert_array_equal(bst.ensemble.feature.numpy(),
+                                          one.ensemble.feature.numpy())
+        bst.update(d, 1, **kw)
+        assert bst.n_rounds_trained == 2 and bst.comm_stats == cs
+        if keyword == "data_axes":
+            with pytest.raises(KeyError, match=value[0]):
+                Booster(**dict(KW, n_rounds=1)).fit(d, mesh=make_mesh((2,), ("data",),
+                                                                      device="cpu"), **{keyword: value})
+        elif keyword == "comm_tolerance":
+            with pytest.raises(ValueError, match="tolerance must be >= 0"):
+                Booster(**dict(KW, n_rounds=1)).fit(d, **dict(kw, comm_tolerance=-value))
+        return
     if keyword == "checkpoint_every":
         with pytest.raises(ValueError, match="checkpoint_path"):
             Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
@@ -295,14 +327,9 @@ def test_unported_keywords_raise(data, keyword, value, tmp_path, monkeypatch):
     elif keyword == "on_oom":
         bst = Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
         assert bst.n_rounds_trained == 1 and bst.resilience_events == []
-    else:
-        with pytest.raises(NotImplementedError, match=keyword):
-            Booster(**dict(KW, n_rounds=1)).fit(d, **{keyword: value})
-    if keyword not in ("on_oom", "checkpoint_path"):  # update lacks on_oom
-        bst = Booster(**dict(KW, n_rounds=1)).fit(d, data_axes=["data"])  # a list is the default
-        with pytest.raises(ValueError if keyword == "checkpoint_every" else NotImplementedError,
-                           match="checkpoint_path" if keyword == "checkpoint_every"
-                           else keyword):
+    if keyword == "checkpoint_every":  # update lacks on_oom
+        bst = Booster(**dict(KW, n_rounds=1)).fit(d, data_axes=["data"])  # ignored without a mesh
+        with pytest.raises(ValueError, match="checkpoint_path"):
             bst.update(d, 1, **{keyword: value})
 
 

@@ -198,14 +198,22 @@ def test_from_dmatrix_rechunk_and_from_arrays(data):
 
 
 def test_unported_paging_and_sharded_sketch_raise(data):
+    """Streamed paging and the sharded sketch are ported: a streamed fit
+    trains (under a mesh it keeps the reference's refusal), and
+    sketch_shards=2 gives the reference's tree-merged cuts bit for bit."""
+    from repro_torch.dist import make_mesh
+
     x, y, *_ = data
     # Streamed paging is ported (test_torch_stream.py): it trains.
     st = ExternalDMatrix.from_arrays(x, y, chunk_rows=500, paging="stream", max_bins=32,
                                      **CPU)
     assert st.resolved_paging() == "stream"
     assert Booster(**KW).fit(st).n_rounds_trained == KW["n_rounds"] and st.nbytes_device == 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ExternalDMatrix.from_arrays(x, y, chunk_rows=500, sketch_shards=2, **CPU)
+    with pytest.raises(NotImplementedError, match="resident paging for sharded"):
+        Booster(**KW).fit(st, mesh=make_mesh((2,), ("data",), device="cpu"))
+    shd = ExternalDMatrix.from_arrays(x, y, chunk_rows=500, sketch_shards=2, **CPU)
+    want = JExternal.from_arrays(x, y, chunk_rows=500, sketch_shards=2).cuts
+    np.testing.assert_array_equal(shd.cuts.numpy(), np.asarray(want))
     # One chunk makes one shard: the sequential sketch, as in the reference.
     e = ExternalDMatrix.from_arrays(x, y, chunk_rows=2000, sketch_shards=8,
                                     paging="auto", max_bins=32, **CPU)

@@ -127,12 +127,25 @@ def test_make_tree_context(replay, rng, compact, knobs):
     assert tctx.key == path and tctx.params == tp
 
 
-def test_sharded_arguments_raise(rng):
-    gh = torch.zeros(10, 2)
+def test_sharded_arguments_raise(rng, replay):
+    """The sharded arguments are ported: a shard's masked gh is the slice
+    of the selection drawn over n_total, bit for bit the reference's; a
+    compact buffer over part of the rows raises the reference's error, and
+    axis_name on one shard's full range gathers nothing."""
+    gh = rng.normal(size=(20, 2)).astype(np.float32)
     p = TS.StochasticParams(subsample=0.5)
+    jp = JS.StochasticParams(subsample=0.5)
     for kw in (dict(n_total=20), dict(row_offset=5), dict(axis_name="data")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            TS.make_tree_context(p, (0, 0, 0), gh, 3, compact=False, **kw)
+        n_total, off = kw.get("n_total", 10), kw.get("row_offset", 0)
+        local = gh[off:off + 10]
+        _, jgh = JS.make_tree_context(jp, jax_key((0, 0, 0)), jnp.asarray(local), 3,
+                                      compact=False, n_total=n_total, row_offset=off)
+        _, tgh = TS.make_tree_context(p, (0, 0, 0), torch.from_numpy(local), 3,
+                                      compact=False, **kw)
+        np.testing.assert_array_equal(tgh.numpy(), np.asarray(jgh))
+        if "n_total" in kw:
+            with pytest.raises(ValueError, match="full row range on one shard"):
+                TS.make_tree_context(p, (0, 0, 0), torch.from_numpy(local), 3, **kw)
 
 
 @pytest.mark.parametrize("n,frac", [(10, 0.25), (10, 0.35), (2, 0.25), (1001, 0.5), (5, 0.1),

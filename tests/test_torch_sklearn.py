@@ -291,18 +291,32 @@ def test_chunk_rows_raises(cls_data):
 @pytest.mark.parametrize("knob,value", [("on_oom", "external"), ("checkpoint_every", 2),
                                         ("mesh", "a mesh"), ("compression", "f16")])
 def test_unported_knobs_raise_by_name(reg_data, knob, value):
-    """mesh and compression raise naming themselves; on_oom and
-    checkpoint_every are ported and reach the booster (checkpoint_every
-    alone raises the reference's ValueError: it needs checkpoint_path)."""
+    """Every knob reaches the booster. mesh ("a mesh": a 2-position CPU
+    mesh) shards the fit, which predicts as the one-device estimator within
+    the fits' tolerance, and `comm_stats_` is its accounting; compression
+    ("f16", over the same mesh) shows in it; on_oom and checkpoint_every
+    are ported too (checkpoint_every alone raises the reference's
+    ValueError: it needs checkpoint_path)."""
+    from repro_torch.dist import make_mesh
+
     x, y = reg_data
+    if knob in ("mesh", "compression"):
+        x, y = x[:len(x) // 2 * 2], y[:len(y) // 2 * 2]  # rows divisible by the shards
+        mesh = make_mesh((2,), ("data",), device="cpu")
+        est = XGBRegressor(n_estimators=2, max_bins=32, **CPU, mesh=mesh,
+                           **({knob: value} if knob == "compression" else {})).fit(x, y)
+        assert est.comm_stats_["devices"] == 2
+        assert est.comm_stats_["compression"] == (value if knob == "compression" else None)
+        one = XGBRegressor(n_estimators=2, max_bins=32, **CPU).fit(x, y)
+        assert one.comm_stats_ is None
+        np.testing.assert_allclose(est.predict(x), one.predict(x),
+                                   rtol=0, atol=0.05 if knob == "compression" else 1e-5)
+        return
     est = XGBRegressor(n_estimators=2, max_bins=32, **CPU, **{knob: value})
     if knob == "on_oom":
         assert est.fit(x, y).booster_.resilience_events == []
     elif knob == "checkpoint_every":
         with pytest.raises(ValueError, match="checkpoint_path"):
-            est.fit(x, y)
-    else:
-        with pytest.raises(NotImplementedError, match=knob):
             est.fit(x, y)
 
 

@@ -41,6 +41,15 @@ torch.equal to its in-memory fit), over data seeds 0-9:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py resilience
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py external
+
+`dist` reads the gaps of tests/test_torch_dist.py: every collective case
+against the reference's on the same per-shard inputs (largest absolute
+and relative difference), and every sharded fit of its `FITS` against the
+reference's on 8 virtual CPU devices (structure, the leaf atol needed,
+comm_stats; the compressed fits' RMSE gap to the exact fit), then the
+port's sharded fits against its single-device fit:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py dist
 """
 import json
 
@@ -637,6 +646,59 @@ def external_readings(seeds=range(10)):
         TSMP.uniform = draw
 
 
+def dist_readings():
+    """The gaps behind tests/test_torch_dist.py's tolerances: each
+    collective case's largest absolute and relative difference from the
+    reference's on the same per-shard inputs, and each sharded fit's
+    structure, the atol its leaves need, comm_stats equality and, for the
+    compressed fits, the relative RMSE gap to the exact fit."""
+    import tempfile
+    from pathlib import Path
+
+    import test_torch_dist as TD
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = TD.reference_outputs(Path(tmp))
+        arrays, meta, _, data = ref
+        for i, (mesh_name, name, comp, tol) in enumerate(TD.COLLECTIVES):
+            xs = TD._coll_inputs(int(np.prod(TD.MESHES[mesh_name][0])), seed=len(mesh_name))
+            got, fb, _ = TD._port_collective(mesh_name, name, comp, tol, xs)
+            want = arrays[f"coll/{i}"]
+            diff = np.abs(got.astype(np.float64) - want)
+            yield {"collective": name, "mesh": mesh_name, "compression": comp, "tolerance": tol,
+                   "max_abs_diff": float(diff.max()),
+                   "max_rel_diff": float((diff / np.maximum(np.abs(want), 1e-30)).max()),
+                   "fallbacks_equal": fb.tolist() == arrays[f"coll/{i}/fallbacks"].tolist()}
+        draw, TSMP.uniform = TSMP.uniform, replay_uniform
+        try:
+            exact_rmse = {}
+            for name, (ds, knobs, *_rest) in TD.FITS.items():
+                tb = TD._port_fit(ref, name)
+                same = all(np.array_equal(getattr(tb.ensemble, f).numpy(), arrays[f"{name}/{f}"])
+                           for f in STRUCTURE)
+                line = {"fit": name, "structure_same": same,
+                        "leaf_atol_needed": float(np.abs(tb.ensemble.leaf_value.numpy()
+                                                         - arrays[f"{name}/leaf_value"]).max())
+                        if same else None,
+                        "comm_stats_equal": tb.comm_stats == meta["fits"][name]["comm_stats"]}
+                if ds == "b":
+                    x, y = data["b"]
+                    rmse = float(np.sqrt(np.mean((tb.predict(x).numpy() - y) ** 2)))
+                    exact_rmse.setdefault("b", rmse)
+                    line["rmse_rel_gap_to_exact"] = abs(rmse - exact_rmse["b"]) / exact_rmse["b"]
+                yield line
+        finally:
+            TSMP.uniform = draw
+        one = Booster(**TD.A).fit(TD._dmat(ref, "a", 32))
+        for name in ("psum", "psum_d2", "hier_2axis"):
+            tb = TD._port_fit(ref, name)
+            yield {"fit": name, "against": "the port's single-device fit",
+                   "structure_same": all(torch.equal(getattr(tb.ensemble, f),
+                                                     getattr(one.ensemble, f)) for f in STRUCTURE),
+                   "leaf_atol_needed": float((tb.ensemble.leaf_value
+                                              - one.ensemble.leaf_value).abs().max())}
+
+
 if __name__ == "__main__":
     import sys
 
@@ -649,6 +711,8 @@ if __name__ == "__main__":
         lines = resilience_readings()
     elif chosen == ("external",):
         lines = external_readings()
+    elif chosen == ("dist",):
+        lines = dist_readings()
     else:
         rank = "rank:pairwise" in chosen or not chosen
         chosen = tuple(o for o in chosen if o != "rank:pairwise")
