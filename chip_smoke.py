@@ -259,9 +259,11 @@ Phases, each printing one JSON line:
                 output elements, on the rows past element 2^31); the pairwise
                 gradient on the rank fit's training scores after
                 RANK_CHECK_ROUNDS rounds, at PAIR_GROUPS' query sizes (1, 2,
-                120 and 1,251 rows, one query of 5,000, one of 50,000 rows), on
-                one relevance everywhere and on tied scores, within PAIR_RTOL
-                * (1 + each row's summed term magnitudes); the two histogram
+                120 and 1,251 rows, one query of 5,000, one of 50,000 rows), at
+                a size just above each at which the kernel's work changes hands
+                (33, 257 and 769 rows), on one relevance everywhere and on
+                tied scores, within PAIR_RTOL * (1 + each row's summed term
+                magnitudes) and bit for bit across two calls; the two histogram
                 kernels' chunked instantiation on the external phase's chunk
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
@@ -289,10 +291,11 @@ Phases, each printing one JSON line:
                 at each timed shape of DECOMPRESS_SHAPES, beside its bound
                 and `copy_` of as many bytes read and written (what the card
                 reaches on the same traffic; no port code calls it); the
-                pairwise kernel at the rank fit's shape by events and back to
-                back, beside its bound from this data's pairs, the bound of its
-                exps and reciprocals at the special-function units' rate, its
-                plain version, and `ops.query_groups`; each histogram kernel's
+                pairwise kernel at the rank fit's shape and at each of
+                PAIR_GROUPS' shapes by events and back to back, beside its
+                bound from those pairs and the bound of their exps and
+                reciprocals at the special-function units' rate, at the rank
+                shape its plain version and `ops.query_groups`; each histogram kernel's
                 chunked instantiation beside its flat one on the same rows (#1
                 at 1 and 8 nodes, the row-id kernel at 1 and 16 parents, each
                 chunk stack of the external phase), by events and back to
@@ -510,6 +513,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def template_args(mangled: str) -> list[str]:
+    """A kernel's template arguments from its mangled name: integers
+    (`Li2E`) and classes, nested ones too (`NS_14ShuffleTilesOfINS_7SigmoidEEE`
+    is `ShuffleTilesOf<Sigmoid>`)."""
+    def args(rest: str) -> tuple[list[str], str]:  # up to and past the closing E
+        out = []
+        while rest and rest[0] != "E":
+            if t := re.match(r"L[ib](\d+)E", rest):
+                out.append(t.group(1))
+                rest = rest[t.end():]
+            elif t := re.match(r"(N(?:S_|\d+_GLOBAL__N_1))?(\d+)", rest):
+                stop = t.end() + int(t.group(2))
+                name, rest = rest[t.end():stop], rest[stop:]
+                if rest.startswith("I"):
+                    inner, rest = args(rest[1:])
+                    name += f"<{','.join(inner)}>"
+                if t.group(1):
+                    rest = rest[1:]  # the N...E around a namespaced name
+                out.append(name)
+            else:
+                return out, ""
+        return out, rest[1:]
+
+    at = mangled.find("_kernelI")
+    return args(mangled[at + len("_kernelI"):])[0] if at >= 0 else []
+
+
 def ptxas_summary(report: str) -> list[dict]:
     """Registers, shared memory and spills per compiled kernel function."""
     rows, cur = [], None
@@ -518,9 +548,9 @@ def ptxas_summary(report: str) -> list[dict]:
             mangled = line.split("'")[1]
             name = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
             # Template arguments: the split scan's <kMask, kMono>; #1's <SPW,
-            # MIN_BLOCKS, kChunked>, the row-id kernel's <SPW, kChunked>.
-            targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
-            targs = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
+            # MIN_BLOCKS, kChunked>, the row-id kernel's <SPW, kChunked>; the
+            # pairwise kernels' <Tiles, kWarpMax> and <Tiles>.
+            targs = template_args(mangled)
             cur = {"function": (name.group(1) if name else mangled)
                    + (f"<{','.join(targs)}>" if targs else "")}
             rows.append(cur)
@@ -680,8 +710,8 @@ def mslr_shaped(rng, n_queries: int, total: int | None, first_qid: int, signal, 
 def pair_counts(rel, qid) -> tuple[int, int]:
     """(unordered pairs within the queries, sum of g (g - 1) / 2; unordered
     pairs whose labels differ) of this data. One sigmoid of a pair gives
-    both rows' terms, so these are the function's counts, though the kernel,
-    one thread a row, computes each pair twice."""
+    both rows' terms, so these are the function's counts, as the kernel
+    computes them: each pair once."""
     import numpy as np
 
     per_query = np.bincount(qid - qid.min()).astype(np.int64)
@@ -690,6 +720,18 @@ def pair_counts(rel, qid) -> tuple[int, int]:
     pairs = int((per_query * (per_query - 1)).sum()) // 2
     same = int((per_label * (per_label - 1)).sum()) // 2
     return pairs, pairs - same
+
+
+def grouped_pair_counts(labels, grouping) -> tuple[int, int]:
+    """`pair_counts` of labels 0-4 on the card under an `ops.query_groups`
+    grouping (order, start, end)."""
+    import numpy as np
+
+    order, start, end = (t.cpu().numpy().astype(np.int64) for t in grouping)
+    rel = labels.cpu().numpy().astype(np.int64)[order]
+    pairs = int((end - start - 1).sum()) // 2
+    per_label = np.bincount(start * 5 + rel).astype(np.int64)
+    return pairs, pairs - int((per_label * (per_label - 1)).sum()) // 2
 
 
 def main() -> int:
@@ -754,6 +796,7 @@ def main() -> int:
         launch_plan,
         occupancy,
     )
+    from repro_torch.kernels import pairwise as KP
     from repro_torch.kernels.pairwise import pairwise_grad
     from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
     from repro_torch.kernels.split_scan import split_scan
@@ -2578,13 +2621,22 @@ def main() -> int:
         lab = torch.randint(0, labels, (rows,), device=dev, generator=gen).to(torch.float32)
         return (torch.round(sc) if tied else sc), lab, ops.query_groups(ids)
 
+    # Queries just above each size at which the kernel's work changes hands:
+    # a window's warp, a block, and a spread query of three chunks and a row.
+    pair_group_inputs = {name: pair_inputs(size, rows) for name, size, rows in PAIR_GROUPS}
     pair_sets = {"rank_scores": (rank_scores, d_rank.label, rank_grouping),
-                 **{name: pair_inputs(size, rows) for name, size, rows in PAIR_GROUPS},
+                 **pair_group_inputs,
+                 **{f"above_{k}": pair_inputs(size + 1, 50_000 // (size + 1) * (size + 1))
+                    for k, size in (("window", KP.WINDOW_ROWS), ("block", KP.BLOCK_ROWS),
+                                    ("three_chunks", 3 * KP.CHUNK_ROWS))},
                  "equal_relevance": pair_inputs(120, 50_040, labels=1),
                  "tied_scores": pair_inputs(120, 50_040, tied=True)}
     pair_checked = []
     for name_p, (sc, lab, grouping) in pair_sets.items():
         got = pairwise_grad(sc, lab, *grouping)
+        # Run to run: the same bits from a second call (no float atomics;
+        # every sum in an order fixed by the shapes).
+        same_bits = bool(torch.equal(got, pairwise_grad(sc, lab, *grouping)))
         terms = ref.pairwise_terms_ref(sc, lab, *grouping)
         want = ref.pairwise_grad_ref(sc, lab, *grouping)
         mag = torch.stack([terms[:, 0] + terms[:, 1], terms[:, 2]], dim=1)
@@ -2592,7 +2644,8 @@ def main() -> int:
         row = {"input": name_p, "rows": int(sc.shape[0]),
                "max_abs_err": float(diff.max()),
                "max_err_over_1_plus_terms": float((diff / (1 + mag)).max()),
-               "ok": bool((diff <= PAIR_RTOL * (1 + mag)).all())}
+               "ok": bool((diff <= PAIR_RTOL * (1 + mag)).all()) and same_bits,
+               "same_bits_two_calls": same_bits}
         if name_p == "equal_relevance":
             row["ok"] &= bool((got[:, 0] == 0).all()) and bool((got[:, 1] == 1e-6).all())
         pair_checked.append(row)
@@ -2602,7 +2655,8 @@ def main() -> int:
     results["pairwise_grad"] = {
         "max_abs_err": max(r["max_abs_err"] for r in pair_checked),
         "tolerance": f"{PAIR_RTOL} * (1 + the row's summed term magnitudes); h exactly "
-                     "1e-6 where no pair is comparable", "inputs": pair_checked}
+                     "1e-6 where no pair is comparable; two calls bit for bit",
+        "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
     # --- 19. times -------------------------------------------------------------
@@ -3003,6 +3057,21 @@ def main() -> int:
             lambda: ops.query_groups(d_rank.group_ids), launches=20),
         "group_sort_back_to_back_ms": back_to_back_ms(
             lambda: torch.sort(d_rank.group_ids, stable=True), launches=20)}})
+    # The same at each of PAIR_GROUPS' shapes (the kernel's launches a call:
+    # the query kernel and the spread kernel, counted as one).
+    group_times = {}
+    for name_p, (sc, lab, grouping) in pair_group_inputs.items():
+        g_pairs, g_differ = grouped_pair_counts(lab, grouping)
+        args_p = (sc, lab, *grouping)
+        g_ms, g_by = bound(28 * sc.shape[0], g_pairs + 10 * g_differ)
+        group_times[name_p] = {
+            "rows": int(sc.shape[0]), "pairs": g_pairs, "pairs_labels_differ": g_differ,
+            "ms": time_ms(lambda: pairwise_grad(*args_p)),
+            "back_to_back_ms": back_to_back_ms(lambda: pairwise_grad(*args_p), launches=20),
+            "bound_ms": g_ms, "bound_by": g_by,
+            "sfu_bound_ms": 2 * g_differ / SFU_OPS_PER_S * 1e3}
+    emit({"phase": "time", "pairwise_grad_groups": group_times})
+    del pair_group_inputs
     # Each kernel's launches on the path that runs it: the main path's, the
     # ops phase's histogram_packed, the dense default fit's decompress, and
     # the rank fit's pairwise gradient.

@@ -49,7 +49,7 @@ SIGNATURES = {
     "rt_empty_launch": [_P],
     "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
     "rt_ensemble_margins": [_P] * 3 + [_I] * 10 + [_P],
-    "rt_pairwise_grad": [_P] * 6 + [_I, _P],
+    "rt_pairwise_grad": [_P] * 7 + [_I, _P],
     "rt_histogram_occupancy": [_I] * 5 + [_P],
     "rt_device_limits": [_I, _P],
 }

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import compress as TC
 from repro_torch.core import quantile as TQ
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, pairwise, ref
 from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, pack_nodes
 from repro_torch.kernels.histogram import (
@@ -746,18 +746,31 @@ def _pairwise_case(rng, sizes, n_labels=5, tied_scores=False):
     return s[perm], y[perm], ids[perm]
 
 
+# Queries just above each size at which the pairwise kernel's work changes
+# hands (a window's warp, a block, a spread query of three chunks).
+PAIRWISE_ABOVE = {"above_window": pairwise.WINDOW_ROWS + 1,
+                  "above_block": pairwise.BLOCK_ROWS + 1,
+                  "above_three_chunks": 3 * pairwise.CHUNK_ROWS + 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["groups_1", "groups_2", "groups_120", "groups_1251",
-                                  "one_5000", "all_rows", "equal_relevance", "tied_scores"])
+                                  "one_5000", "all_rows", "equal_relevance", "tied_scores",
+                                  *PAIRWISE_ABOVE, "tiny_shared_warps", "mixed_sizes"])
 def test_pairwise_kernel_on_card(rng, case):
     """The pairwise kernel against its plain version at chip_smoke.py's
-    group shapes: g and h within 2e-6 * (1 + the row's summed term
-    magnitudes) (float64 sums of float32 terms in two orders); h exactly
-    the 1e-6 floor where no pair is comparable."""
+    group shapes, just above each size at which its work changes hands, on
+    queries of 1-8 rows that share warps and on sizes of 1-700 rows mixed:
+    g and h within 2e-6 * (1 + the row's summed term magnitudes) (float32
+    terms summed in another order); h exactly the 1e-6 floor where no pair
+    is comparable."""
     dev = _cuda()
     sizes = {"groups_1": [1] * 3000, "groups_2": [2] * 1500, "groups_120": [120] * 40,
              "groups_1251": [1251, 1251, 7], "one_5000": [5000], "all_rows": [20_000],
-             "equal_relevance": [100] * 30, "tied_scores": [300] * 10}[case]
+             "equal_relevance": [100] * 30, "tied_scores": [300] * 10,
+             "tiny_shared_warps": rng.integers(1, 9, size=2000),
+             "mixed_sizes": rng.integers(1, 701, size=200),
+             **{k: [v] * (12_000 // v) for k, v in PAIRWISE_ABOVE.items()}}[case]
     s, y, ids = _pairwise_case(rng, sizes, n_labels=1 if case == "equal_relevance" else 5,
                                tied_scores=case == "tied_scores")
     args = [torch.from_numpy(a).to(dev) for a in (s, y)]
@@ -771,6 +784,21 @@ def test_pairwise_kernel_on_card(rng, case):
     assert bool(((got - want).abs() <= 2e-6 * (1 + mag)).all())
     if case in ("groups_1", "equal_relevance"):
         assert bool((got[:, 0] == 0).all()) and bool((got[:, 1] == np.float32(1e-6)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[20_000], [1251, 90, 3, 700, 1, 257] * 20])
+def test_pairwise_kernel_same_bits_every_call(rng, sizes):
+    """Two calls on the same inputs give the same bits: the kernel has no
+    float atomics and sums in an order fixed by the shapes (one query of all
+    rows, and a mix of sizes that runs both of its kernels)."""
+    dev = _cuda()
+    s, y, ids = _pairwise_case(rng, sizes)
+    args = [torch.from_numpy(a).to(dev) for a in (s, y)]
+    grouping = ops.query_groups(torch.from_numpy(ids).to(dev))
+    first = ops.pairwise_grad(*args, *grouping)
+    for _ in range(3):
+        assert torch.equal(ops.pairwise_grad(*args, *grouping), first)
 
 
 @pytest.mark.cuda

@@ -122,6 +122,35 @@ def test_pairwise_grad_matches_reference(case):
     assert torch.equal(direct, torch.from_numpy(got[:, 0]))
 
 
+@pytest.mark.parametrize("size", [33, 257, 513, 769])
+def test_pairwise_plain_version_at_kernel_sizes(size):
+    """The plain version, the card kernel's yardstick, against a literal
+    float64 double loop over each query at sizes just above those at which
+    the kernel's work changes hands (`kernels/pairwise.py`: a window, a
+    block, two and three spread chunks), beside singletons and pairs: within 2^-22
+    (1 + the row's summed rho) in g and h (float32 terms and the float32
+    result against float64 ones; h's terms lose their precision in 1 - rho
+    as rho nears 1, by an ulp of rho)."""
+    rng = np.random.default_rng(size)
+    sizes = np.concatenate([[size, size - 1, 1, 2], rng.integers(1, 9, size=20)])
+    ids = rng.permutation(np.repeat(rng.permutation(len(sizes)) * 5 - 3, sizes)).astype(np.int32)
+    s = (rng.normal(size=len(ids)) * 2).astype(np.float32)
+    y = rng.integers(0, 5, size=len(ids)).astype(np.float32)
+    got = ops.pairwise_grad(_t(s), _t(y), *ops.query_groups(_t(ids))).numpy()
+    want, mag = np.zeros((len(ids), 2)), np.zeros(len(ids))
+    for q in np.unique(ids):
+        rows = np.nonzero(ids == q)[0]
+        for i in rows:
+            j = rows[y[rows] != y[i]]
+            better = y[i] > y[j]
+            d = np.where(better, s[j].astype(np.float64) - s[i], s[i].astype(np.float64) - s[j])
+            rho = 1.0 / (1.0 + np.exp(-d))
+            want[i] = [np.sum(np.where(better, -rho, rho)), np.sum(rho * (1.0 - rho))]
+            mag[i] = np.sum(rho)
+    want[:, 1] = np.maximum(want[:, 1], 1e-6)
+    assert np.all(np.abs(got - want) <= 2.0**-22 * (1 + mag[:, None]))
+
+
 def test_pairwise_plain_version_tiles_a_large_group(monkeypatch):
     """A group whose pairs outnumber a chunk of the plain version runs over
     several chunks of its rows; the result is that of one chunk."""
