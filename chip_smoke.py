@@ -231,12 +231,35 @@ Phases, each printing one JSON line:
                 ms a level-5 allreduce of each strategy and compression, the
                 sketch's seconds, DIST_PAIRS warm rotations of 1-, 2- and
                 4-shard fits.
-  17. ops     — the path the reference gives `histogram_packed` and
+  17. feature — feature-sharded growth (`grow_tree(feature_axis="model")`)
+                on the main matrix's dense bins (`dtrain.matrix.unpack()`: one
+                decompress), over FEATURE_MESHES of cuda:0 positions ((2, 2)
+                and (1, 4) on ("data", "model"); `dist.shard_features`, the
+                rows reduced by a psum over "data"), each with the default
+                builder (`index_add_`) and the kernel builder
+                (`ops.build_histograms_kernel`: pack + #1): a ROUNDS-round
+                loop driven by the phase (gradients from the margins, one tree
+                under `dist.spmd`, the margins moved by the bin-space
+                traversal of the packed matrix), beside the same loop
+                unsharded (feature_axis=None, one position). Gates: every
+                position's tree bit for bit the same in every round; launches
+                a tree split scan DEPTH x S, #1 0 (default) or DEPTH x S
+                (kernel builder), row-id 0; held-out accuracy > 0.7 and
+                within 0.003 of the unsharded loop's; raw-row margins of the
+                model (thresholds psum'd from their owners) within 1e-5 of
+                its bin-space margins; packed bins, a sample buffer and
+                monotone constraints under feature_axis raise (the last
+                before any launch). Readings: seconds a round at 1 / (1, 4) /
+                (2, 2); the GBDT dry run (`launch/dryrun_gbdt.py`) of both
+                modes on a DRYRUN_MESH of cuda:0 positions: bytes a position
+                posted by kind, round seconds; the card's name and power
+                limit.
+  18. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  18. check   — each kernel against its plain PyTorch version on the same
+  19. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -268,7 +291,7 @@ Phases, each printing one JSON line:
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
                 shapes are.
-  19. time    — CUDA-event ms of each kernel, its plain version and, where one
+  20. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -471,6 +494,12 @@ DIST_SHARDS = (2, 4)  # shard counts of the dist phase, every position on cuda:0
 DIST_PAIRS = 3  # warm rotations of the 1-, 2- and 4-shard default fits
 DIST_FAIL_S = 30.0  # a fit whose shard raises must end within this many seconds
 DIST_SKETCH_CAPACITY = 1024  # sharded_sketch_cuts' default summary size
+# Feature-sharded growth: meshes of cuda:0 positions on ("data", "model"),
+# and the GBDT dry run's mesh at its default rows and features: (4, 4), as
+# a baseline round at the reference's (16, 16), 256 threads on the one
+# card, takes over a minute (82 s; PERF.md §6).
+FEATURE_MESHES = ((2, 2), (1, 4))
+DRYRUN_MESH, DRYRUN_ROWS, DRYRUN_FEATURES = (4, 4), 1 << 20, 13
 STREAM_PAIRS = 3  # warm alternating pairs: streamed vs resident, prefetch 2 vs 0
 FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
 # Resilience: the round whose gradients the nan_grad fault overwrites; kill
@@ -2181,6 +2210,145 @@ def main() -> int:
                                                 paging="stream"), "stream")
         profile_fit(d_dist, "dist", fit_kw={"mesh": meshes[min(DIST_SHARDS)]})
 
+    # --- 17. feature-sharded growth: (2, 2) and (1, 4) meshes on cuda:0 --------
+    def feature_phase() -> None:
+        from repro_torch.core import tree as TT
+        from repro_torch.core.predict import fold_classes, predict_raw, stack_trees
+        from repro_torch.launch import dryrun_gbdt
+
+        cfg = Booster(**booster_kw).cfg
+        obj = O.get_objective("binary:logistic")
+        n = dtrain.n_rows
+        ops.reset_launches()
+        dense = dtrain.matrix.unpack()  # one decompress
+        unpack_launches = ops.launches()["decompress"]
+        cuts, packed_bins = dtrain.cuts, dtrain.packed_bins()
+        base = float(obj.init_base_score(dtrain.label))
+        d_te = DeviceDMatrix(x_te, ref=dtrain)
+        fields = ("feature", "split_bin", "default_left", "leaf_value", "is_leaf")
+        bad = []
+
+        def grow_all(mesh, builder, gh, ctx=None):
+            """Every position's tree of one round (mesh None: one position,
+            feature_axis=None)."""
+            if mesh is None:
+                return [TT.grow_tree(dense, gh, cuts, DEPTH, MAX_BINS, cfg.split_params,
+                                     hist_builder=builder, ctx=ctx)]
+            coll = D.PsumCollective(mesh, ("data",))
+            parts = D.shard_features(dense, cuts, mesh, ("data",), "model")
+            n_rows, shard_of, _ = mesh.shards(("data",))
+            per = n // n_rows
+            return D.spmd(mesh, lambda part, g: TT.grow_tree(
+                part[0], g, part[1], DEPTH, MAX_BINS, cfg.split_params, hist_builder=builder,
+                ctx=ctx, collective=coll, feature_axis="model"),
+                parts, [gh[s * per:(s + 1) * per] for s in shard_of])
+
+        def boost(mesh, builder):
+            """ROUNDS rounds driven here: (trees, launches a tree, replicated
+            in every round, seconds a round)."""
+            margins = torch.full((n, 1), base, device=dev)
+            trees, counts, same, secs = [], [], True, []
+            for _ in range(ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gh = obj.grad(margins, dtrain.label)[:, 0, :].contiguous()
+                ops.reset_launches()
+                out = grow_all(mesh, builder, gh)
+                counts.append(ops.launches())
+                same &= all(torch.equal(a, b) for t in out[1:] for a, b in zip(out[0], t))
+                leaves = packed_bins.traverse(*(getattr(out[0], f_)[None] for f_ in fields),
+                                              MAX_BINS - 1, DEPTH)
+                margins = margins + cfg.learning_rate * leaves.t()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                trees.append(out[0])
+            return trees, counts, same, secs
+
+        def held_out(trees):
+            """Accuracy of the model's raw-row predictions, and their largest
+            gap to its bin-space margins."""
+            ens = stack_trees(trees, 1, base, leaf_scale=cfg.learning_rate)
+            raw = predict_raw(ens, xte_dev, DEPTH)
+            binned = fold_classes(d_te.packed_bins().traverse(
+                *(getattr(ens, f_) for f_ in fields), MAX_BINS - 1, DEPTH), ens) + base
+            return accuracy(obj.transform(raw)), float((raw - binned).abs().max())
+
+        round_s = {}
+        for name_b, builder in (("default", None), ("kernel", ops.build_histograms_kernel)):
+            trees1, _, _, secs1 = boost(None, builder)
+            acc1, _ = held_out(trees1)
+            round_s[f"1_{name_b}"] = float(np.median(secs1))
+            for shape in FEATURE_MESHES:
+                mesh = D.make_mesh(shape, ("data", "model"), device=dev)
+                s_ = mesh.size
+                trees, counts, same, secs = boost(mesh, builder)
+                acc_, gap = held_out(trees)
+                want = {"split_scan": DEPTH * s_, "histogram_rows": 0,
+                        "histogram_private": DEPTH * s_ if builder else 0}
+                counts_ok = all(c_[k] == v for c_ in counts for k, v in want.items())
+                tag = "x".join(map(str, shape))
+                round_s[f"{tag}_{name_b}"] = float(np.median(secs))
+                line_ = {"phase": "feature", "mesh": tag, "builder": name_b, "rounds": ROUNDS,
+                         "launches_per_tree": counts[0], "launches_expected": want,
+                         "launches_every_tree": counts_ok, "replicated_every_round": same,
+                         "held_out_accuracy": acc_, "accuracy_unsharded": acc1,
+                         "raw_vs_binned_max_err": gap, "round_s": secs,
+                         "round_s_unsharded": secs1}
+                emit(line_)
+                if not (counts_ok and same and acc_ > 0.7 and abs(acc_ - acc1) <= 0.003
+                        and gap <= 1e-5):
+                    bad.append(line_)
+
+        # The refusals, on the card: packed bins, a sample buffer, and
+        # monotone constraints under feature_axis (before any launch).
+        gh0 = obj.grad(torch.full((n, 1), base, device=dev), dtrain.label)[:, 0, :].contiguous()
+        refusals = {}
+
+        def refused(name_r, fn):
+            try:
+                fn()
+                refusals[name_r] = "no error"
+            except NotImplementedError as exc:
+                refusals[name_r] = str(exc)
+
+        refused("packed", lambda: TT.grow_tree(packed_bins, gh0, cuts, DEPTH, MAX_BINS,
+                                               feature_axis="model"))
+        buffer_ctx = SMP.TreeContext(
+            key=(args.seed, 0, 0), row_ids=torch.arange(1024, dtype=torch.int32, device=dev),
+            feature_mask=None, params=SMP.StochasticParams(subsample=0.5), device=dev)
+        refused("buffer", lambda: TT.grow_tree(dense, gh0[:1024], cuts, DEPTH, MAX_BINS,
+                                               ctx=buffer_ctx, feature_axis="model"))
+        mesh22 = D.make_mesh(FEATURE_MESHES[0], ("data", "model"), device=dev)
+        mono_ctx = SMP.TreeContext(
+            key=(args.seed, 0, 0), row_ids=None, feature_mask=None, device=dev,
+            params=SMP.StochasticParams(monotone=MONOTONE[:dense.shape[1] // 2]))
+        ops.reset_launches()
+        refused("monotone", lambda: grow_all(mesh22, None, gh0, ctx=mono_ctx))
+        mono_launches = sum(ops.launches().values())
+        ref_ok = (refusals["packed"] == "feature-sharded growth requires dense bins "
+                  "(unpack per shard)"
+                  and refusals["buffer"].startswith("sharded growth uses masked-mode")
+                  and "tree.py:322" in refusals["monotone"] and mono_launches == 0)
+
+        # The GBDT dry run of both modes: bytes a position posted by kind.
+        t0 = time.perf_counter()
+        d_bins, d_cuts, d_y = dryrun_gbdt.airline(DRYRUN_ROWS, DRYRUN_FEATURES, MAX_BINS, dev)
+        d_mesh = D.make_mesh(DRYRUN_MESH, ("data", "model"), device=dev)
+        dry = [dryrun_gbdt.run(mode, d_mesh, d_bins, d_cuts, d_y, MAX_BINS)
+               for mode in dryrun_gbdt.MODES]
+        line_ = {"phase": "feature", "unpack_decompress_launches": unpack_launches,
+                 "refusals": refusals, "monotone_refusal_launches": mono_launches,
+                 "round_s_median": round_s, "dryrun": dry,
+                 "dryrun_s": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()}
+        emit(line_)
+        if not (ref_ok and unpack_launches == 1 and all(r["replicated"] for r in dry)):
+            bad.append({k: line_[k] for k in ("refusals", "monotone_refusal_launches",
+                                              "unpack_decompress_launches")})
+        if bad:
+            raise SystemExit(f"feature phase failed: {bad}")
+
+    feature_phase()
+
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n, f = dtrain.n_rows, dtrain.n_features
@@ -2243,7 +2411,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 17. the ops path of histogram_packed and decompress -----------------
+    # --- 18. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -2310,7 +2478,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 18. kernels against their plain versions ---------------------------
+    # --- 19. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -2659,7 +2827,7 @@ def main() -> int:
         "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 19. times -------------------------------------------------------------
+    # --- 20. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")

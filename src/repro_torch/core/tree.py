@@ -26,6 +26,15 @@ are one shard's rows, every level is histogrammed in full and reduced by
 the collective (the paper's AllReduceHistograms), and every shard grows
 the same tree from the reduced histograms.
 
+Feature-sharded growth (`feature_axis`, a mesh axis name, inside
+`dist.spmd`; DESIGN.md §3): the dense bins and the cuts hold this
+position's slice of the features as well. Histograms stay feature-local
+(reduced over the row axes only), each position evaluates its features,
+and one all-gather a level of a small record per node picks the winner
+(the lowest global feature id among equal gains); the owner of a split's
+feature routes the rows and a psum over the feature axis hands the route,
+and at the end the thresholds, to every position.
+
 Growth strategies: "depthwise" expands every node whose best gain > 0;
 "lossguide" spends a `max_leaves` budget, letting only the top-k gains of
 each level split, k = the budget left.
@@ -91,6 +100,7 @@ def grow_tree(
     hist_builder=None,  # optional builder (kernels.ops), every level in full
     ctx: SMP.TreeContext | None = None,  # sampling and constraints
     collective=None,  # a dist.Collective: this shard's rows, histograms reduced
+    feature_axis: str | None = None,  # mesh axis over which the features are sharded
 ) -> Tree:
     """Grow one tree from a bins type (the packed matrix, the chunk stack,
     resident or streamed) or the dense (n, f) bins and the rows' (g, h)
@@ -103,7 +113,20 @@ def grow_tree(
     shard's rows: the root sum goes through `collective.allreduce` and each
     level's histogram, built in full (no subtraction trick), through
     `collective.allreduce_hist`, so every shard grows the same tree; rows
-    are sampled in masked mode only, and streamed bins are refused."""
+    are sampled in masked mode only, and streamed bins are refused.
+
+    With `feature_axis` (inside `dist.spmd`) `bins` are dense and, with
+    `cuts`, hold only this position's slice of the features; its index on
+    the axis (`mesh.coords(position)[feature_axis]`, what
+    `jax.lax.axis_index` is to the reference) places that slice. The row
+    axes reduce through `collective`: the reference's `axis_name="data"`
+    is `collective=PsumCollective(mesh, ("data",))`. Every position
+    returns the same tree, with global feature ids. Column sampling draws
+    at the local width with the same path on every position, as the
+    reference does. Monotone constraints are refused: the reference looks
+    a split's sign up by global feature id in a vector of the local width
+    (`repro/core/tree.py:322`), which JAX clamps and the card would fault
+    on."""
     if growth not in ("depthwise", "lossguide"):
         raise ValueError(f"growth must be 'depthwise' or 'lossguide', got {growth!r}")
     # Every bins type answers the same calls; only dense bins take other paths.
@@ -112,11 +135,15 @@ def grow_tree(
         raise TypeError("grow_tree takes a bins type (compress.PackedBins, "
                         "compress.ChunkedPackedBins, stream.StreamedChunkedBins) or "
                         "dense (n, f) bins")
-    if collective is not None and packed_mode and not isinstance(
-            bins, (C.PackedBins, C.ChunkedPackedBins)):
+    sharded = collective is not None or feature_axis is not None
+    if sharded and packed_mode and not isinstance(bins, (C.PackedBins, C.ChunkedPackedBins)):
         raise NotImplementedError(
             "streamed out-of-core growth is single-shard with the default "
             "builders; use resident paging for sharded or kernel fits"
+        )
+    if feature_axis is not None and packed_mode:
+        raise NotImplementedError(
+            "feature-sharded growth requires dense bins (unpack per shard)"
         )
     if packed_mode and not isinstance(bins, C.PackedBins) and hist_builder is not None:
         raise NotImplementedError(
@@ -136,7 +163,7 @@ def grow_tree(
                 "custom/kernel hist builders are not row-subset aware; use "
                 "masked-mode subsampling (ctx.row_ids=None) with them"
             )
-        if collective is not None:
+        if sharded:
             raise NotImplementedError(
                 "sharded growth uses masked-mode subsampling "
                 "(ctx.row_ids=None); compact buffers are single-shard only"
@@ -146,6 +173,13 @@ def grow_tree(
             bins, row_ids = bins[row_ids.to(torch.int64)], None
         n = gh.shape[0]  # the buffer's size m: positions live there
     mono_on = stoch is not None and stoch.monotone_on
+    if mono_on and feature_axis is not None:
+        raise NotImplementedError(
+            "monotone constraints are not supported with feature_axis: the "
+            "reference looks a split's sign up by global feature id in a "
+            "vector of the local width (repro/core/tree.py:322), a clamped "
+            "gather in JAX that would read out of range on the card"
+        )
     if mono_on:
         if len(stoch.monotone) != f:
             raise ValueError(
@@ -173,6 +207,13 @@ def grow_tree(
     budget = torch.tensor(max(max_leaves - 1, 0) if growth == "lossguide" else na,
                           device=dev)
 
+    f_off = 0  # this position's first global feature id
+    if feature_axis is not None:
+        from repro_torch.dist import group as G  # dist imports this module
+
+        shard = G.current_shard()
+        f_off = shard.group.mesh.coords(shard.position)[feature_axis] * f
+
     hist_prev = None
 
     for level in range(max_depth):
@@ -182,7 +223,7 @@ def grow_tree(
         # --- BuildPartialHistograms ---------------------------------------
         in_level = (positions >= off) & (positions < off + n_nodes)
         local = torch.where(in_level, positions - off, n_nodes).to(torch.int32)
-        full = level == 0 or collective is not None  # sharded: no subtraction
+        full = level == 0 or sharded  # sharded: no subtraction
         if hist_builder is not None:
             hist = hist_builder(bins, gh, local, n_nodes, max_bins)
         elif full and row_ids is not None:
@@ -209,6 +250,8 @@ def grow_tree(
                                    node_bounds=torch.stack([lvl_lo, lvl_hi], dim=-1))
         else:
             sp = S.evaluate_splits(hist, parent, params, feature_mask=feature_mask)
+        if feature_axis is not None:
+            sp = _combine_feature_shards(sp, f_off, feature_axis)
         lvl_active = active[lvl]
         will_split = lvl_active & (sp.gain > 0.0) & torch.isfinite(sp.gain)
 
@@ -265,9 +308,13 @@ def grow_tree(
             positions = P.update_positions_on(bins, positions, split_mask, feature,
                                               split_bin, default_left, missing_bin,
                                               row_ids=row_ids)
-        else:
+        elif feature_axis is None:
             positions = P.update_positions(bins, positions, split_mask, feature,
                                            split_bin, default_left, missing_bin)
+        else:
+            positions = _update_positions_feature_sharded(
+                bins, positions, split_mask, feature, split_bin, default_left,
+                missing_bin, f_off, feature_axis)
 
     # Final level: every still-active node is a leaf.
     off, n_nodes = level_offset(max_depth), 2**max_depth
@@ -280,7 +327,12 @@ def grow_tree(
 
     # Raw-space thresholds for prediction on unquantised rows.
     col = torch.clamp(split_bin, 0, cuts.shape[1] - 1).to(torch.int64)
-    threshold = cuts[feature.to(torch.int64), col]
+    if feature_axis is None:
+        threshold = cuts[feature.to(torch.int64), col]
+    else:  # the owner's cut, psum'd over the feature axis
+        owned = (feature >= f_off) & (feature < f_off + f)
+        local_thr = cuts[torch.clamp(feature - f_off, 0, f - 1).to(torch.int64), col]
+        threshold = G.psum(torch.where(owned, local_thr, 0.0), feature_axis)
     threshold = torch.where(is_leaf, float("inf"), threshold)
     return Tree(feature, split_bin, threshold, default_left, leaf_value,
                 is_leaf, gain)
@@ -359,3 +411,60 @@ def _histograms_by_subtraction(
     right = torch.where(built_left, other, hist_small)
     f = hist_prev.shape[1]
     return torch.stack([left, right], dim=1).reshape(n_nodes, f, max_bins, 2)
+
+
+def _combine_feature_shards(sp: S.Splits, f_off: int, feature_axis: str) -> S.Splits:
+    """The global best split of each node from every feature shard's best
+    (`repro/core/tree.py` `_combine_feature_shards`).
+
+    The six fields travel as one record of 8 float32 words a node (gain,
+    feature, split_bin, default_left, left (G, H), right (G, H); the
+    integers reinterpreted, the bool as 0 / 1), all-gathered over the
+    feature axis in one exchange. The first maximum in shard order wins,
+    as `jnp.argmax` picks it: among equal gains the lowest global feature
+    id, the unsharded scan's choice."""
+    from repro_torch.dist import group as G  # dist imports this module
+
+    def as_words(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.int32)[:, None].view(torch.float32)
+
+    n = sp.gain.shape[0]
+    rec = torch.cat([sp.gain[:, None], as_words(sp.feature + f_off), as_words(sp.split_bin),
+                     as_words(sp.default_left), sp.left_sum, sp.right_sum], dim=1)
+    every = G.all_gather(rec, feature_axis).view(-1, n, 8)  # (p, n, 8) in shard order
+    win = torch.argmax(every[..., 0], dim=0)  # the first maximum
+    best = torch.gather(every, 0, win[None, :, None].expand(1, n, 8))[0]
+    ints = best[:, 1:4].contiguous().view(torch.int32)
+    return S.Splits(best[:, 0].contiguous(), ints[:, 0].contiguous(), ints[:, 1].contiguous(),
+                    ints[:, 2] != 0, best[:, 4:6].contiguous(), best[:, 6:8].contiguous())
+
+
+def _update_positions_feature_sharded(
+    bins: torch.Tensor,  # (n, f_local) int32: this position's features
+    positions: torch.Tensor,  # (n,) int32 arena node ids, -1 = inactive
+    split_mask: torch.Tensor,  # (n_arena,) bool
+    feature: torch.Tensor,  # (n_arena,) int32 GLOBAL feature ids
+    split_bin: torch.Tensor,
+    default_left: torch.Tensor,
+    missing_bin: int,
+    f_off: int,  # this position's first global feature id
+    feature_axis: str,
+) -> torch.Tensor:
+    """RepartitionInstances when a split's feature may live on another
+    feature shard (`repro/core/tree.py` `_update_positions_feature_sharded`):
+    the owner computes each row's route (1 left, 2 right, 0 otherwise), an
+    int8 psum over the feature axis hands it to every position (exact: one
+    shard adds a non-zero value), and child = 2 pos + route."""
+    from repro_torch.dist import group as G  # dist imports this module
+
+    f_local = bins.shape[1]
+    pos = torch.clamp(positions, min=0).to(torch.int64)
+    splits_here = split_mask[pos] & (positions >= 0)
+    f_glob = feature[pos]
+    owned = (f_glob >= f_off) & (f_glob < f_off + f_local)
+    f_loc = torch.clamp(f_glob - f_off, 0, f_local - 1).to(torch.int64)
+    b = torch.gather(bins, 1, f_loc[:, None])[:, 0]
+    go_left = torch.where(b == missing_bin, default_left[pos], b <= split_bin[pos])
+    route = torch.where(splits_here & owned, torch.where(go_left, 1, 2), 0).to(torch.int8)
+    route = G.psum(route, feature_axis).to(torch.int64)
+    return torch.where(splits_here, 2 * pos + route, -1).to(torch.int32)

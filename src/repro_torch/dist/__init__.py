@@ -13,7 +13,8 @@
   * `sharded_sketch_cuts` / `tree_merge` — the data-parallel quantile
     sketch (sorted shards, log-depth merge).
   * `RoundInputs` / `make_distributed_round` / `make_chunk_runner` — the
-    sharded round behind `fit(mesh=)`.
+    sharded round behind `fit(mesh=)`; `shard_features` — each position's
+    bin block and cut rows for `grow_tree(feature_axis=)`.
 """
 from repro_torch.dist.collective import (
     Collective,
@@ -32,6 +33,7 @@ from repro_torch.dist.runner import (
     RoundInputs,
     make_chunk_runner,
     make_distributed_round,
+    shard_features,
     train_distributed,
 )
 from repro_torch.dist.sketch import sharded_sketch_cuts, tree_merge
@@ -51,6 +53,7 @@ __all__ = [
     "make_mesh",
     "register_collective",
     "round_comm_stats",
+    "shard_features",
     "sharded_sketch_cuts",
     "spmd",
     "train_distributed",

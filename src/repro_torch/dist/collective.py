@@ -57,16 +57,7 @@ def _check_compression(compression):
         )
 
 
-def _psum(shard: G.Shard, x: torch.Tensor, members: list[int]) -> torch.Tensor:
-    """The members' tensors summed in position order, on this shard's
-    device (every position posts, so each call is one rendezvous)."""
-    xs = shard.exchange(x)
-    if len(members) == 1:
-        return x
-    acc = xs[members[0]].to(shard.device)
-    for m in members[1:]:
-        acc = acc + xs[m].to(shard.device)
-    return acc
+_psum = G.psum_members
 
 
 def _ring_allreduce(shard: G.Shard, x: torch.Tensor | None, members: list[int],
@@ -79,7 +70,7 @@ def _ring_allreduce(shard: G.Shard, x: torch.Tensor | None, members: list[int],
     nothing at each of them."""
     if x is None:
         for _ in range(hops):
-            shard.exchange(None)
+            shard.exchange(None, "collective-permute")
         return None
     n = len(members)
     if n == 1:
@@ -90,10 +81,12 @@ def _ring_allreduce(shard: G.Shard, x: torch.Tensor | None, members: list[int],
     segs = flat.reshape(n, -1).clone()
     pred = members[(pos - 1) % n]
     for t in range(n - 1):  # reduce-scatter
-        recv = shard.exchange(segs[(pos - t) % n].to(wire, copy=True))[pred]
+        recv = shard.exchange(segs[(pos - t) % n].to(wire, copy=True),
+                              "collective-permute")[pred]
         segs[(pos - t - 1) % n] += recv.to(shard.device).to(acc)
     for t in range(n - 1):  # all-gather
-        recv = shard.exchange(segs[(pos + 1 - t) % n].to(wire, copy=True))[pred]
+        recv = shard.exchange(segs[(pos + 1 - t) % n].to(wire, copy=True),
+                              "collective-permute")[pred]
         segs[(pos - t) % n] = recv.to(shard.device).to(acc)
     return segs.reshape(-1)[:numel].reshape(shape)
 

@@ -9,7 +9,11 @@ a shard); only the collectives see the other positions.
 
 A collective meets the others at a rendezvous: `exchange(x)` posts this
 position's tensor, waits at a barrier until every position has posted, and
-returns the posted tensors of all positions in linear order. Slots are
+returns the posted tensors of all positions in linear order. Each position
+tallies the bytes it posts by kind of collective ("all-reduce",
+"all-gather", "collective-permute": the names XLA's HLO gives them), read
+after a run through `Shard.posted()`: the port's wire model, one dict
+update an exchange and no host read. Slots are
 double buffered, so one barrier a call suffices: a position can post into
 a buffer again only after every position has passed the next barrier, by
 which time each has read the previous exchange. Each position then reduces
@@ -42,8 +46,12 @@ class Shard(NamedTuple):
     position: int
     device: torch.device
 
-    def exchange(self, x) -> list:
-        return self.group.exchange(self.position, x)
+    def exchange(self, x, kind: str = "all-reduce") -> list:
+        return self.group.exchange(self.position, x, kind)
+
+    def posted(self) -> dict[str, int]:
+        """Bytes this position has posted so far in the run, by kind."""
+        return dict(self.group.posted[self.position])
 
 
 def current() -> Shard | None:
@@ -63,9 +71,27 @@ def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
     `axes` concatenated along dim 0 in the runner's linear order, on the
     calling shard's device."""
     shard = current_shard()
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    xs = shard.exchange(x, "all-gather")
+    return torch.cat([xs[m].to(shard.device) for m in shard.group.members(shard.position, axes)])
+
+
+def psum_members(shard: Shard, x: torch.Tensor, members: list[int]) -> torch.Tensor:
+    """The members' tensors summed in position order, on this shard's
+    device (every position posts, so each call is one rendezvous): the one
+    summation order every psum of the port uses, so every member holds the
+    same sum."""
     xs = shard.exchange(x)
-    return torch.cat([xs[m].to(shard.device) for m in shard.group.mesh.group(shard.position, axes)])
+    acc = xs[members[0]].to(shard.device)
+    for m in members[1:]:
+        acc = acc + xs[m].to(shard.device)
+    return acc
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """`jax.lax.psum(x, axes)`: the members' tensors over `axes` (a name or
+    names) summed in the runner's linear order."""
+    shard = current_shard()
+    return psum_members(shard, x, shard.group.members(shard.position, axes))
 
 
 class ShardGroup:
@@ -77,9 +103,24 @@ class ShardGroup:
         self._barrier = threading.Barrier(self.size, timeout=timeout)
         self._slots = [[None] * self.size, [None] * self.size]
         self._turn = [0] * self.size  # each position's count of exchanges
+        self.posted: list[dict[str, int]] = [{} for _ in range(self.size)]
+        self._members: dict = {}
 
-    def exchange(self, position: int, x) -> list:
-        """Post `x`, wait for every position, return all posted values."""
+    def members(self, position: int, axes) -> list[int]:
+        """`mesh.group(position, axes)`, cached: the positions that reduce
+        with `position` over `axes` (a name or names), in linear order."""
+        key = (position, (axes,) if isinstance(axes, str) else tuple(axes))
+        if key not in self._members:
+            self._members[key] = self.mesh.group(*key)
+        return self._members[key]
+
+    def exchange(self, position: int, x, kind: str = "all-reduce") -> list:
+        """Post `x`, tally its bytes under `kind` (a tensor's; nothing for
+        any other value), wait for every position, return all posted
+        values."""
+        nbytes = x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+        tally = self.posted[position]
+        tally[kind] = tally.get(kind, 0) + nbytes
         if self.size == 1:
             return [x]
         buf = self._slots[self._turn[position] & 1]

@@ -114,6 +114,40 @@ def shard_bins(cfg, dmat, mesh, data_axes: Sequence[str]):
     return [bins[s * n_per:(s + 1) * n_per].to(d) for s, d in enumerate(devs)], n_per
 
 
+def shard_features(bins: torch.Tensor, cuts: torch.Tensor, mesh, row_axes: Sequence[str],
+                   feature_axis: str | None) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each position's (dense bin block, cut rows) on its device, in position
+    order, for `grow_tree(feature_axis=)`: what `shard_map`'s
+    `in_specs=(P(row_axes, feature_axis), P(feature_axis, None))` hand the
+    reference. Rows split over `row_axes` in the runner's order (shard s
+    holds rows [s * n_local, (s + 1) * n_local)), features over
+    `feature_axis` by its index (None: every position holds them all);
+    rows or features that do not divide evenly raise, as `shard_map`
+    refuses them."""
+    row_axes = tuple(row_axes)
+    if feature_axis is not None and feature_axis in row_axes:
+        raise ValueError(f"feature_axis {feature_axis!r} is also a row axis {row_axes}")
+    n, f = bins.shape
+    if cuts.shape[0] != f:
+        raise ValueError(f"cuts cover {cuts.shape[0]} features, the bins {f}")
+    n_row, shard_of, _ = mesh.shards(row_axes)
+    n_feat = 1 if feature_axis is None else mesh.shape[feature_axis]
+    if n % n_row != 0:
+        raise ValueError(f"n_rows={n} must be divisible by the {n_row} row shards "
+                         f"over {row_axes}")
+    if f % n_feat != 0:
+        raise ValueError(f"n_features={f} must be divisible by the {n_feat} feature "
+                         f"shards over {feature_axis!r} (pad the features)")
+    n_per, f_per = n // n_row, f // n_feat
+    out = []
+    for p in range(mesh.size):
+        j = 0 if feature_axis is None else mesh.coords(p)[feature_axis]
+        s, dev, cols = shard_of[p], mesh.device(p), slice(j * f_per, (j + 1) * f_per)
+        out.append((bins[s * n_per:(s + 1) * n_per, cols].to(dev).contiguous(),
+                    cuts[cols].to(dev).contiguous()))
+    return out
+
+
 def make_distributed_round(cfg, obj: O.Objective, mesh, data_axes: Sequence[str] = ("data",),
                            collective: Collective | None = None):
     """The per-round function: `fn(inputs)` takes one `RoundInputs` a mesh

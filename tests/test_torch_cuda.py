@@ -1234,3 +1234,65 @@ def test_shards_on_two_cards(rng):
     torch.cuda.set_device(0)
     for got in D.spmd(mesh, body, [0, 1]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+def _feature_sharded_trees(rng, hist_builder=None, ctx=None):
+    """Every position's depth-3 tree of a (2, 2) ("data", "model") mesh of
+    cuda:0 positions, grown with `grow_tree(feature_axis="model")`, and the
+    launches of the growth."""
+    from repro_torch import dist as D
+    from repro_torch.core import tree as TT
+
+    dev = _cuda()
+    n, f, max_bins = 4096, 8, 64
+    bins = torch.from_numpy(rng.integers(0, max_bins, (n, f)).astype(np.int32)).to(dev)
+    cuts = torch.from_numpy(np.sort(rng.normal(size=(f, max_bins - 2)), axis=1)
+                            .astype(np.float32)).to(dev)
+    x = rng.normal(size=n).astype(np.float32)
+    gh = torch.from_numpy(np.stack([x, np.full(n, 0.25, np.float32)], axis=1)).to(dev)
+    gh[:, 0] += bins[:, 5].float() / max_bins - 0.5  # a signal on feature 5 (shard 1)
+    mesh = D.make_mesh((2, 2), ("data", "model"), device="cuda")
+    coll = D.PsumCollective(mesh, ("data",))
+    parts = D.shard_features(bins, cuts, mesh, ("data",), "model")
+    _, shard_of, _ = mesh.shards(("data",))
+
+    def body(part, g):
+        return TT.grow_tree(part[0], g, part[1], 3, max_bins, hist_builder=hist_builder,
+                            ctx=ctx, collective=coll, feature_axis="model")
+
+    ops.reset_launches()
+    trees = D.spmd(mesh, body, parts, [gh[s * n // 2:(s + 1) * n // 2] for s in shard_of])
+    torch.cuda.synchronize()
+    return trees, ops.launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder", ["default", "kernel"])
+def test_feature_sharded_tree_on_card(rng, builder):
+    """A (2, 2) feature-sharded tree on cuda:0 positions: every position's
+    tree the same bit for bit; the split scan 3 levels x 4 positions, #1
+    never with the default builder (index_add_) and 3 x 4 times with the
+    kernel builder (pack + #1), the row-id kernel never."""
+    kernel = builder == "kernel"
+    trees, got = _feature_sharded_trees(
+        rng, hist_builder=ops.build_histograms_kernel if kernel else None)
+    assert got["split_scan"] == 3 * 4, got
+    assert got["histogram_private"] == (3 * 4 if kernel else 0), got
+    assert got["histogram_rows"] == 0, got
+    assert int((~trees[0].is_leaf & torch.isfinite(trees[0].gain)).sum()) > 0
+    for t in trees[1:]:
+        for a, b in zip(trees[0], t):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_feature_sharded_monotone_refused_on_card(rng):
+    """Monotone constraints under feature_axis raise before any launch."""
+    from repro_torch.core import sampling as TSMP
+
+    ctx = TSMP.TreeContext(key=(0, 0, 0), row_ids=None, feature_mask=None,
+                           params=TSMP.StochasticParams(monotone=(1, 0, 0, -1)),
+                           device=_cuda())
+    with pytest.raises(NotImplementedError, match="tree.py:322"):
+        _feature_sharded_trees(rng, ctx=ctx)
+    assert not any(ops.launches().values()), ops.launches()
