@@ -254,12 +254,32 @@ Phases, each printing one JSON line:
                 modes on a DRYRUN_MESH of cuda:0 positions: bytes a position
                 posted by kind, round seconds; the card's name and power
                 limit.
-  18. ops     — the path the reference gives `histogram_packed` and
+  18. lm      — the LM substrate (`repro_torch.models`, `optimizer`,
+                `launch/train.py`) at full width, cut in depth only, weights
+                from the seed on the card: `train_loop` on yi-6b at 2 layers
+                (d_model 4096, 32 heads, 4 KV heads, d_ff 11,008, vocab
+                64,000, remat "dots_saveable"), batch 1 x seq 4,096 (the
+                flash path), 10 steps (every loss finite, every leaf moved),
+                then 8 AdamW steps on one batch (LM_OPT_LR, no decay: the
+                last loss below the first); decode = forward over 12 steps at batch
+                2 on that model with a bf16 cache (<= 2e-2 relative), and
+                glm4-9b at 2 layers with the int8 cache (<= 0.05, its bytes
+                under 0.7x the bf16 cache's); every other entry of ARCHS
+                (LM_DEPTH) at full width: forward_logits (shape, finite), one
+                loss_fn backward (finite, nonzero grad norm), 4 decode steps
+                against the forward of the same 4 tokens (<= 2e-2);
+                llama4-maverick at `reduced()` (one layer's 128 experts are
+                16.1B parameters, 64.4 GB float32); reduced yi-6b and mamba2
+                with weights carried from the CPU: the card's logits against
+                the CPU's (LM_CARD_RTOL). Readings: seconds a step (median of
+                steps 3-10), tokens/s, peak memory of each architecture, the
+                cuBLAS bf16 reduced-precision flag.
+  19. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  19. check   — each kernel against its plain PyTorch version on the same
+  20. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -291,7 +311,7 @@ Phases, each printing one JSON line:
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
                 shapes are.
-  20. time    — CUDA-event ms of each kernel, its plain version and, where one
+  21. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -501,6 +521,26 @@ DIST_SKETCH_CAPACITY = 1024  # sharded_sketch_cuts' default summary size
 FEATURE_MESHES = ((2, 2), (1, 4))
 DRYRUN_MESH, DRYRUN_ROWS, DRYRUN_FEATURES = (4, 4), 1 << 20, 13
 STREAM_PAIRS = 3  # warm alternating pairs: streamed vs resident, prefetch 2 vs 0
+# The LM phase: full-width architectures cut in depth only (zamba2: one
+# group of 6 mamba layers and one rest layer, so both loops run; seamless 2
+# encoder + 2 decoder layers; llama4-scout one layer: 4.15B parameters,
+# 16.6 GB float32). llama4-maverick runs at reduced(): one layer's 128
+# experts alone are 16.1B parameters (64.4 GB float32), past the card with
+# their gradients.
+LM_DEPTH = {"zamba2-7b": {"n_layers": 7}, "seamless-m4t-medium": {"n_layers": 2, "n_enc_layers": 2},
+            "llama4-scout-17b-a16e": {"n_layers": 1}}
+LM_REDUCED = {"llama4-maverick-400b-a17b": "one layer's 128 experts are 16.1B parameters, "
+              "64.4 GB in float32: with their gradients past the card's 80 GB"}
+LM_TRAIN_STEPS, LM_TRAIN_SEQ, LM_OPT_STEPS = 10, 4_096, 8
+# The one-batch AdamW steps' rate: the reference's test (5e-3 at width 256,
+# test_arch_smoke.py:55-77) diverged at d_model 4096 (8 losses 11.61, 14.16,
+# 8.96, 11.28, 18.77, 18.52, 20.06, 20.08 on an NVIDIA H100 80GB HBM3 at
+# 700 W; AdamW moves every weight by about the rate a step, a third of
+# yi-6b's initial weights' 0.016).
+LM_OPT_LR = 1e-4
+LM_SEQ, LM_DECODE_STEPS = 256, 4  # every other architecture's forward / backward, decode
+LM_DECODE_RTOL, LM_INT8_RTOL = 2e-2, 0.05  # the reference's own (test_arch_smoke.py:103, :153)
+LM_CARD_RTOL = 2e-2  # card vs CPU logits, as tests/test_torch_cuda.py states it
 FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
 # Resilience: the round whose gradients the nan_grad fault overwrites; kill
 # and resume of a 10-round fit that snapshots every 3 rounds and is killed
@@ -528,6 +568,208 @@ Booster(**{kw!r}).fit(d, evals=evals, early_stopping_rounds={es!r},
                       checkpoint_every={every}, checkpoint_path={path!r}, callback=kill)
 print("FIT-COMPLETED")
 """
+
+
+def lm_phase(dev, seed: int) -> None:
+    """Phase 18: the LM substrate at full width, cut in depth only (see the
+    module docstring). Emits one line a part; any failed gate raises."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch import train as LT
+    from repro_torch.models import NO_SHARDING, build_model, params_from_numpy, params_to_numpy
+    from repro_torch.optimizer import AdamWConfig, adamw_init, adamw_update, global_norm
+    from repro_torch.pytree import leaves, unflatten_like
+
+    bad = []
+    rel = lambda a, b: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    gib = lambda n: n / 2**30
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def n_params(params) -> int:
+        return sum(p.numel() for p in leaves(params))
+
+    def tokens(cfg, b, s, salt):
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + salt)
+        return torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=g)
+
+    def lm_batch(cfg, b, s, salt):
+        t = tokens(cfg, b, s, salt)
+        batch = {"tokens": t, "targets": torch.roll(t, -1, dims=1)}
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + salt + 1)
+        if cfg.arch_type == "vlm":
+            batch["prefix_embeds"] = 0.02 * torch.randn(
+                (b, cfg.n_prefix_tokens, cfg.d_model), device=dev, generator=g)
+        if cfg.arch_type in ("audio", "encdec"):
+            batch["src_embeds"] = 0.02 * torch.randn((b, 64, cfg.d_model), device=dev,
+                                                     generator=g)
+        return batch
+
+    def decode_vs_forward(model, params, batch, steps, cache_dtype=torch.bfloat16):
+        """`steps` decode steps from an empty cache against forward_logits of
+        the same tokens; (relative gap, cache bytes)."""
+        with torch.no_grad():
+            fwd_batch = {k: v for k, v in batch.items() if k not in ("targets", "prefix_embeds")}
+            fwd_batch["tokens"] = batch["tokens"][:, :steps]
+            full = model.forward_logits(params, fwd_batch, NO_SHARDING)
+            b = batch["tokens"].shape[0]
+            cache = model.init_cache(b, steps, dtype=cache_dtype, device=dev)
+            nbytes = sum(x.numel() * x.element_size() for x in leaves(cache))
+            if "src_embeds" in batch:
+                from repro_torch.models import encdec as ED
+
+                enc_out = ED.encode(params, batch["src_embeds"], model.cfg, NO_SHARDING)
+            outs = []
+            for t in range(steps):
+                db = {"tokens": batch["tokens"][:, t:t + 1]}
+                if "src_embeds" in batch:
+                    db["enc_out"] = enc_out
+                logits, cache = model.decode_fn(params, db, cache, t, NO_SHARDING)
+                outs.append(logits[:, 0])
+            return rel(torch.stack(outs, 1), full), nbytes
+
+    line = {"phase": "lm", "bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+    # --- training at full width: yi-6b, 2 layers, seq 4,096 -----------------
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=2)
+    base = fresh()
+    t0 = time.perf_counter()
+    params, hist = LT.train_loop(cfg, LM_TRAIN_STEPS, 1, LM_TRAIN_SEQ, seed=seed, log_every=1,
+                                 device=dev)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in hist]
+    elapsed = [h["elapsed_s"] for h in hist]
+    step_s = float(np.median(np.diff(elapsed)[1:]))  # steps 3-10
+    init = build_model(cfg).init_params(seed, dev)
+    moved = [bool((a != b).any()) for a, b in zip(leaves(params), leaves(init))]
+    del init
+    train = {"arch": "yi-6b", "n_layers": 2, "params": n_params(params), "batch": 1,
+             "seq": LM_TRAIN_SEQ, "remat": cfg.remat_policy, "steps": LM_TRAIN_STEPS,
+             "losses": losses, "train_loop_s": train_s, "step_s_median_3_10": step_s,
+             "tokens_per_s": LM_TRAIN_SEQ / step_s, "peak_gib": gib(peak),
+             "leaves_moved": sum(moved), "leaves": len(moved)}
+    if not (all(np.isfinite(losses)) and all(moved)):
+        bad.append({"train": "a loss not finite or a leaf unmoved"})
+    # 8 AdamW steps on one batch at a constant rate (the reference's
+    # test_one_opt_step_reduces_loss, at LM_OPT_LR): the last loss below the
+    # first.
+    model = build_model(cfg)
+    batch = lm_batch(cfg, 1, LM_TRAIN_SEQ, 1)
+    acfg = AdamWConfig(lr=LM_OPT_LR, weight_decay=0.0)
+    state = adamw_init(params)
+    one = []
+    for _ in range(LM_OPT_STEPS):
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = model.loss_fn(unflatten_like(params, flat), batch, NO_SHARDING)
+        grads = torch.autograd.grad(loss, flat)
+        params, state = adamw_update(params, unflatten_like(params, list(grads)), state, acfg)
+        one.append(loss.item())
+    train["one_batch_lr"], train["one_batch_losses"] = LM_OPT_LR, one
+    if not one[-1] < one[0]:
+        bad.append({"one_batch": one})
+    del state, grads, flat, loss
+    line["train"] = train
+    emit({**line})
+
+    # --- decode = forward at full width --------------------------------------
+    decode = {}
+    fresh()
+    gap, bf16_bytes = decode_vs_forward(model, params, lm_batch(cfg, 2, 12, 2), 12)
+    decode["yi-6b"] = {"n_layers": 2, "batch": 2, "steps": 12, "rel": gap,
+                       "cache_bytes": bf16_bytes}
+    if not gap <= LM_DECODE_RTOL:
+        bad.append({"decode": "yi-6b", "rel": gap})
+    del params
+    cfg8 = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, kv_cache_dtype="int8")
+    model8 = build_model(cfg8)
+    fresh()
+    params = model8.init_params(seed, dev)
+    b8 = lm_batch(cfg8, 2, 12, 3)
+    gap8, int8_bytes = decode_vs_forward(model8, params, b8, 12)
+    _, glm_bf16_bytes = decode_vs_forward(
+        build_model(dataclasses.replace(cfg8, kv_cache_dtype="bfloat16")), params, b8, 12)
+    decode["glm4-9b:int8"] = {"n_layers": 2, "batch": 2, "steps": 12, "rel": gap8,
+                              "cache_bytes": int8_bytes, "bf16_cache_bytes": glm_bf16_bytes,
+                              "bytes_ratio": int8_bytes / glm_bf16_bytes}
+    if not (gap8 <= LM_INT8_RTOL and int8_bytes < 0.7 * glm_bf16_bytes):
+        bad.append({"decode": "glm4-9b:int8", "rel": gap8, "ratio": int8_bytes / glm_bf16_bytes})
+    del params
+    emit({"phase": "lm", "decode": decode})
+
+    # --- every entry of ARCHS at full width, cut in depth only ---------------
+    for arch in ARCHS:
+        cfg = get_arch(arch)
+        if arch in LM_REDUCED:
+            cfg, cut = cfg.reduced(), {"reduced": LM_REDUCED[arch]}
+        else:
+            cut = LM_DEPTH.get(arch, {"n_layers": 2})
+            cfg = dataclasses.replace(cfg, **cut)
+        model = build_model(cfg)
+        base = fresh()
+        t0 = time.perf_counter()
+        params = model.init_params(seed, dev)
+        batch = lm_batch(cfg, 1, LM_SEQ, 10 + ARCHS.index(arch))
+        with torch.no_grad():
+            logits = model.forward_logits(params, batch, NO_SHARDING)
+        extra = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
+        shape_ok = tuple(logits.shape) == (1, LM_SEQ + extra, cfg.padded_vocab)
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        flat = [p.requires_grad_(True) for p in leaves(params)]
+        loss = model.loss_fn(params, batch, NO_SHARDING)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        gnorm = float(global_norm(list(grads)))
+        loss = float(loss)
+        del grads
+        for p in flat:
+            p.requires_grad_(False)
+        gap, _ = decode_vs_forward(model, params, batch, LM_DECODE_STEPS)
+        torch.cuda.synchronize()
+        rec = {"phase": "lm", "arch": arch, **cut, "d_model": cfg.d_model,
+               "params": n_params(params), "seq": LM_SEQ, "logits_shape_ok": shape_ok,
+               "logits_finite": finite, "loss": loss, "grad_norm": gnorm,
+               "decode_steps": LM_DECODE_STEPS, "decode_rel": gap,
+               "peak_gib": gib(torch.cuda.max_memory_allocated() - base),
+               "seconds": time.perf_counter() - t0}
+        emit(rec)
+        if not (shape_ok and finite and np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+                and gap <= LM_DECODE_RTOL):
+            bad.append({k: rec[k] for k in ("arch", "logits_shape_ok", "logits_finite", "loss",
+                                            "grad_norm", "decode_rel")})
+        del params, flat, batch
+
+    # --- the card against the CPU's plain path, weights carried ---------------
+    card = {}
+    for arch in ("yi-6b", "mamba2-2.7b"):
+        cfg = get_arch(arch).reduced()
+        model = build_model(cfg)
+        host = params_to_numpy(model.init_params(seed, "cpu"))
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        with torch.no_grad():
+            on_cpu = model.forward_logits(params_from_numpy(host, "cpu"),
+                                          {"tokens": torch.from_numpy(toks)}, NO_SHARDING)
+            on_card = model.forward_logits(params_from_numpy(host, dev),
+                                           {"tokens": torch.from_numpy(toks).to(dev)},
+                                           NO_SHARDING)
+        card[arch] = rel(on_card.cpu(), on_cpu)
+        if not card[arch] <= LM_CARD_RTOL:
+            bad.append({"card_vs_cpu": arch, "rel": card[arch]})
+    fresh()
+    emit({"phase": "lm", "card_vs_cpu": card, "tolerance": LM_CARD_RTOL,
+          "nvidia_smi": nvidia_smi()})
+    if bad:
+        raise SystemExit(f"lm phase failed: {bad}")
 
 
 def emit(obj: dict) -> None:
@@ -2349,6 +2591,9 @@ def main() -> int:
 
     feature_phase()
 
+    # --- 18. the LM substrate at full width -----------------------------------
+    lm_phase(dev, args.seed)
+
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n, f = dtrain.n_rows, dtrain.n_features
@@ -2411,7 +2656,7 @@ def main() -> int:
         mag = plain(*args[:1], args[1].abs(), *args[2:])
         return 2e-5 + 4 * count.sqrt() * 2**-24 * mag
 
-    # --- 18. the ops path of histogram_packed and decompress -----------------
+    # --- 19. the ops path of histogram_packed and decompress -----------------
     ops.reset_launches()
     hp = ops.histogram_packed_op(packed, gh, levels[32], 32, MAX_BINS, bits)
     bins = ops.decompress_op(packed, bits, n)
@@ -2478,7 +2723,7 @@ def main() -> int:
                 thr, torch.rand(n_trees, a, device=dev, generator=g) < 0.5,
                 torch.randn(n_trees, a, device=dev, generator=g), is_leaf)
 
-    # --- 19. kernels against their plain versions ---------------------------
+    # --- 20. kernels against their plain versions ---------------------------
     results: dict[str, dict] = {}
     checked: dict[str, list] = {"histogram_private": [], "histogram_packed": [],
                                 "histogram_rows": []}
@@ -2827,7 +3072,7 @@ def main() -> int:
         "inputs": pair_checked}
     emit({"phase": "check", **results, **{f"{k}_levels": v for k, v in checked.items()}})
 
-    # --- 20. times -------------------------------------------------------------
+    # --- 21. times -------------------------------------------------------------
     def bound(nbytes: float, nops: float) -> tuple[float, str]:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")

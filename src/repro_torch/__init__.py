@@ -16,6 +16,9 @@ plain PyTorch version (`kernels/ref.py`).
 Ranking: `DeviceDMatrix(x, label=rel, group_ids=qid)` with
 `objective="rank:pairwise"`. The sklearn estimators (`XGBRegressor`,
 `XGBClassifier`, `XGBRanker`) are in `repro_torch.sklearn`, which runs
-with or without scikit-learn installed.
+with or without scikit-learn installed. The seed's LM substrate is here
+too, on one device: `repro_torch.models.build_model(repro_torch.configs.
+get_arch(name))`, `repro_torch.optimizer`, `python -m
+repro_torch.launch.train`.
 """
 from repro_torch.device import resolve_device

@@ -1,1 +1,2 @@
-"""Launch layer of the port: the command-line trainer (`train_gbdt`)."""
+"""Launch layer of the port: the command-line trainers (`train_gbdt`, the LM
+`train`), the mesh builder and the GBDT dry run."""

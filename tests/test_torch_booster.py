@@ -256,15 +256,23 @@ def test_deprecated_shims_match_the_booster(data):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without JAX,
-    any module of the JAX package, or msgpack (the card's machine lacks it:
-    checkpoints go through the port's own codec)."""
+    """Every module of the port (the LM substrate's too), and chip_smoke.py,
+    import without JAX, any module of the JAX package, or msgpack (the
+    card's machine lacks it: checkpoints go through the port's own codec)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "lm = ['repro_torch.models.' + m for m in ('config', 'layers', 'moe', 'transformer',\n"
+        "      'ssm', 'ssm_model', 'hybrid', 'encdec', 'api', 'convert')]\n"
+        "lm += ['repro_torch.optimizer.' + m for m in ('adamw', 'sgd', 'util')]\n"
+        "lm += ['repro_torch.configs.' + m for m in ('glm4', 'llama4_maverick', 'llama4_scout',\n"
+        "       'mamba2', 'minicpm3', 'phi3_vision', 'seamless_m4t', 'stablelm12b', 'yi6b',\n"
+        "       'zamba2')]\n"
+        "lm += ['repro_torch.data.tokens', 'repro_torch.launch.train', 'repro_torch.pytree']\n"
+        "assert not [m for m in lm if m not in sys.modules], lm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')\n"
         "       or m == 'msgpack' or m.startswith('msgpack.')]\n"
@@ -275,4 +283,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 50

@@ -1296,3 +1296,118 @@ def test_feature_sharded_monotone_refused_on_card(rng):
     with pytest.raises(NotImplementedError, match="tree.py:322"):
         _feature_sharded_trees(rng, ctx=ctx)
     assert not any(ops.launches().values()), ops.launches()
+
+
+# --- the LM substrate on the card ----------------------------------------------
+# A reduced architecture of each family (dense GQA, MoE, MLA, VLM prefix, SSM,
+# hybrid, enc-dec). Weights are drawn on the CPU from the seed and copied to
+# the card, so both devices run the same weights. The card's bf16 GEMMs
+# (cuBLAS, allow_bf16_reduced_precision_reduction as torch sets it) sum in
+# another order than the CPU's float32 upcast, and a sum that turns one bf16
+# rounding the other way carries on through the later layers: LM_CARD_RTOL
+# is the reference's own bf16 limit (decode against forward,
+# test_arch_smoke.py), max |diff| / max |cpu|.
+LM_FAMILIES = ["yi-6b", "llama4-scout-17b-a16e", "minicpm3-4b", "phi-3-vision-4.2b",
+               "mamba2-2.7b", "zamba2-7b", "seamless-m4t-medium"]
+LM_CARD_RTOL = 2e-2
+
+
+def _lm_case(arch, seed=0):
+    import test_torch_lm_common as C
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = C.small(get_arch(arch))
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in C.batch(cfg, seed).items()}
+    return cfg, model, model.init_params(seed, "cpu"), batch
+
+
+def _to(tree, dev):
+    from repro_torch.pytree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_forward_on_card_matches_cpu(arch):
+    from repro_torch.models import NO_SHARDING
+
+    dev = _cuda()
+    cfg, model, params, batch = _lm_case(arch)
+    with torch.no_grad():
+        cpu = model.forward_logits(params, batch, NO_SHARDING)
+        card = model.forward_logits(_to(params, dev), _to(batch, dev), NO_SHARDING)
+    assert card.device.type == "cuda" and card.shape == cpu.shape
+    assert bool(torch.isfinite(card).all())
+    gap = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    assert gap <= LM_CARD_RTOL, gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "minicpm3-4b", "mamba2-2.7b", "zamba2-7b",
+                                  "seamless-m4t-medium", "glm4-9b:int8"])
+def test_lm_decode_matches_forward_on_card(arch):
+    """Twelve decode steps from an empty cache on the card against the
+    card's forward: within 2e-2 (0.05 with the int8 cache), the reference's
+    own limits."""
+    import dataclasses
+
+    import test_torch_lm_common as C
+    from repro_torch.configs import get_arch
+    from repro_torch.models import NO_SHARDING, build_model
+
+    dev = _cuda()
+    name, _, kv = arch.partition(":")
+    cfg = C.small(get_arch(name))
+    if kv:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+    model = build_model(cfg)
+    params = model.init_params(3, dev)
+    batch = _to({k: torch.from_numpy(v) for k, v in C.batch(cfg, 3).items()}, dev)
+    steps = C.DECODE_STEPS
+    with torch.no_grad():
+        full = model.forward_logits(params, {**batch, "tokens": batch["tokens"][:, :steps]},
+                                    NO_SHARDING)
+        cache = model.init_cache(C.BATCH, steps, device=dev)
+        outs = []
+        for t in range(steps):
+            db = {"tokens": batch["tokens"][:, t:t + 1]}
+            if "src_embeds" in batch:
+                db["src_embeds"] = batch["src_embeds"]
+            logits, cache = model.decode_fn(params, db, cache, t, NO_SHARDING)
+            outs.append(logits[:, 0])
+    gap = float((torch.stack(outs, 1) - full).abs().max() / full.abs().max())
+    assert gap < (0.05 if kv else 2e-2), gap
+
+
+@pytest.mark.cuda
+def test_lm_train_loop_on_card(capsys):
+    """`train_loop` on the card at a reduced size: finite losses; then eight
+    AdamW steps on one batch at lr 5e-3, no decay (the reference's
+    test_one_opt_step_reduces_loss): the last loss below the first."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as LT
+    from repro_torch.models import NO_SHARDING, build_model
+    from repro_torch.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.pytree import leaves, unflatten_like
+
+    dev = _cuda()
+    cfg = get_arch("yi-6b").reduced()
+    params, hist = LT.train_loop(cfg, 5, 2, 32, log_every=1, device=dev)
+    assert all(np.isfinite(h["loss"]) for h in hist) and len(hist) == 5
+    assert all(p.device.type == "cuda" for p in leaves(params))
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": toks, "targets": toks}
+    state, losses = adamw_init(params), []
+    for _ in range(8):
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = model.loss_fn(unflatten_like(params, flat), batch, NO_SHARDING)
+        grads = unflatten_like(params, list(torch.autograd.grad(loss, flat)))
+        params, state = adamw_update(params, grads, state, AdamWConfig(lr=5e-3, weight_decay=0.0))
+        losses.append(loss.item())
+    assert losses[-1] < losses[0], losses
+    capsys.readouterr()

@@ -50,6 +50,14 @@ comm_stats; the compressed fits' RMSE gap to the exact fit), then the
 port's sharded fits against its single-device fit:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_parity_readings.py dist
+
+`lm` reads the gaps of tests/test_torch_lm_models.py (every architecture's
+logits, loss, gradients and decode against the reference run with excess
+precision off, over data seeds 0-4), tests/test_torch_lm_layers.py and
+tests/test_torch_lm_train.py (their tests' bodies at seeds 0-4, each
+check's largest reading beside its limit; run from tests/, ~5 min):
+
+    cd tests && JAX_PLATFORMS=cpu PYTHONPATH=../src python torch_parity_readings.py lm
 """
 import json
 
@@ -699,6 +707,140 @@ def dist_readings():
                                               - one.ensemble.leaf_value).abs().max())}
 
 
+def lm_model_readings(seeds=range(5)):
+    """The gaps behind tests/test_torch_lm_models.py's tolerances, one line
+    an architecture and seed: logits max |diff| / max |ref|, the loss's
+    relative gap, the worst gradient leaf's ||diff|| / ||ref||, and for the
+    decoded ones the worst step's logits and the final cache's gap, against
+    the reference with excess precision off (`test_torch_lm_common.reference_outputs`)."""
+    import tempfile
+    from pathlib import Path
+
+    import jax
+
+    import test_torch_lm_common as C
+    from repro_torch.configs import get_arch
+    from repro_torch.models import NO_SHARDING, build_model, params_from_numpy, params_to_numpy
+    from repro_torch.pytree import leaves
+
+    for seed in seeds:
+        with tempfile.TemporaryDirectory() as tmp:
+            ins, out = C.reference_outputs(Path(tmp), seed)
+        for name in dict.fromkeys(C.ARCHS + C.DECODE_ARCHS):
+            cfg = C.config(get_arch, name)
+            model = build_model(cfg)
+            params = params_from_numpy(C.unflatten(ins, f"{name}/params"), "cpu")
+            batch = {k: torch.from_numpy(v) for k, v in C.unflatten(ins, f"{name}/batch").items()}
+            line = {"lm": name, "seed": seed}
+            if name in C.ARCHS:
+                flat = [p.requires_grad_(True) for p in leaves(params)]
+                loss = model.loss_fn(params, batch, NO_SHARDING)
+                line["logits_rel"] = C.rel_max(
+                    model.forward_logits(params, batch, NO_SHARDING).detach().numpy(),
+                    out[f"{name}/logits"])
+                line["loss_rel"] = abs(float(loss) - float(out[f"{name}/loss"])) / abs(
+                    float(out[f"{name}/loss"]))
+                if name in C.GRAD_ARCHS:
+                    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                                materialize_grads=True)
+                    want = jax.tree.leaves(C.unflatten(out, f"{name}/grads"))
+                    line["grad_leaf_rel_norm"] = max(C.rel_norm(g.numpy(), w)
+                                                     for g, w in zip(grads, want))
+                    line["grad_leaf_rel_max"] = max(C.rel_max(g.numpy(), w) if w.size else 0.0
+                                                    for g, w in zip(grads, want))
+                for p in flat:
+                    p.requires_grad_(False)
+            if name in C.DECODE_ARCHS:
+                cache = model.init_cache(C.BATCH, C.DECODE_STEPS, dtype=torch.float32,
+                                         device="cpu")
+                steps = []
+                with torch.no_grad():
+                    for t in range(C.DECODE_STEPS):
+                        db = {"tokens": batch["tokens"][:, t:t + 1]}
+                        if "src_embeds" in batch:
+                            db["src_embeds"] = batch["src_embeds"]
+                        logits, cache = model.decode_fn(params, db, cache, t, NO_SHARDING)
+                        steps.append(logits[:, 0])
+                line["decode_rel"] = C.rel_max(torch.stack(steps, 1).numpy(),
+                                               out[f"{name}/decode"])
+                line["cache_rel"] = max(
+                    C.rel_max(g, w) for g, w in zip(jax.tree.leaves(params_to_numpy(cache)),
+                                                    jax.tree.leaves(C.unflatten(out, f"{name}/cache"))))
+            yield line
+
+
+def lm_layer_readings(seeds=range(5)):
+    """The gaps behind tests/test_torch_lm_layers.py's tolerances: each
+    test's body run at seeds 0-4 with its `_close` collecting (limit,
+    max |diff| / max |ref|); one line a test and limit, the largest
+    reading."""
+    import pytest
+
+    import test_torch_lm_layers as TLL
+
+    cases = [(TLL.test_dot_rmsnorm_rope, {}), (TLL.test_sdpa_and_flash, {}),
+             *((TLL.test_attention_gqa, {"mode": m}) for m in ("full", "windowed", "cached", "int8")),
+             *((TLL.test_attention_mla, {"mode": m}) for m in ("full", "cached", "flash")),
+             *((TLL.test_moe_ffn, {"top_k": k, "cf": cf}) for k, cf in ((1, 1.25), (2, 1.0), (1, 0.3))),
+             (TLL.test_ssd, {}), (TLL.test_mamba2_block, {})]
+    for fn, kw in cases:
+        worst = {}
+        for seed in seeds:
+            TLL.READINGS = []
+            try:
+                with pytest.MonkeyPatch.context() as mp:
+                    extra = {"monkeypatch": mp} if fn is TLL.test_attention_mla else {}
+                    fn(seed=seed, **kw, **extra)
+                for limit, value in TLL.READINGS:
+                    worst[limit] = max(worst.get(limit, 0.0), value)
+            finally:
+                TLL.READINGS = None
+        for limit, value in sorted(worst.items()):
+            yield {"lm_layer": fn.__name__, **kw, "limit": limit, "max_reading": value}
+
+
+def lm_train_readings(seeds=range(5)):
+    """The gaps behind tests/test_torch_lm_train.py's tolerances: its parity
+    tests run at seeds 0-4 with `_check` collecting (limit, reading); one
+    line a test and limit, the largest reading."""
+    import tempfile
+    from pathlib import Path
+
+    import test_torch_lm_train as TLT
+
+    class _NoCapture:
+        def readouterr(self):
+            return None
+
+    cases = [(TLT.test_global_norm_and_clip, {}),
+             *((TLT.test_adamw_steps_match_reference, {"grad_clip": c, "wd": w})
+               for c, w in ((0.0, 0.0), (1.0, 0.1))),
+             (TLT.test_sgd_matches_reference, {}), (TLT.test_train_steps_match_reference, {}),
+             (TLT.test_driver_matches_reference_from_its_weights, {"capsys": _NoCapture()}),
+             (TLT.test_reference_checkpoint_loads_into_port, {})]
+    for fn, kw in cases:
+        worst = {}
+        for seed in seeds:
+            TLT.READINGS = []
+            try:
+                with tempfile.TemporaryDirectory() as tmp:
+                    extra = ({"tmp_path": Path(tmp)}
+                             if fn is TLT.test_reference_checkpoint_loads_into_port else {})
+                    fn(seed=seed, **kw, **extra)
+                for limit, value in TLT.READINGS:
+                    worst[limit] = max(worst.get(limit, 0.0), value)
+            finally:
+                TLT.READINGS = None
+        shown = {k: v for k, v in kw.items() if k != "capsys"}
+        for limit, value in sorted(worst.items()):
+            yield {"lm_train": fn.__name__, **shown, "limit": limit, "max_reading": value}
+    TLT.READINGS = []
+    TLT.test_cosine_schedule_matches_reference()
+    yield {"lm_train": "test_cosine_schedule_matches_reference", "limit": TLT.SCHEDULE_RTOL,
+           "max_reading": max(v for _, v in TLT.READINGS)}
+    TLT.READINGS = None
+
+
 if __name__ == "__main__":
     import sys
 
@@ -713,6 +855,9 @@ if __name__ == "__main__":
         lines = external_readings()
     elif chosen == ("dist",):
         lines = dist_readings()
+    elif chosen == ("lm",):
+        torch.set_num_threads(2)  # as the LM test modules run
+        lines = (*lm_model_readings(), *lm_layer_readings(), *lm_train_readings())
     else:
         rank = "rank:pairwise" in chosen or not chosen
         chosen = tuple(o for o in chosen if o != "rank:pairwise")
