@@ -274,12 +274,27 @@ Phases, each printing one JSON line:
                 the CPU's (LM_CARD_RTOL). Readings: seconds a step (median of
                 steps 3-10), tokens/s, peak memory of each architecture, the
                 cuBLAS bf16 reduced-precision flag.
-  19. ops     — the path the reference gives `histogram_packed` and
+  19. lm_dryrun — the LM's sharded dry run (`repro_torch.launch.dryrun`,
+                the port's partition model): `run_one` for one architecture
+                a family (LM_DRYRUN_ARCHS) at every shape on both production
+                meshes, traced in LM_DRYRUN_JOBS processes (host work on meta
+                tensors). Gates: no record is an error, the skips are the
+                reference's (LM_DRYRUN_SKIPS); the largest argument_bytes
+                that fits the card is allocated for real (a position's local
+                parameters, AdamW state and batch) and
+                `torch.cuda.memory_allocated()` grows by the record's bytes
+                within the caching allocator's 512-byte rounding a tensor.
+                One line a record (per-device argument and peak bytes, the
+                roofline terms, the ops that fell back). Reading: the
+                partition model's peak for the `lm` phase's training step
+                (yi-6b, 2 layers, batch 1 x 4,096, one position) beside the
+                peak the card measured there.
+  20. ops     — the path the reference gives `histogram_packed` and
                 `decompress`: `ops.histogram_packed_op`, `ops.decompress_op`
                 and the matrix's own `CompressedMatrix.unpack()` on the
                 training matrix's words, counts reset just before
                 (`histogram_packed` 1, `decompress` 2).
-  20. check   — each kernel against its plain PyTorch version on the same
+  21. check   — each kernel against its plain PyTorch version on the same
                 CUDA inputs, at the main path's shapes; the histograms also on
                 a skewed copy of the words (SKEW of the symbols in the missing
                 bin) and a constant-feature copy (one feature's every symbol
@@ -311,7 +326,7 @@ Phases, each printing one JSON line:
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
                 shapes are.
-  21. time    — CUDA-event ms of each kernel, its plain version and, where one
+  22. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
                 each private histogram's launch plan (node tile, feature
@@ -541,6 +556,13 @@ LM_OPT_LR = 1e-4
 LM_SEQ, LM_DECODE_STEPS = 256, 4  # every other architecture's forward / backward, decode
 LM_DECODE_RTOL, LM_INT8_RTOL = 2e-2, 0.05  # the reference's own (test_arch_smoke.py:103, :153)
 LM_CARD_RTOL = 2e-2  # card vs CPU logits, as tests/test_torch_cuda.py states it
+# The LM dry run: one architecture a family (dense GQA, MoE, SSM, hybrid,
+# enc-dec), every shape, both production meshes; the reference's skips.
+LM_DRYRUN_ARCHS = ["yi-6b", "llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-7b",
+                   "seamless-m4t-medium"]
+LM_DRYRUN_SKIPS = {("seamless-m4t-medium", "long_500k"): "enc-dec translation decoder: "
+                   "target length architecturally bounded far below 500k (DESIGN.md §6)"}
+LM_DRYRUN_JOBS = 8
 FAULT_ROWS, FAULT_CHUNKS = 200_000, 4
 # Resilience: the round whose gradients the nan_grad fault overwrites; kill
 # and resume of a 10-round fit that snapshots every 3 rounds and is killed
@@ -570,9 +592,10 @@ print("FIT-COMPLETED")
 """
 
 
-def lm_phase(dev, seed: int) -> None:
+def lm_phase(dev, seed: int) -> float:
     """Phase 18: the LM substrate at full width, cut in depth only (see the
-    module docstring). Emits one line a part; any failed gate raises."""
+    module docstring). Emits one line a part; any failed gate raises.
+    Returns the training loop's peak memory (GiB)."""
     import dataclasses
 
     import numpy as np
@@ -770,6 +793,85 @@ def lm_phase(dev, seed: int) -> None:
           "nvidia_smi": nvidia_smi()})
     if bad:
         raise SystemExit(f"lm phase failed: {bad}")
+    return train["peak_gib"]
+
+
+def lm_dryrun_phase(dev, train_peak_gib: float) -> None:
+    """Phase 19: the LM's sharded dry run (see the module docstring).
+    Emits one line a record and a summary line; a failed gate raises."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import dryrun as LD
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import SHAPES, ShapeConfig
+
+    smi = nvidia_smi()
+    dev_name = f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    pairs = [(a, s) for a in LM_DRYRUN_ARCHS for s in SHAPES]
+    order = {(a, s, m): i for i, (a, s) in enumerate(pairs)
+             for m in ("pod16x16", "pod2x16x16")}
+    recs = sorted(LD.sweep(pairs, [False, True], "", dev_name, LM_DRYRUN_JOBS, smi),
+                  key=lambda r: order[(r["arch"], r["shape"], r["mesh"])])
+    sweep_s = time.perf_counter() - t0
+    for rec in recs:
+        print(LD.line(rec), flush=True)
+    errors = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+              if r["status"] == "error"]
+    skips = {(r["arch"], r["shape"]): r["reason"] for r in recs if r["status"] == "skipped"}
+    skips_ok = skips == LM_DRYRUN_SKIPS and len(recs) == 2 * len(pairs)
+
+    # A position's arguments for real: the largest record that fits the card.
+    free, _ = torch.cuda.mem_get_info(dev)
+    ok = [r for r in recs if r["status"] == "ok"]
+    fits = [r for r in ok if r["memory_analysis"]["argument_bytes"] < 0.9 * free]
+    big = max(fits, key=lambda r: r["memory_analysis"]["argument_bytes"])
+    shape = SHAPES[big["shape"]]
+    cfg = LS.cfg_for_shape(get_arch(big["arch"]), shape)
+    mesh = make_production_mesh(multi_pod=big["mesh"] == "pod2x16x16", device=dev)
+    _, structs, specs = LD.build_step(build_model(cfg), cfg, shape, mesh)
+    leaves_read = big["argument_leaves"]
+    read = (None if leaves_read["read"] == leaves_read["total"]
+            else LD.partition_of(cfg, shape, mesh)["arguments_read"])
+    want = big["memory_analysis"]["argument_bytes"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    local = LD.local_arguments(structs, specs, mesh, dev, read)
+    grew = torch.cuda.memory_allocated(dev) - base
+    alloc_ok = 0 <= grew - want < 512 * len(local)
+    n_local = len(local)
+    del local
+    torch.cuda.empty_cache()
+
+    # Reading: the partition model's peak for the lm phase's training step.
+    cfg2 = dataclasses.replace(get_arch("yi-6b"), n_layers=2)
+    one = make_mesh((1, 1), ("data", "model"), device=dev)
+    shape2 = ShapeConfig("train_4k", LM_TRAIN_SEQ, 1, "train")
+    _, s2, sp2 = LD.build_step(build_model(cfg2), cfg2, shape2, one)
+    p2 = LD.partition_of(cfg2, shape2, one)
+    est = (LD.argument_bytes(s2, sp2, one, p2["arguments_read"]) + p2["temp_bytes_peak"]
+           + p2["output_bytes"])
+    line = {"phase": "lm_dryrun", "records": len(recs), "ok": len(ok),
+            "skipped": sum(r["status"] == "skipped" for r in recs), "errors": errors,
+            "skips_as_reference": skips_ok, "sweep_s": sweep_s, "jobs": LM_DRYRUN_JOBS,
+            "trace_s": {f"{r['arch']}:{r['shape']}:{r['mesh']}": r["trace_s"] for r in ok},
+            "fallback_ops": sorted({k for r in ok for k in r["partition"]["fallback_ops"]}),
+            "allocated": {"arch": big["arch"], "shape": big["shape"], "mesh": big["mesh"],
+                          "record_bytes": want, "memory_allocated_grew": grew,
+                          "tensors": n_local, "within_rounding": alloc_ok},
+            "train_peak_estimate_gib": est / 2**30, "train_peak_card_gib": train_peak_gib,
+            "nvidia_smi": smi}
+    emit(line)
+    if errors or not skips_ok or not alloc_ok:
+        raise SystemExit(f"lm_dryrun phase failed: errors {errors}, skips {skips}, "
+                         f"allocation {line['allocated']}")
 
 
 def emit(obj: dict) -> None:
@@ -2592,7 +2694,10 @@ def main() -> int:
     feature_phase()
 
     # --- 18. the LM substrate at full width -----------------------------------
-    lm_phase(dev, args.seed)
+    train_peak_gib = lm_phase(dev, args.seed)
+
+    # --- 19. the LM's sharded dry run ------------------------------------------
+    lm_dryrun_phase(dev, train_peak_gib)
 
     # Inputs of the kernel phases, at the main path's shapes.
     gen = torch.Generator(device=dev).manual_seed(args.seed)

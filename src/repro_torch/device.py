@@ -5,17 +5,20 @@ import numpy as np
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, *, meta: bool = False) -> torch.device:
     """`None` means `"cuda"`. A CUDA device without a card raises: nothing
-    carries on on the CPU unless the caller passed `device="cpu"`."""
+    carries on on the CPU unless the caller passed `device="cpu"`. With
+    `meta=True` the meta device is accepted too, for shape work only (the
+    LM's dry run builds its parameters, optimizer state and caches there)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
+    allowed = ("cuda", "cpu", "meta") if meta else ("cuda", "cpu")
+    if dev.type not in allowed:
+        raise ValueError(f"device must be one of {allowed}, got {dev}")
     return dev
 
 

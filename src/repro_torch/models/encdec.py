@@ -132,7 +132,7 @@ def forward(params, batch, cfg: ArchConfig, rules: TF.ShardingRules):
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype=torch.bfloat16,
                device=None):
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     k, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((cfg.n_layers, batch, capacity, k, hd), dtype=dtype, device=dev),

@@ -101,7 +101,7 @@ def forward(params, tokens, cfg: ArchConfig, rules: TF.ShardingRules,
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype=torch.bfloat16,
                device=None):
     g, a, rest = _group_shape(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     k, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     cache = {
         "mamba_groups": SSM.mamba_cache(cfg, batch, (g, a), dev),

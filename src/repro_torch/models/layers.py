@@ -38,8 +38,8 @@ def _f32_of_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def dot(a, b):
     """bf16 matmul, bf16 out: float32 sums of the bf16 products, rounded to
-    bf16 once."""
-    if a.is_cuda:
+    bf16 once. On meta tensors (the dry run) it takes the card's path."""
+    if a.is_cuda or a.is_meta:
         return torch.matmul(a.to(BF16), b.to(BF16))
     return torch.matmul(_f32_of_bf16(a), _f32_of_bf16(b)).to(BF16)
 

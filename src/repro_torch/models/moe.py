@@ -6,7 +6,10 @@ token's place in its expert's capacity-bounded queue is a float32 prefix
 sum over the one-hot routing matrix, an `index_add_` places it in an
 (E * C + 1, D) float32 buffer whose last row takes the overflow, and a
 gather at the clipped slot brings the expert outputs back. Aux losses:
-switch-style load balance and the router z-loss.
+switch-style load balance and the router z-loss. Under enabled rules the
+expert buffers are sharded, experts over `model` (expert parallelism) and
+capacity over the data axes, as in the reference; that runs only in the
+dry run's partition model.
 """
 from __future__ import annotations
 
@@ -27,12 +30,12 @@ def moe_ffn(x, p, *, n_experts: int, top_k: int, capacity_factor: float,
             rules=None):
     """x (B, S, D) -> (out (B, S, D), aux dict).
 
-    p: router (D, E), w_gate/w_up (E, D, F), w_down (E, F, D). A sharded
-    `rules` raises, as every sharding constraint of the port does."""
-    if rules is not None and rules.enabled:
-        from repro_torch.models.transformer import _constrain
+    p: router (D, E), w_gate/w_up (E, D, F), w_down (E, F, D).
 
-        _constrain(x, None, rules)
+    `rules` (ShardingRules): when enabled, the expert buffers are
+    constrained to P(model, batch, None), experts over `model` and capacity
+    over the data axes, as in the reference (inside a
+    `launch.partition.trace`; outside one the constraint raises)."""
     b, s, d = x.shape
     n_tok = b * s
     xt = x.reshape(n_tok, d)
@@ -60,12 +63,19 @@ def moe_ffn(x, p, *, n_experts: int, top_k: int, capacity_factor: float,
     buf = torch.zeros((n_experts * capacity + 1, d), dtype=torch.float32,
                       device=x.device).index_add(0, slot, xrep)
     ebuf = buf[:-1].reshape(n_experts, capacity, d)
+    sharded = rules is not None and rules.enabled
+    if sharded:
+        from repro_torch.models.transformer import P, _constrain
+
+        ebuf = _constrain(ebuf, P(rules.model, rules.batch, None), rules)
 
     # Per-expert SwiGLU, batched over the expert axis.
     g = einsum_f32("ecd,edf->ecf", ebuf, p["w_gate"])
     u = einsum_f32("ecd,edf->ecf", ebuf, p["w_up"])
     h = silu(g) * u
     eout = einsum_f32("ecf,efd->ecd", h, p["w_down"])
+    if sharded:
+        eout = _constrain(eout, P(rules.model, rules.batch, None), rules)
 
     # Expert outputs back to their tokens, weighted by the gates, top-k folded.
     flat_out = eout.reshape(n_experts * capacity, d)

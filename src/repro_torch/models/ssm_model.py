@@ -51,7 +51,7 @@ def forward(params, tokens, cfg: ArchConfig, rules: TF.ShardingRules):
 def init_cache(cfg: ArchConfig, batch: int, capacity: int = 0, dtype=None, device=None):
     """Stacked (L, ...) conv histories and states, float32 whatever
     `dtype` says (as the reference's)."""
-    return SSM.mamba_cache(cfg, batch, (cfg.n_layers,), resolve_device(device))
+    return SSM.mamba_cache(cfg, batch, (cfg.n_layers,), resolve_device(device, meta=True))
 
 
 def cache_specs(cfg: ArchConfig, rules: TF.ShardingRules, m: str = "model"):

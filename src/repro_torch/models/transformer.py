@@ -13,8 +13,12 @@ Forward modes:
 
 Sharding is data, as in the reference: `param_specs` / `cache_specs` give
 each leaf a partition spec, a tuple of mesh axis names (or None), leaf for
-leaf the reference's `PartitionSpec`. The port runs the LM on one device:
-a constraint under `ShardingRules(enabled=True)` raises.
+leaf the reference's `PartitionSpec`. The port runs the LM on one device
+under `NO_SHARDING`; under `ShardingRules(enabled=True)` it runs inside
+the dry run's partition model (`launch.partition.trace`, on meta
+tensors), where `_constrain` sets a tensor's spec as the reference's
+`with_sharding_constraint` does. Outside a trace there is no mesh, and a
+constraint raises ValueError.
 """
 from __future__ import annotations
 
@@ -66,12 +70,20 @@ NO_SHARDING = ShardingRules(batch=None, model=None, enabled=False)
 
 
 def _constrain(x, spec, rules: ShardingRules):
+    """x under partition spec `spec`: inside a `launch.partition.trace` the
+    trace records it and x comes back; under disabled rules x comes back
+    as it is."""
     if not rules.enabled:
         return x
-    raise NotImplementedError(
-        "the port runs the LM on one device: sharded activations wait for the "
-        "port's own partition model (ROADMAP queue 1 item 4, launch/specs.py "
-        "and launch/dryrun.py); pass NO_SHARDING")
+    from repro_torch.launch import partition
+
+    tr = partition.current()
+    if tr is None:
+        raise ValueError(
+            f"a sharding constraint {spec} needs a mesh: the port shards the LM "
+            "only inside launch.partition.trace (the dry run); pass NO_SHARDING "
+            "to run on one device")
+    return tr.constrain(x, spec)
 
 
 # Matmul outputs a "dots_saveable" checkpoint keeps (jax.checkpoint_policies
@@ -145,14 +157,20 @@ class Init:
     """The port's initialiser: a seeded `torch.Generator` on the target
     device, so weights are drawn where they live and never cross the bus.
     Shapes, scales and dtypes are the reference's; the draws are the
-    port's own (carry the reference's weights with `params_from_numpy`)."""
+    port's own (carry the reference's weights with `params_from_numpy`).
+    On `device="meta"` (the dry run's stand-ins) nothing is drawn: every
+    leaf has its shape and dtype and no values."""
 
     def __init__(self, seed: int, device=None):
-        self.device = resolve_device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.device = resolve_device(device, meta=True)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
 
     def normal(self, shape, lead=()) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty((*lead, *shape), device=self.device, dtype=torch.float32)
         return torch.randn((*lead, *shape), generator=self.gen, device=self.device,
                            dtype=torch.float32)
 
@@ -377,7 +395,7 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype=torch.bfloat16,
     """Stacked (L, ...) KV cache on `device` (the card unless "cpu"). For
     sliding-window archs pass capacity=window. cfg.kv_cache_dtype == "int8"
     stores quantised values and per-(token, head) float32 scales."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     z = functools.partial(torch.zeros, device=dev)
     l = cfg.n_layers
     if cfg.attention == "mla":

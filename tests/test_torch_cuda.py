@@ -1411,3 +1411,49 @@ def test_lm_train_loop_on_card(capsys):
         losses.append(loss.item())
     assert losses[-1] < losses[0], losses
     capsys.readouterr()
+
+
+# --- the LM's dry run on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_lm_dryrun_position_arguments_on_card():
+    """A position's local arguments (mamba2-2.7b decode_32k on 16x16: the
+    leaves the step reads, as XLA counts them) allocated on the card take
+    the record's argument_bytes, within the caching allocator's 512-byte
+    rounding a tensor."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import SHAPES
+
+    dev = _cuda()
+    rec = D.run_one("mamba2-2.7b", "decode_32k", False, "", device=dev)
+    assert rec["status"] == "ok", rec.get("error")
+    shape = SHAPES["decode_32k"]
+    cfg = SP.cfg_for_shape(get_arch("mamba2-2.7b"), shape)
+    mesh = make_production_mesh(device=dev)
+    _, structs, specs = D.build_step(build_model(cfg), cfg, shape, mesh)
+    read = D.partition_of(cfg, shape, mesh)["arguments_read"]
+    want = rec["memory_analysis"]["argument_bytes"]
+    assert D.argument_bytes(structs, specs, mesh, read) == want
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    ts = D.local_arguments(structs, specs, mesh, dev, read)
+    got = torch.cuda.memory_allocated(dev) - base
+    assert 0 <= got - want < 512 * len(ts), (got, want, len(ts))
+    del ts
+
+
+@pytest.mark.cuda
+def test_lm_constrain_raises_on_card_outside_a_trace():
+    from repro_torch.models import NO_SHARDING, ShardingRules
+    from repro_torch.models import transformer as TF
+
+    x = torch.zeros(2, 4, 8, device=_cuda())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        TF._constrain(x, ShardingRules().act(), ShardingRules())
+    assert TF._constrain(x, ShardingRules().act(), NO_SHARDING) is x

@@ -234,11 +234,12 @@ def test_remat_changes_no_value(arch, policy):
 
 
 def test_sharded_rules_raise():
-    """The LM runs on one device: a constraint under enabled rules raises
-    before any work, naming the slice that brings the partition model."""
+    """Outside the dry run's partition model there is no mesh: a constraint
+    under enabled rules raises ValueError, as JAX's
+    `with_sharding_constraint` refuses a bare spec without one."""
     cfg = C.small(get_arch("yi-6b"))
     model = build_model(cfg)
     params = model.init_params(0, "cpu")
     batch = {k: torch.from_numpy(v) for k, v in C.batch(cfg, 0).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         model.forward_logits(params, batch, ShardingRules())
