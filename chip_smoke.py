@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
                 60, row-id 0) and `growth="lossguide", max_leaves=32`. Each
                 must beat 0.7; the share of trees whose structure matches
                 between the main and the kernel-path fit is a reading, not a
-                gate. Then FIT_PAIRS warm, untraced pairs of the default and
+                gate (full builds against the default's float32 parent -
+                child: other arithmetic). Then FIT_PAIRS warm, untraced pairs of the default and
                 the kernel-path fit, alternating which runs first: the two
                 growths end to end, like for like.
   5. dense    — the uncompressed-matrix fits on the same matrix
@@ -33,9 +34,10 @@ Phases, each printing one JSON line:
                 kernel path, each with its own counts: decompress 1, and
                 privatised histogram 0 / row-id 0 / split scan 60 (the default
                 growth's histograms are plain-torch scatters on dense bins) and
-                60 / 0 / 60. Each must beat 0.7; its accuracy gap to the packed
-                fit of the same growth and the share of trees whose structure
-                matches that fit are readings. Then DENSE_PAIRS warm alternating
+                60 / 0 / 60. Each must beat 0.7 and is bit for bit the packed
+                fit of the same growth (trees and predict: the dense scatter
+                adds the kernels' integers at their exponent); its accuracy
+                gap and structure share to it are read. Then DENSE_PAIRS warm alternating
                 pairs of the dense and the packed default fit.
   6. evals    — a fit of at most EVAL_ROUNDS rounds with the held-out rows as
                 an eval set (`DeviceDMatrix(..., ref=dtrain)`), logloss and auc,
@@ -47,9 +49,10 @@ Phases, each printing one JSON line:
                 `eval` of the model of best_iteration + 1 rounds (the final
                 model when early stopping cut it there) within 1e-5, and
                 `predict(iteration_range=ITERATION_RANGE)` of the main model is
-                bit for bit the plain traversal of the sliced arenas. Readings:
-                fit(6) + update(4) against the main fit(10) (structure share,
-                largest margin gap), and the synchronising calls the evals add
+                bit for bit the plain traversal of the sliced arenas, and
+                fit(6) + update(4) is the main fit(10) bit for bit (trees,
+                predict, margins). Readings: its structure share and largest
+                margin gap, and the synchronising calls the evals add
                 (`torch.cuda.set_sync_debug_mode("warn")`; the design reads
                 metrics once a chunk). Then early stopping that fires: ES_KNOBS
                 on the first ES_ROWS rows, the held-out rows as eval set,
@@ -65,9 +68,9 @@ Phases, each printing one JSON line:
                 registered copy of binary:logistic's gradient through
                 `fit(obj=)`: its gradient bit for bit the built-in's on the
                 main fit's margins, the main fit's launches, accuracy within
-                0.003. Readings: fit_s of each, and the share of its trees
-                with the main fit's structure (atomics may flip a near-tied
-                split, so it is read, not gated).
+                0.003, the model bit for bit the main fit's. Readings: fit_s
+                of each, and the share of its trees with the main fit's
+                structure.
   8. persist  — the main model saved and loaded onto the card: predictions
                 bit for bit, save -> load -> save the same bytes; the
                 checkpoint the JAX package wrote (REFERENCE_CKPT) predicts its
@@ -127,8 +130,8 @@ Phases, each printing one JSON line:
                 load -> predict of the tuned and the monotone model bit for
                 bit, the constraints back as a tuple. Readings: fit_s and
                 accuracy beside the default fit's, STOCH_PAIRS warm pairs of
-                subsample=0.5 against the default, fit(6) + update(4) against
-                fit(10) with subsample=0.5 (atomics: a tolerance on the card).
+                subsample=0.5 against the default; fit(6) + update(4) against
+                fit(10) with subsample=0.5, a gate: bit for bit.
   13. external — the main matrix as an `ExternalDMatrix` (ref= the flat
                 matrix) at EXT_CHUNK_ROWS rows a chunk (8 chunks at 1M;
                 EXT_CHUNK_ROWS_LARGE from 2M rows on) and at EXT_ODD_CHUNK_ROWS
@@ -137,7 +140,7 @@ Phases, each printing one JSON line:
                 flat words of its rows bit for bit; the chunked default fit
                 launches the flat fit's kernels as often (10/50/60: one
                 launch a level over the whole stack); accuracy within 0.003
-                of the main fit's; `predict` on the chunks bit for bit
+                of the main fit's; the model bit for bit the main fit's; `predict` on the chunks bit for bit
                 `predict` on the flat matrix; an ExternalDMatrix eval set's
                 last logloss and auc equal `eval` of the model on the flat
                 eval set within 1e-5. Readings: stack bytes, build seconds,
@@ -166,7 +169,7 @@ Phases, each printing one JSON line:
                 50 x n_chunks), the split scan 60; accuracy within 0.003 of
                 the resident fit's and > 0.7; `nbytes_device` 0 after the
                 fit and after predict; device slots = prefetch_chunks + 1 (at
-                most n_chunks);
+                most n_chunks); the model bit for bit the resident fit's;
                 the fit's peak device memory above what was allocated
                 before it below the resident fit's by at least (stack
                 bytes - (prefetch + 1) x chunk bytes) / 2; `predict` on the
@@ -194,8 +197,8 @@ Phases, each printing one JSON line:
                 resumes each snapshot. Gates: 10 rounds; the snapshot's
                 trees bit for bit; its margins entered as carried (replayed
                 through the resumed trees, they give the final margins bit
-                for bit); accuracy within 0.003 of an uninterrupted fit
-                (read: the share of trees with its structure; atomics).
+                for bit); accuracy within 0.003 of an uninterrupted fit, and
+                bit for bit its trees, predict and final margins.
                 `checkpoint_write` once (the retry succeeds) and always (a
                 warning and a `checkpoint_write_failed` event a snapshot, the
                 fit completes, the file written before is unchanged); `oom`
@@ -223,7 +226,10 @@ Phases, each printing one JSON line:
                 masked gh bit for bit; accuracy > 0.7), a resident
                 ExternalDMatrix of 8 chunks (the chunked #1 60 x S) and
                 `compress_matrix=False` (decompress 1, #1 0), each within
-                0.003 of the 2-shard psum fit. `sharded_sketch_cuts(mesh=)` at
+                0.003 of the 2-shard psum fit (sharded against unsharded
+                stays a tolerance: each shard's histogram is deterministic,
+                but the collective adds the shards' float32 histograms, other
+                arithmetic than one card's integers). `sharded_sketch_cuts(mesh=)` at
                 2 and 4 shards: every cut of a feature whose cuts are all
                 finite within 2 (S + 3) / 1024 of its target rank. A shard
                 that raises ends the fit with its exception within
@@ -231,6 +237,14 @@ Phases, each printing one JSON line:
                 ms a level-5 allreduce of each strategy and compression, the
                 sketch's seconds, DIST_PAIRS warm rotations of 1-, 2- and
                 4-shard fits.
+  16b. repeat — every path fitted twice on the main matrix (default,
+                kernel path, lossguide, dense, dense kernel path, subsample
+                0.5, GOSS, colsample_bynode 0.5, monotone, the rank fit on
+                its MSLR-shaped matrix, chunked and streamed at
+                EXT_CHUNK_ROWS, psum on 2 shards of cuda:0): every ensemble
+                field, `predict` on the held-out rows and the training
+                margins bit for bit (the histograms' 64-bit fixed point:
+                the same bits whatever the atomics' order).
   17. feature — feature-sharded growth (`grow_tree(feature_axis="model")`)
                 on the main matrix's dense bins (`dtrain.matrix.unpack()`: one
                 decompress), over FEATURE_MESHES of cuda:0 positions ((2, 2)
@@ -325,7 +339,11 @@ Phases, each printing one JSON line:
                 kernels' chunked instantiation on the external phase's chunk
                 stacks and on the skewed words stacked at EXT_ODD_CHUNK_ROWS,
                 against their chunked plain versions, held as the flat
-                shapes are.
+                shapes are; every histogram instantiation also
+                `torch.equal` to its fixed-point plain version and to a
+                second call, and two chunk updates into one int64 slab at
+                the pass's exponent `torch.equal` to one call, for both
+                private kernels.
   22. time    — CUDA-event ms of each kernel, its plain version and, where one
                 PyTorch call computes the same function, that call; beside
                 the bound (bytes over 3.35 TB/s or operations over peak), with
@@ -1147,7 +1165,14 @@ def main() -> int:
     from repro_torch.core.resilience import ChunkIntegrityError, NumericError
     from repro_torch import dist as D
     from repro_torch.core.tree import _histograms_by_subtraction
-    from repro_torch.core.histogram import node_sums
+    from repro_torch.core.histogram import (
+        finalize_slab_histogram,
+        histogram_chunk_update,
+        histogram_rows_chunk_update,
+        new_slab,
+        node_sums,
+        slab_exponent,
+    )
     from repro_torch.data import make_dataset
     from repro_torch.kernels import build as KB
     from repro_torch.kernels import ops, ref
@@ -1159,12 +1184,15 @@ def main() -> int:
         pack_nodes,
         traversal_plan,
     )
+    from repro_torch.kernels import fixed as FX
     from repro_torch.kernels.histogram import (
+        BIN_BYTES as HIST_BIN_BYTES,
         MIN_BLOCKS_PER_SM,
         PRIVATE_BLOCKS_PER_SM,
         THREADS as HIST_THREADS,
         build_histograms_packed_kernel,
         build_histograms_rows_kernel,
+        dequantise_kernel,
         histogram_packed,
         launch_plan,
         occupancy,
@@ -1265,6 +1293,19 @@ def main() -> int:
             same &= (getattr(a, fld) == getattr(b, fld)).all(dim=1)
         return float(same.float().mean())
 
+    def same_model(a, b, x_=x_te) -> bool:
+        """Two boosters bit for bit: every ensemble field, and `predict` on
+        the held-out rows (the default: the main rows')."""
+        return (all(torch.equal(getattr(a.ensemble, fld), getattr(b.ensemble, fld))
+                    for fld in ENSEMBLE_FIELDS)
+                and torch.equal(a.predict(x_), b.predict(x_)))
+
+    def same_margins(a, b) -> bool:
+        """The training margins bit for bit (both dropped counts as equal)."""
+        if a.margins is None or b.margins is None:
+            return a.margins is None and b.margins is None
+        return torch.equal(a.margins, b.margins)
+
     fitted = {"default": (bst, acc)}
     for name, knobs in FITS.items():
         ops.reset_launches()
@@ -1278,6 +1319,9 @@ def main() -> int:
                 "launches": fit_launches}
         fitted[name] = (other, line["held_out_accuracy"])
         if name == "kernel":
+            # A reading, not a gate: the kernel path builds every level in
+            # full, the default takes a sibling as parent - child in float32,
+            # so the two add other floats even from the same integers.
             line["trees_same_structure_as_main"] = same_structure(ens, other.ensemble)
         elif name == "lossguide":
             leaves = other.ensemble.is_leaf.sum(dim=1)
@@ -1322,9 +1366,14 @@ def main() -> int:
         line["accuracy_minus_packed"] = line["held_out_accuracy"] - packed_acc
         line["trees_same_structure_as_packed"] = same_structure(packed_bst.ensemble,
                                                                 other.ensemble)
+        # The dense scatter (int64 index_add_) and the packed kernels add the
+        # same integers at the same exponent: the same fit, bit for bit.
+        line["bit_for_bit_packed"] = same_model(packed_bst, other)
         emit(line)
         if line["held_out_accuracy"] <= 0.7:
             raise SystemExit(f"dense {name} fit: held-out accuracy does not beat 0.7")
+        if not line["bit_for_bit_packed"]:
+            raise SystemExit(f"dense {name} fit differs from the packed fit")
         expect_launches(f"dense {name} fit", dense_launches[name],
                         {**path_launches(name == "kernel", dense=True), "decompress": 1})
 
@@ -1379,9 +1428,9 @@ def main() -> int:
     range_launches = ops.launches()["ensemble_traversal"]
     range_exact = bool(torch.equal(got_part, plain_part)) and bool(torch.equal(
         bst.predict(x_te, iteration_range=ITERATION_RANGE), torch.sigmoid(plain_part[:, 0])))
-    # update: fit(6) + update(4) beside fit(10), which differ on the card
-    # only by the atomics' order.
+    # update: fit(6) + update(4) is fit(10) bit for bit, as on the CPU.
     cont = Booster(**{**booster_kw, "n_rounds": 6}).fit(dtrain).update(dtrain, 4)
+    update_exact = same_model(cont, bst) and same_margins(cont, bst)
     emit({"phase": "evals", "rounds_max": EVAL_ROUNDS, "early_stopping_rounds": EARLY_STOP,
           "rounds_run": ran, "stopped": es.n_rounds_trained < ran,
           "best_iteration": best, "n_rounds_trained": es.n_rounds_trained,
@@ -1394,7 +1443,10 @@ def main() -> int:
           "iteration_range": list(ITERATION_RANGE), "iteration_range_exact": range_exact,
           "iteration_range_traversal_launches": range_launches,
           "update_trees_same_structure_as_one_fit": same_structure(cont.ensemble, ens),
-          "update_margin_max_abs_gap": float((cont.margins - bst.margins).abs().max())})
+          "update_margin_max_abs_gap": float((cont.margins - bst.margins).abs().max()),
+          "update_bit_for_bit_one_fit": update_exact})
+    if not update_exact:
+        raise SystemExit("fit(6) + update(4) differs from fit(10)")
     if abs(hist_auc - eval_auc) > 1e-5:
         raise SystemExit(f"history's valid_auc {hist_auc} at the best round differs from "
                          f"eval's {eval_auc}")
@@ -1485,6 +1537,7 @@ def main() -> int:
     custom_launches = ops.launches()
     custom_acc = accuracy(bst_custom.predict(x_te))
     custom_same = same_structure(ens, bst_custom.ensemble)
+    custom_exact = same_model(bst_custom, bst)
     grad_exact = bool(torch.equal(custom.grad(bst.margins, dtrain.label),
                                   O.logistic.grad(bst.margins, dtrain.label)))
     emit({"phase": "objectives", "rounds": ROUNDS, "quantile_alpha": QUANTILE_ALPHA,
@@ -1493,10 +1546,12 @@ def main() -> int:
                      "grad_bit_for_bit": grad_exact,
                      "held_out_accuracy": custom_acc, "main_accuracy": acc,
                      "trees_same_structure_as_main": custom_same,
+                     "bit_for_bit_main": custom_exact,
                      "launches": custom_launches}})
-    if abs(custom_acc - acc) > 0.003 or not grad_exact:
+    if abs(custom_acc - acc) > 0.003 or not grad_exact or not custom_exact:
         raise SystemExit(f"the registered copy of binary:logistic: accuracy {custom_acc} "
-                         f"against {acc}, gradient bit for bit: {grad_exact}")
+                         f"against {acc}, gradient bit for bit: {grad_exact}, model bit "
+                         f"for bit: {custom_exact}")
     expect_launches("custom objective fit", custom_launches, path_launches())
 
     # --- 8. persistence -------------------------------------------------------
@@ -1755,7 +1810,7 @@ def main() -> int:
     if not (clf_booster_exact and clf_serve_exact and abs(clf_acc - acc) <= 0.003
             and rk_exact and group_is_qid and reg_rmse < const_rmse):
         raise SystemExit(f"sklearn phase failed: {sk_line}")
-    del clf, rk, reg, xr, xrv
+    del clf, rk, reg, xr  # xrv: the repeat phase predicts the rank fit on it
 
     # --- 12. stochastic and constrained training --------------------------------
     # MONOTONE_LABEL: rises with feature 0, falls with feature 1, and keeps a
@@ -1843,8 +1898,7 @@ def main() -> int:
     persisted["monotone_tuple"] = Booster.load(str(work / "monotone.ckpt")).cfg \
         .monotone_constraints == MONOTONE
     # Warm pairs of subsample=0.5 against the default, alternating; then
-    # fit(6) + update(4) against fit(10), which on the card differ only by
-    # the atomics' order.
+    # fit(6) + update(4) against fit(10), bit for bit.
     stoch_s: dict[str, list[float]] = {"subsample": [], "default": []}
     for i in range(STOCH_PAIRS):
         for name in ("subsample", "default") if i % 2 == 0 else ("default", "subsample"):
@@ -1865,11 +1919,13 @@ def main() -> int:
                "subsample_over_default": med["subsample"] / med["default"],
                "update_trees_same_structure_as_one_fit": same_structure(cont.ensemble,
                                                                         sub.ensemble),
-               "update_margin_max_abs_gap": float((cont.margins - sub.margins).abs().max())}
+               "update_margin_max_abs_gap": float((cont.margins - sub.margins).abs().max()),
+               "update_bit_for_bit_one_fit": same_model(cont, sub) and same_margins(cont, sub)}
     emit(st_line)
     if not (syncs["subsample"] <= syncs["default"] and syncs["goss"] <= syncs["default"]
             and all(v["exact"] for v in sweep.values()) and draws_same and draws_differ
-            and card_equals_cpu and all(persisted.values())):
+            and card_equals_cpu and all(persisted.values())
+            and st_line["update_bit_for_bit_one_fit"]):
         raise SystemExit(f"stochastic phase failed: {st_line}")
     del stoch_models, model, sub, cont, first, again, other, from_cpu, on_cpu, g_abs, d_mono
 
@@ -1936,12 +1992,14 @@ def main() -> int:
                 "fit_peak_above_before": peak_fit - before_fit, "words_exact": words_exact,
                 "held_out_accuracy": eacc, "flat_accuracy": acc,
                 "trees_same_structure_as_flat": same_structure(ebst.ensemble, ens),
+                "bit_for_bit_flat": same_model(ebst, bst),
                 "predict_chunks_equal_flat": predict_exact,
                 "eval_set_vs_flat_max_gap": eval_gap, "launches": got}
         ext_lines.append(line)
         emit(line)
         expect_launches(f"chunked fit at {chunk_rows} rows a chunk", got, path_launches())
-        if not (words_exact and predict_exact and abs(eacc - acc) <= 0.003 and eval_gap <= 1e-5):
+        if not (words_exact and predict_exact and abs(eacc - acc) <= 0.003 and eval_gap <= 1e-5
+                and line["bit_for_bit_flat"]):
             raise SystemExit(f"external phase failed: {line}")
         ext_stacks[chunk_rows] = cpb
         del ebst, evbst, dte_ext
@@ -2057,7 +2115,8 @@ def main() -> int:
                         "peak_saving_wanted": want_saving, "held_out_accuracy": sacc,
                         "resident_accuracy": racc, "predict_equals_flat": predict_exact,
                         "trees_same_structure_as_resident": same_structure(sbst.ensemble,
-                                                                           rbst.ensemble)}
+                                                                           rbst.ensemble),
+                        "bit_for_bit_resident": same_model(sbst, rbst)}
                 emit(line)
                 expect_launches(f"streamed fit at {chunk_rows} rows a chunk, prefetch {prefetch}",
                                 got, {"histogram_private": ROUNDS * dst.n_chunks,
@@ -2067,7 +2126,8 @@ def main() -> int:
                         and abs(sacc - racc) <= 0.003 and sacc > 0.7 and after_fit == 0
                         and dst.nbytes_device == 0
                         and st.device_slots == min(prefetch + 1, dst.n_chunks)
-                        and res_peak - st_peak >= want_saving and predict_exact):
+                        and res_peak - st_peak >= want_saving and predict_exact
+                        and line["bit_for_bit_resident"]):
                     raise SystemExit(f"stream phase failed: {line}")
             del rbst, sbst
             if chunk_rows == ext_chunk:
@@ -2246,9 +2306,12 @@ def main() -> int:
                            "held_out_accuracy": racc, "uninterrupted_accuracy": wacc,
                            "trees_same_structure_as_uninterrupted": same_structure(
                                got.ensemble, whole.ensemble),
+                           "bit_for_bit_uninterrupted": (
+                               same_model(got, whole) and same_margins(got, whole)),
                            "resume_s": resume_s}
         if not (got.n_rounds_trained == ROUNDS and snap_exact and margins_exact
-                and abs(racc - wacc) <= 0.003 and k0 == RESUME_EVERY):
+                and abs(racc - wacc) <= 0.003 and k0 == RESUME_EVERY
+                and resumed[name_v]["bit_for_bit_uninterrupted"]):
             raise SystemExit(f"resume {name_v} failed: {resumed[name_v]}")
     emit({"phase": "resilience", "resume": resumed})
     rows_file.unlink()
@@ -2544,6 +2607,44 @@ def main() -> int:
         raise SystemExit(f"dist phase failed: {dist_bad}")
     del dist_fits, runner, roots, lvl5
 
+    # --- 16b. repeat: every path fitted twice, bit for bit ----------------------
+    def repeat_phase() -> None:
+        chunked = ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=ext_chunk, ref=dtrain)
+        streamed = ExternalDMatrix.from_arrays(x_tr, y_tr, chunk_rows=ext_chunk, ref=dtrain,
+                                               paging="stream", prefetch_chunks=2)
+        # name: (Booster knobs, training matrix, fit keywords, held-out rows)
+        paths = {
+            "default": ({}, dtrain, {}, x_te),
+            "kernel": (FITS["kernel"], dtrain, {}, x_te),
+            "lossguide": (FITS["lossguide"], dtrain, {}, x_te),
+            "dense": ({"compress_matrix": False}, dtrain, {}, x_te),
+            "dense_kernel": ({"compress_matrix": False, **FITS["kernel"]}, dtrain, {}, x_te),
+            "subsample": (STOCH_FITS["subsample"][0], dtrain, {}, x_te),
+            "goss": (STOCH_FITS["goss"][0], dtrain, {}, x_te),
+            "colsample_bynode": (STOCH_FITS["colsample"][0], dtrain, {}, x_te),
+            "monotone": (STOCH_FITS["monotone"][0], dtrain, {}, x_te),
+            "rank": ({"objective": "rank:pairwise"}, d_rank, {}, xrv),
+            "chunked": ({}, chunked, {}, x_te),
+            "streamed": ({}, streamed, {}, x_te),
+            "psum_2": ({}, d_dist, {"mesh": meshes[min(DIST_SHARDS)]}, x_te),
+        }
+        rep = {}
+        for name_r, (knobs, dmat, fit_kw, rows_) in paths.items():
+            times_r, models = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                models.append(Booster(**{**booster_kw, **knobs}).fit(dmat, **fit_kw))
+                torch.cuda.synchronize()
+                times_r.append(time.perf_counter() - t0)
+            rep[name_r] = {"bit_for_bit": same_model(*models, x_=rows_)
+                           and same_margins(*models), "fit_s": times_r}
+        emit({"phase": "repeat", "rounds": ROUNDS, "chunk_rows": ext_chunk, "paths": rep})
+        bad = [k for k, v in rep.items() if not v["bit_for_bit"]]
+        if bad:
+            raise SystemExit(f"repeat phase: fitted twice, these paths differ: {bad}")
+
+    repeat_phase()
+
     if args.profile:
         profile_fit(dtrain)
         profile_fit(dtrain, "dense", {"compress_matrix": False})
@@ -2838,49 +2939,57 @@ def main() -> int:
         ok = bool(((got - want).abs() <= tol).all())
         return err, ok
 
-    def check_histogram(name, kernel, plain, size, *rest, words=packed, data="higgs",
+    def check_histogram(name, kernel, plain, fixed, size, *rest, words=packed, data="higgs",
                         chunk_rows=None):
         """Exact on integer (g, h); within the sqrt(rows) tolerance on real.
         On the skewed and constant words the real-valued plain version runs
         in float64: in float32 its index_add_ adds a hot bin's hundreds of
         thousands of positive h one at a time, and that running sum drifts
         past the tolerance by itself (the kernels add blocked or aggregated
-        sums). With `chunk_rows`, `words` is a chunk stack and kernel and
-        plain version take its chunk_rows."""
+        sums). On both (g, h), `torch.equal` to the fixed-point plain
+        version `fixed` (the same integers, whatever the atomics' order) and
+        to a second call. With `chunk_rows`, `words` is a chunk stack and
+        kernel and plain versions take its chunk_rows."""
         if chunk_rows is not None:
             kernel = functools.partial(_append_arg, kernel, chunk_rows)
             plain = functools.partial(_append_arg, plain, chunk_rows)
+            fixed = functools.partial(_append_arg, fixed, chunk_rows)
         inputs = {"exact": (words, gh_exact, *rest), "real": (words, gh, *rest)}
         if name == "histogram_rows":  # (g, h) gathered for each slot's row
             rid = rest[1].to(torch.int64).clamp(max=n - 1)
             inputs = {k: (words, v[1][rid], *rest) for k, v in inputs.items()}
-        exact_err = float((kernel(*inputs["exact"]) - plain(*inputs["exact"])).abs().max())
+        got_exact = kernel(*inputs["exact"])
+        exact_err = float((got_exact - plain(*inputs["exact"])).abs().max())
         got = kernel(*inputs["real"])
         real = inputs["real"]
         want = plain(*real) if data == "higgs" else plain(real[0], real[1].double(), *real[2:])
         err, ok = check(got, want, counts_and_tolerance(plain, *real))
+        same_bits = (torch.equal(got_exact, fixed(*inputs["exact"]))
+                     and torch.equal(got, fixed(*real)) and torch.equal(kernel(*real), got))
         checked[name].append({"nodes": size, "data": data, "chunk_rows": chunk_rows,
-                              "exact_max_abs_err": exact_err, "max_abs_err": err, "ok": ok})
-        if exact_err != 0.0 or not ok:
+                              "exact_max_abs_err": exact_err, "max_abs_err": err, "ok": ok,
+                              "fixed_plain_and_second_call_bit_for_bit": same_bits})
+        if exact_err != 0.0 or not ok or not same_bits:
             raise SystemExit(f"{name} disagrees at {size} nodes on {data}: exact "
-                             f"{exact_err}, real {err}")
+                             f"{exact_err}, real {err}, fixed point bit for bit {same_bits}")
         return got
 
     level_hists = {}  # the Higgs-shaped words' real-(g, h) level histograms
     for words, data in ((packed, "higgs"), (skewed, "skewed"), (constant, "constant")):
         for nn in HIST_NODES:
             hist = check_histogram("histogram_private", build_histograms_packed_kernel,
-                                   ref.histogram_ref, nn, levels[nn], nn, MAX_BINS, bits,
-                                   words=words, data=data)
+                                   ref.histogram_ref, ref.histogram_fixed_ref, nn, levels[nn],
+                                   nn, MAX_BINS, bits, words=words, data=data)
             check_histogram("histogram_packed", histogram_packed, ref.histogram_packed_ref,
-                            nn, levels[nn], nn, MAX_BINS, bits, words=words, data=data)
+                            ref.histogram_packed_fixed_ref, nn, levels[nn], nn, MAX_BINS,
+                            bits, words=words, data=data)
             if data == "higgs":
                 level_hists[nn] = hist
         for npar in ROW_PARENTS:
             rid, pos = buffers[npar]
             check_histogram("histogram_rows", build_histograms_rows_kernel,
-                            ref.histogram_rows_ref, npar, pos, rid, npar, MAX_BINS, bits,
-                            words=words, data=data)
+                            ref.histogram_rows_ref, ref.histogram_rows_fixed_ref, npar, pos,
+                            rid, npar, MAX_BINS, bits, words=words, data=data)
     # Both kernels' chunked instantiation on the external phase's chunk
     # stacks (padding symbols in every chunk of the 100,003-row stack, a
     # short last chunk in both) and on the skewed words stacked at 100,003
@@ -2891,14 +3000,47 @@ def main() -> int:
                              (EXT_ODD_CHUNK_ROWS, skew_stack, "skewed")):
         for nn in HIST_NODES:
             check_histogram("histogram_private", build_histograms_packed_kernel,
-                            ref.histogram_chunked_ref, nn, levels[nn], nn, MAX_BINS, bits,
-                            words=stack_, data=data, chunk_rows=cr)
+                            ref.histogram_chunked_ref, ref.histogram_chunked_fixed_ref, nn,
+                            levels[nn], nn, MAX_BINS, bits, words=stack_, data=data,
+                            chunk_rows=cr)
         for npar in ROW_PARENTS:
             rid, pos = buffers[npar]
             check_histogram("histogram_rows", build_histograms_rows_kernel,
-                            ref.histogram_rows_chunked_ref, npar, pos, rid, npar, MAX_BINS,
-                            bits, words=stack_, data=data, chunk_rows=cr)
+                            ref.histogram_rows_chunked_ref, ref.histogram_rows_chunked_fixed_ref,
+                            npar, pos, rid, npar, MAX_BINS, bits, words=stack_, data=data,
+                            chunk_rows=cr)
     del skew_stack
+    # Two chunk updates into one int64 slab at the pass's exponent (the
+    # streamed path's unit) against one call over the same rows, for both
+    # private kernels: the main words split at a word boundary near n / 2,
+    # the row-id kernel's 4-parent buffer split by row id there.
+    w_all = packed.shape[1]
+    half_w = w_all // 2
+    cut = half_w * (32 // bits)
+    slab_equal = {}
+    slab = new_slab(8, f, MAX_BINS, dev)
+    k_pass = slab_exponent(slab, gh)
+    for lo, hi, wl, wh in ((0, cut, 0, half_w), (cut, n, half_w, w_all)):
+        histogram_chunk_update(slab, packed[:, wl:wh].contiguous(), gh[lo:hi], levels[8][lo:hi],
+                               8, MAX_BINS, bits, exponent=k_pass)
+    slab_equal["histogram_private"] = torch.equal(
+        finalize_slab_histogram(slab, 8, MAX_BINS, exponent=k_pass),
+        build_histograms_packed_kernel(packed, gh, levels[8], 8, MAX_BINS, bits))
+    rid4, pos4 = buffers[4]
+    gh4 = gh[rid4.to(torch.int64).clamp(max=n - 1)].contiguous()
+    seg = int(torch.searchsorted(rid4, torch.tensor(cut, device=dev, dtype=torch.int32)))
+    slab = new_slab(4, f, MAX_BINS, dev)
+    k_pass = slab_exponent(slab, gh4)
+    for a_, b_, wl, wh, r0 in ((0, seg, 0, half_w, 0), (seg, rid4.shape[0], half_w, w_all, cut)):
+        histogram_rows_chunk_update(slab, packed[:, wl:wh].contiguous(), gh4[a_:b_], pos4[a_:b_],
+                                    rid4[a_:b_] - r0, 4, MAX_BINS, bits, exponent=k_pass)
+    slab_equal["histogram_rows"] = torch.equal(
+        finalize_slab_histogram(slab, 4, MAX_BINS, exponent=k_pass),
+        build_histograms_rows_kernel(packed, gh4, pos4, rid4, 4, MAX_BINS, bits))
+    results["slab_two_chunks_equal_one_call"] = slab_equal
+    if not all(slab_equal.values()):
+        raise SystemExit(f"two chunk updates into one slab differ from one call: {slab_equal}")
+    del slab
     # The subtraction trick's device path (lane-spread counts, scatter
     # compaction, sibling = parent - child) at level 5 of the main matrix,
     # against a full build of the level: exact on integer (g, h); on real
@@ -3202,21 +3344,25 @@ def main() -> int:
         the CUDA runtime allows it (registers and threads included)."""
         private = kind == "private"
         plan = launch_plan(n_items, f, nodes, MAX_BINS, limits,
-                           PRIVATE_BLOCKS_PER_SM if private else MIN_BLOCKS_PER_SM)
+                           PRIVATE_BLOCKS_PER_SM if private else MIN_BLOCKS_PER_SM,
+                           HIST_BIN_BYTES)
         return {"node_tile": plan.node_tile, "feat_group": plan.feat_group,
                 "items_per_block": plan.words_per_block, "smem_bytes": plan.smem_bytes,
                 "blocks_per_sm_by_smem": plan.blocks_per_sm,
                 "blocks_per_sm_occupancy": occupancy(kind, plan, bits)}
 
     def private_at(plan, words_, gh_, pos, nn):
-        """#1 under `plan` (a `HistogramPlan`), through the library itself:
-        the launch is not counted."""
-        out = torch.zeros((nn, f, MAX_BINS, 2), device=dev)
+        """#1 under `plan` (a `HistogramPlan`), through the library itself,
+        with what its wrapper adds (the exponent, the zeroed int64
+        accumulator, the conversion pass): the launch is not counted."""
+        acc = torch.zeros((nn, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
+        k_ = FX.exponent(gh_)
         KB.check(KB.lib().rt_histogram_private(
-            words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), out.data_ptr(), n, f, w,
-            nn, MAX_BINS, bits, plan.node_tile, plan.feat_group, plan.words_per_block,
-            plan.blocks_per_sm, HIST_THREADS, 0, 0, KB.stream(dev)), "histogram_private")
-        return out
+            words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), acc.data_ptr(), k_.data_ptr(),
+            n, f, w, nn, MAX_BINS, bits, plan.node_tile, plan.feat_group,
+            plan.words_per_block, plan.blocks_per_sm, HIST_THREADS, 0, 0, KB.stream(dev)),
+            "histogram_private")
+        return dequantise_kernel(acc, k_)
 
     # With (g, h) all zero the privatised kernel does every shared-memory
     # atomic but its private histograms stay zero, and the flush skips zero
@@ -3235,7 +3381,8 @@ def main() -> int:
             # #1 under the plans of 1, 2 and 3 blocks per SM (1: a block fills
             # its opt-in shared memory), each first checked exact against the
             # wrapper on integer (g, h); a plan met twice is timed once.
-            plans = {f"blocks_per_sm_{t}": launch_plan(w, f, nn, MAX_BINS, limits, t)
+            plans = {f"blocks_per_sm_{t}": launch_plan(w, f, nn, MAX_BINS, limits, t,
+                                                       HIST_BIN_BYTES)
                      for t in (3, 2, 1)}
             want_exact = build_histograms_packed_kernel(words_, gh_exact, *hargs[2:])
             plan_ms: dict[tuple, float] = {}

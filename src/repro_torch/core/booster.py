@@ -84,10 +84,10 @@ on finite positive gains, so no row is routed on them. `checkpoint_every`
 / `checkpoint_path` write the reference's resumable snapshot at chunk
 boundaries (chunks also end at each multiple of `checkpoint_every`,
 counted from the fit's first round), and `Booster.resume(path, dtrain)`
-continues a killed fit with the snapshot's margins as carried. On the CPU
-the resumed booster is bit for bit the uninterrupted fit; on the card it
-agrees within the fits' tolerance (the histogram kernels' atomics add in
-no fixed order), as `update` does. Faults are provoked through
+continues a killed fit with the snapshot's margins as carried. The
+resumed booster is bit for bit the uninterrupted fit, on the CPU and on
+the card (the card's histograms add 64-bit fixed-point integers, the same
+bits in any order; `kernels/fixed.py`), as `update` is. Faults are provoked through
 `repro_torch.testing.faults`.
 
 Multi-device fits (DESIGN.md §15): `fit(dtrain, mesh=dist.make_mesh((S,),
@@ -487,11 +487,10 @@ class Booster:
 
         If `dtrain` is the matrix the booster last trained on, the rounds
         continue from its cached margins; otherwise the margins are rebuilt
-        by bin-space prediction. On the CPU fit(a) + update(b) is bit for
-        bit one fit of a + b rounds (the plain versions add in a fixed
-        order). On the card it agrees with that fit only within the fits'
-        tolerance: the histogram kernels add floats with atomics in no
-        fixed order, so a near-tied split may fall the other way. The
+        by bin-space prediction. fit(a) + update(b) is bit for bit one fit
+        of a + b rounds, on the CPU (the plain versions add in a fixed
+        order) and on the card (the histograms add 64-bit fixed-point
+        integers, whose sums do not depend on the atomics' order). The
         objective is fixed at fit time; metrics may be changed per update.
         `checkpoint_every` / `checkpoint_path` and the sharding keywords
         (`mesh`, `data_axes`, `collective`, `compression`, `comm_tolerance`)
@@ -540,11 +539,9 @@ class Booster:
         draws fold, but not the data. The margins re-enter the round loop
         exactly as carried (never rebuilt by prediction), the stochastic
         draws fold absolute rounds, and early-stopping checks fire at the
-        same fit-relative boundaries. On the CPU the resumed booster is bit
-        for bit the one an uninterrupted fit gives (trees, margins,
-        predictions). On the card it agrees with it within the fits'
-        tolerance: the histogram kernels add with atomics in no fixed
-        order, so a near-tied split may fall the other way, as in `update`.
+        same fit-relative boundaries. The resumed booster is bit for bit
+        the one an uninterrupted fit gives (trees, margins, predictions),
+        on the CPU and on the card, as in `update`.
 
         Checkpointing continues with the original cadence to the same file
         by default (override with checkpoint_every/checkpoint_path); the

@@ -31,11 +31,11 @@ Two batch-iterator constructors, as in the reference:
     bst = Booster(n_rounds=100).fit(dext)
     dbig = ExternalDMatrix(batches, paging="stream", prefetch_chunks=2)
 
-On the CPU a fit on an ExternalDMatrix, resident or streamed, is bit for
-bit the fit on the DeviceDMatrix of the same rows and cuts (the plain
-versions add in row order either way); on the card it agrees within the
-fits' tolerance, since the histogram kernels add with atomics in no fixed
-order. `sketch_shards=k` builds one sketch a shard of chunks and merges
+A fit on an ExternalDMatrix, resident or streamed, is bit for bit the fit
+on the DeviceDMatrix of the same rows and cuts: on the CPU the plain
+versions add in row order either way; on the card every layout adds the
+same 64-bit fixed-point integers at the same exponent (`kernels/fixed.py`,
+`core/stream.py`). `sketch_shards=k` builds one sketch a shard of chunks and merges
 them by `dist.tree_merge`, as the reference does.
 """
 from __future__ import annotations
@@ -503,11 +503,10 @@ class ExternalDMatrix:
     Labels, group ids and per-round gradients stay on the device (they are
     O(n), the matrix is O(n * f)).
 
-    On the CPU a fit on this matrix is bit for bit the fit on the
-    DeviceDMatrix of the same rows and cuts (the plain versions add in row
-    order either way); on the card it agrees with it within the fits'
-    tolerance: the histogram kernels add with atomics in no fixed order, so
-    a near-tied split may fall the other way.
+    A fit on this matrix is bit for bit the fit on the DeviceDMatrix of
+    the same rows and cuts, on the CPU (the plain versions add in row order
+    either way) and on the card (every layout adds the same 64-bit
+    fixed-point integers at the same exponent).
 
     Args:
       batches: iterator of `x`, `(x, y)` or `(x, y, group_ids)` chunks

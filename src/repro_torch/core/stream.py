@@ -29,10 +29,12 @@ pass for the root, up to 5 for the row buffers below it, 6 routing passes
 and 1 traversal. The round loop is `Booster._run_rounds`, which reaches
 these through `Booster._bins`: no second loop.
 
-On the CPU a streamed fit is bit for bit the resident and the flat fit:
-each histogram slot's terms are added in global row (or buffer) order in
-all three, and routing and traversal are elementwise. On the card it
-agrees with them within the fits' tolerance (the kernels' atomics).
+A streamed fit is bit for bit the resident and the flat fit, on the CPU
+and on the card: on the CPU each histogram slot's terms are added in global
+row (or buffer) order in all three; on the card each pass quantises every
+row at the exponent of the whole pass's (g, h) (`H.slab_exponent`), so its
+chunks add the integers of one resident call into an int64 slab, converted
+once. Routing and traversal are elementwise.
 Counters, with the reference's meaning: `rows_touched` (rows scattered
 into histograms) and `chunks_paged` (chunks the pager served); and
 `row_segments` (row-buffer segments added, one row-id launch each on the
@@ -98,12 +100,13 @@ class StreamedChunkedBins:
     def histograms(self, gh, positions, n_nodes: int, max_bins: int) -> torch.Tensor:
         """A level in full: every chunk's rows added into one running slab."""
         slab = H.new_slab(n_nodes, self.n_features, max_bins, gh.device)
+        k = H.slab_exponent(slab, gh)
         for i, words in self.iter_chunks():
             s, e = self._rows(i)
             H.histogram_chunk_update(slab, words, gh[s:e], positions[s:e], n_nodes,
-                                     max_bins, self.bits)
+                                     max_bins, self.bits, exponent=k)
             self.rows_touched += e - s
-        return H.finalize_slab_histogram(slab, n_nodes, max_bins)
+        return H.finalize_slab_histogram(slab, n_nodes, max_bins, exponent=k)
 
     def histograms_rows(self, gh_sel, pos_sel, row_ids, n_nodes: int,
                         max_bins: int) -> torch.Tensor:
@@ -111,15 +114,16 @@ class StreamedChunkedBins:
         segment added with chunk-local row ids; chunks with no selected row
         are never paged."""
         slab = H.new_slab(n_nodes, self.n_features, max_bins, gh_sel.device)
+        k = H.slab_exponent(slab, gh_sel)
         segments = {i: (s, e) for i, s, e in self._segments(row_ids)}
         for i, words in self.iter_chunks(list(segments)):
             s, e = segments[i]
             H.histogram_rows_chunk_update(slab, words, gh_sel[s:e], pos_sel[s:e],
                                           row_ids[s:e] - i * self.chunk_rows, n_nodes,
-                                          max_bins, self.bits)
+                                          max_bins, self.bits, exponent=k)
             self.rows_touched += e - s
             self.row_segments += 1
-        return H.finalize_slab_histogram(slab, n_nodes, max_bins)
+        return H.finalize_slab_histogram(slab, n_nodes, max_bins, exponent=k)
 
     # --- routing -------------------------------------------------------------
     def feature_bins(self, feat: torch.Tensor, row_ids: torch.Tensor | None = None):

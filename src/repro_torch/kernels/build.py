@@ -37,13 +37,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as
-# c_void_p, ints as c_int, floats as c_float). All return an int error code.
+# c_void_p, ints as c_int or c_longlong, floats as c_float). All return an
+# int error code.
 SIGNATURES = {
-    "rt_histogram_private": [_P] * 4 + [_I] * 13 + [_P],
-    "rt_histogram_rows": [_P] * 5 + [_I] * 12 + [_P],
-    "rt_histogram_packed": [_P] * 4 + [_I] * 7 + [_P],
+    "rt_histogram_private": [_P] * 5 + [_I] * 13 + [_P],
+    "rt_histogram_rows": [_P] * 6 + [_I] * 12 + [_P],
+    "rt_histogram_packed": [_P] * 5 + [_I] * 7 + [_P],
+    "rt_histogram_dequantise": [_P] * 3 + [_L, _I, _P],
     "rt_decompress": [_P] * 2 + [_I] * 4 + [_P],
     "rt_split_scan": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
     "rt_empty_launch": [_P],

@@ -1,7 +1,15 @@
 // Gradient histograms straight from the bit-packed matrix (paper §2.3).
 // Three kernels share the contract of src/repro/core/histogram.py: per
 // (node, feature, bin) sums of (g, h) over the rows at each level-local
-// node position, out (n_nodes, n_features, max_bins, 2) float32.
+// node position, (n_nodes, n_features, max_bins, 2). They add in 64-bit
+// fixed point (upstream XGBoost's GradientQuantiser; kernels/fixed.py): each
+// row's (g, h) is quantised to int64 round-half-even(v * 2^k) before any
+// addition, with the call's exponent k read from the device through a
+// pointer, and every add is an integer add into an int64 accumulator
+// (n_nodes, n_features, max_bins, 2). Integer adds commute, so the sums, and
+// the float32 histogram that histogram_dequantise_kernel converts from them
+// once at the end, are the same bits on every call, whatever the atomics'
+// order, the launch plan or the chunk layout.
 //
 //  * histogram_private_kernel replaces the TPU kernel
 //    src/repro/kernels/histogram.py :: build_histograms_packed_kernel
@@ -30,9 +38,10 @@
 // Launch plan of the private kernels (kernels/histogram.py::launch_plan):
 // a block owns a stripe of words (or slots) x a group of features x a range
 // of nodes, and keeps a private histogram for exactly those in dynamic
-// shared memory: [feature][node][bin][g,h] floats. The plan caps that
-// histogram so that a target number of blocks fit on an SM (the row-id
-// kernel three, about 75 KB of the SM's 228 KB; the privatised kernel two),
+// shared memory: [feature][node][bin][g,h] int64. The plan caps that
+// histogram (16 bytes a bin) so that a target number of blocks fit on an
+// SM (the row-id kernel three, about 75 KB of the SM's 228 KB; the
+// privatised kernel two),
 // and puts more node tiles and feature groups on the grid to make up: with
 // one 224 KB block (16 warps) per SM the row-id kernel took 2-2.5x its time
 // at four 56 KB blocks.
@@ -41,13 +50,13 @@
 // feature, so word loads coalesce along W, and the warp steps through its
 // words together (a lane past the stripe's end carries no rows), so that
 // the votes below have all 32 lanes. A thread unpacks SPW symbols per word
-// and keeps the SPW rows' (g, h) and node in registers across the feature
-// group; rows with a position outside the block's node range (n_nodes or
-// -1 = inactive) are skipped, and a word whose rows are all skipped loads
-// nothing.
-//  * Each (g, h) is added with one 64-bit compare-and-swap on the pair, as
-//    in histogram_rows_kernel: one loop per symbol where two float
-//    atomicAdds are two, and half the retries when lanes contend for a bin.
+// and keeps the SPW rows' quantised (g, h) and node in registers across the
+// feature group; rows with a position outside the block's node range
+// (n_nodes or -1 = inactive) are skipped, and a word whose rows are all
+// skipped loads nothing.
+//  * Each (g, h) is added to shared memory as two 64-bit integers, each
+//    with two native 32-bit atomicAdds and a carry, as in
+//    histogram_rows_kernel (add_shared_64).
 //  * The key of the j-th symbol of a lane's word is its (node, bin). Where
 //    the warp shows repeats at symbol j (two or more lanes in the missing
 //    bin, or a lane whose key equals its xor-1 or xor-2 neighbour's, which
@@ -62,23 +71,26 @@
 // the group one word packed[f, rid / SPW], shifted by (rid % SPW) * bits.
 //  * The words of kRowsUnroll features are loaded before any of them is
 //    used, so a slot keeps several scattered loads in flight.
-//  * On sm_90a a float atomicAdd to shared memory is a compare-and-swap
-//    loop, one per float. The kernel adds each (g, h) with one 64-bit
-//    compare-and-swap on the pair instead: one loop, and half the retries
-//    when warps contend for a bin. (Hopper's 8-byte float2 atomicAdd
-//    exists for global memory only.)
+//  * Each (g, h) is added to shared memory as two 64-bit integers, each
+//    with two native 32-bit atomicAdds and a carry (add_shared_64): on
+//    sm_90a both a float and a 64-bit integer atomicAdd to shared memory
+//    are compare-and-swap loops (ATOMS.CAST.SPIN, .64), a 32-bit integer
+//    one is native (ATOMS.ADD). Before the fixed point it was one 64-bit
+//    compare-and-swap on the float pair.
 //  * Where a warp shows repeats (two or more lanes in the missing bin, or a
 //    lane whose (node, bin) equals its neighbour's), lanes with equal
 //    (node, bin) are summed with __match_any_sync and a shuffle tree, and
 //    one lane adds the sum: a skewed feature would otherwise send up to 32
-//    compare-and-swap loops after one address. Where it shows none, the
-//    match is skipped: on spread-out bins it costs about what it saves.
+//    atomics after one address. Where it shows none, the match is skipped:
+//    on spread-out bins it costs about what it saves.
 //  * At most 32 registers a thread, so that four 56 KB blocks fit an SM.
 //  * A slot at the dump position, or with a row id outside the packed
 //    words, contributes nothing and reads nothing past its position. The
 //    buffer keeps row order, so neighbouring slots often share a word.
 // Both private kernels flush the non-zero entries of their histogram to the
-// output with global atomicAdd at the end. The caller zeroes the output.
+// int64 accumulator with 64-bit integer global atomicAdd at the end. The
+// caller zeroes the accumulator (or hands a running one: the streamed pass
+// adds chunk after chunk into one, at one exponent).
 //
 // histogram_global_kernel: a thread takes one word and its SPW rows, and
 // the whole warp walks the features in step, so the lanes of a warp always
@@ -86,12 +98,14 @@
 // so the card's warps spread over all the slabs instead of all starting on
 // feature 0's few L2 lines. Per
 // symbol, lanes whose (node, bin) agree are summed with __match_any_sync
-// and a shuffle tree, and one lane adds the warp's sum with one 8-byte
-// float2 atomicAdd (sm_90, global memory: REDG.E.ADD.F32x2) in place of two
-// 4-byte ones. The output stays the accumulator, as on the TPU: there is no
-// private copy and no flush.
+// and a shuffle tree, and one lane adds the warp's sum with two 64-bit
+// integer global atomicAdds. The int64 accumulator is the output, as on the
+// TPU: there is no private copy and no flush, only the conversion pass.
 //
-// Float order is therefore not fixed from run to run, in all three kernels.
+// Summation order is not fixed from run to run in any of the three kernels;
+// the integer sums do not depend on it. A non-finite (g, h) in a call gives
+// the exponent kNonFinite: every row quantises to 0 and the conversion
+// writes NaN everywhere.
 //
 // The chunk stack (external memory, src/repro/core/compress.py ::
 // ChunkedPackedBins): the two private kernels have a chunked instantiation
@@ -112,19 +126,39 @@ namespace {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kRowsUnroll = 4;  // features whose words a slot loads at once
+// The exponent of a call whose (g, h) holds inf or NaN (kernels/fixed.py).
+constexpr int kNonFinite = -2147483647 - 1;
+
+// 2^k as a double, built from its bits, for k in [-1022, 1022]; 0 for
+// kNonFinite, so that every row of such a call quantises to 0.
+__device__ __forceinline__ double pow2(int k) {
+  return k == kNonFinite ? 0.0
+                         : __longlong_as_double((long long)(k + 1023) << 52);
+}
+
+// round-half-even(v * scale) as int64; the product is exact in double. NaN
+// (inf * 0 under kNonFinite) quantises to 0, as in kernels/fixed.py.
+__device__ __forceinline__ long long quantise(float v, double scale) {
+  const double x = (double)v * scale;
+  return x == x ? __double2ll_rn(x) : 0ll;
+}
+
+__device__ __forceinline__ longlong2 quantise_pair(float2 v, double scale) {
+  return make_longlong2(quantise(v.x, scale), quantise(v.y, scale));
+}
 
 // Sum of v over `peers` (the lanes of the warp whose key equals this lane's),
 // complete in the lowest lane of each group; the shuffle tree takes
 // ceil(log2(group size)) steps and none when every key is unique. Every lane
-// of the warp must call it.
-__device__ __forceinline__ float2 reduce_peers(unsigned peers, float2 v) {
+// of the warp must call it. Integer sums: the tree's order does not matter.
+__device__ __forceinline__ longlong2 reduce_peers(unsigned peers, longlong2 v) {
   const int lane = threadIdx.x & 31;
   int rank = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
   peers &= 0xfffffffeu << lane;                    // peers above it
   while (__any_sync(kFullWarp, peers)) {
     const int next = __ffs(peers);  // 1 + next peer above still summing
-    const float gx = __shfl_sync(kFullWarp, v.x, (next - 1) & 31);
-    const float gy = __shfl_sync(kFullWarp, v.y, (next - 1) & 31);
+    const long long gx = __shfl_sync(kFullWarp, v.x, (next - 1) & 31);
+    const long long gy = __shfl_sync(kFullWarp, v.y, (next - 1) & 31);
     if (next) {
       v.x += gx;
       v.y += gy;
@@ -135,25 +169,31 @@ __device__ __forceinline__ float2 reduce_peers(unsigned peers, float2 v) {
   return v;
 }
 
-// Adds (g, h) to the 8-byte shared-memory slot at `slot` with one 64-bit
-// compare-and-swap loop. On sm_90a a float atomicAdd to shared memory is
-// itself such a loop (ATOMS.CAST.SPIN in the SASS), one per float; this is
-// one per pair (ATOMS.CAS.64), half the loops and half the retries under
-// contention.
-__device__ __forceinline__ void add_pair_shared(float* slot, float2 v) {
-  union Pair {
-    unsigned long long bits;
-    float2 gh;
-  };
+// Adds v to the int64 in shared memory at `slot` with two native 32-bit
+// atomicAdds, the low word's carry going into the high word (upstream
+// XGBoost's AtomicAdd64As32): on sm_90a a 64-bit shared atomicAdd compiles
+// to a compare-and-swap loop (ATOMS.CAST.SPIN.64). Each wrap of the low
+// word happens in exactly one add, which carries, so the int64 ends exact
+// (mod 2^64, two's complement: the signed sum) in any order.
+__device__ __forceinline__ void add_shared_64(long long* slot, long long v) {
+  unsigned* lo = reinterpret_cast<unsigned*>(slot);
+  const unsigned x_lo = (unsigned)v;
+  const unsigned x_hi = (unsigned)((unsigned long long)v >> 32);
+  const unsigned old = atomicAdd(lo, x_lo);
+  atomicAdd(lo + 1, x_hi + (old > 0xffffffffu - x_lo ? 1u : 0u));
+}
+
+// Adds the quantised (g, h) to the 16-byte shared-memory slot at `slot`.
+__device__ __forceinline__ void add_pair_shared(long long* slot, longlong2 v) {
+  add_shared_64(slot, v.x);
+  add_shared_64(slot + 1, v.y);
+}
+
+// The same into the int64 accumulator in global memory.
+__device__ __forceinline__ void add_pair_global(long long* slot, longlong2 v) {
   unsigned long long* p = reinterpret_cast<unsigned long long*>(slot);
-  Pair seen, sum;
-  seen.bits = *p;
-  unsigned long long assumed;
-  do {
-    assumed = seen.bits;
-    sum.gh = make_float2(seen.gh.x + v.x, seen.gh.y + v.y);
-    seen.bits = atomicCAS(p, assumed, sum.bits);
-  } while (seen.bits != assumed);
+  atomicAdd(p, (unsigned long long)v.x);
+  atomicAdd(p + 1, (unsigned long long)v.y);
 }
 
 // True in the lane that adds its group's sum: the lowest lane of `peers`.
@@ -165,27 +205,30 @@ __device__ __forceinline__ uint32_t symbol_mask(int bits) {
   return bits >= 32 ? 0xffffffffu : ((1u << bits) - 1u);
 }
 
-__device__ __forceinline__ void zero_private(float* hist, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) hist[i] = 0.f;
+__device__ __forceinline__ void zero_private(long long* hist, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) hist[i] = 0;
   __syncthreads();
 }
 
-// Adds a block's private histogram [fl][node - n0][bin][2] into the output.
-__device__ __forceinline__ void flush_private(const float* hist, float* out,
-                                              int nf, int slab, int f0, int n0,
-                                              int n_features, int max_bins) {
+// Adds a block's private histogram [fl][node - n0][bin][2] into the int64
+// accumulator.
+__device__ __forceinline__ void flush_private(const long long* hist,
+                                              long long* out, int nf, int slab,
+                                              int f0, int n0, int n_features,
+                                              int max_bins) {
   __syncthreads();
   const int per_node = max_bins * 2;
   for (int i = threadIdx.x; i < nf * slab; i += blockDim.x) {
-    const float v = hist[i];
-    if (v == 0.f) continue;
+    const long long v = hist[i];
+    if (v == 0) continue;
     const int fl = i / slab;
     const int r = i - fl * slab;
     const int node = r / per_node;
     const int rem = r - node * per_node;  // bin * 2 + (0 for g, 1 for h)
     const long long o =
         ((long long)(n0 + node) * n_features + f0 + fl) * per_node + rem;
-    atomicAdd(out + o, v);
+    atomicAdd(reinterpret_cast<unsigned long long*>(out + o),
+              (unsigned long long)v);
   }
 }
 
@@ -203,16 +246,18 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words) or the stack
     const float2* __restrict__ gh,        // (n_rows,) (g, h)
     const int* __restrict__ pos,          // (n_rows,) node, n_nodes = inactive
-    float* __restrict__ out,              // (n_nodes, n_features, max_bins, 2)
+    long long* __restrict__ out,          // (n_nodes, n_features, max_bins, 2)
+    const int* __restrict__ kexp,         // the call's exponent k
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
     int bits, int node_tile, int feat_group, int words_per_block,
     int chunk_rows, int words_per_chunk) {
-  extern __shared__ float hist[];  // [fl][node - n0][bin][2]
+  extern __shared__ long long hist[];  // [fl][node - n0][bin][2]
   const int f0 = blockIdx.y * feat_group;
   const int nf = min(feat_group, n_features - f0);
   const int n0 = blockIdx.z * node_tile;
   const int nn = min(node_tile, n_nodes - n0);
-  const int slab = nn * max_bins * 2;  // floats per feature
+  const int slab = nn * max_bins * 2;  // int64 entries per feature
+  const double scale = pow2(__ldg(kexp));
   zero_private(hist, nf * slab);
 
   const uint32_t mask = symbol_mask(bits);
@@ -222,7 +267,7 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
   for (long long w = w_begin + threadIdx.x; w - (threadIdx.x & 31) < w_end;
        w += blockDim.x) {
     int node[SPW];
-    float2 v[SPW];
+    longlong2 v[SPW];
     bool any = false;
     // Chunked: the word's chunk, its first row, the end of the chunk's real
     // rows and the word of feature 0.
@@ -241,9 +286,9 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
       const int p = (w < w_end && row < (kChunked ? row_end : n_rows))
                         ? __ldg(pos + row) - n0 : -1;
       node[j] = (p >= 0 && p < nn) ? p : -1;
-      v[j] = make_float2(0.f, 0.f);
+      v[j] = make_longlong2(0, 0);
       if (node[j] >= 0) {
-        v[j] = __ldg(gh + row);
+        v[j] = quantise_pair(__ldg(gh + row), scale);
         any = true;
       }
     }
@@ -266,7 +311,7 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
       // Bits where the neighbours' words differ from this lane's.
       const uint32_t d1 = word ^ __shfl_xor_sync(kFullWarp, word, 1);
       const uint32_t d2 = word ^ __shfl_xor_sync(kFullWarp, word, 2);
-      float* hf = hist + fl * slab;
+      long long* hf = hist + fl * slab;
 #pragma unroll
       for (int j = 0; j < SPW; ++j) {
         const int shift = j * bits;
@@ -278,7 +323,7 @@ __global__ void __launch_bounds__(512, MIN_BLOCKS) histogram_private_kernel(
                    (((same >> (SPW + j)) & 1) && ((d2 >> shift) & mask) == 0));
         const unsigned hot = __ballot_sync(kFullWarp, repeat);
         const int key = on ? node[j] * max_bins + bin : -1;
-        float2 sum = v[j];
+        longlong2 sum = v[j];
         bool adds = on;
         if (hot & (hot - 1)) {  // two or more lanes flagged: aggregate
           const unsigned peers = __match_any_sync(kFullWarp, key);
@@ -305,16 +350,18 @@ __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
     const float2* __restrict__ gh,        // (n_slots,) (g, h) of each slot
     const int* __restrict__ pos,          // (n_slots,) node, n_nodes = dump
     const int* __restrict__ rid,          // (n_slots,) row id of each slot
-    float* __restrict__ out,              // (n_nodes, n_features, max_bins, 2)
+    long long* __restrict__ out,          // (n_nodes, n_features, max_bins, 2)
+    const int* __restrict__ kexp,         // the call's exponent k
     int n_slots, int n_features, int n_words, int n_nodes, int max_bins,
     int bits, int node_tile, int feat_group, int slots_per_block,
     int chunk_rows, int words_per_chunk) {
-  extern __shared__ float hist[];  // [fl][node - n0][bin][2]
+  extern __shared__ long long hist[];  // [fl][node - n0][bin][2]
   const int f0 = blockIdx.y * feat_group;
   const int nf = min(feat_group, n_features - f0);
   const int n0 = blockIdx.z * node_tile;
   const int nn = min(node_tile, n_nodes - n0);
   const int slab = nn * max_bins * 2;
+  const double scale = pow2(__ldg(kexp));
   zero_private(hist, nf * slab);
 
   const uint32_t mask = symbol_mask(bits);
@@ -333,8 +380,8 @@ __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
     if (p >= 0 && p < nn) r = __ldg(rid + s);
     if (p < 0 || p >= nn || r < 0 || r >= n_symbols) p = -1;  // reads nothing
     if (!__any_sync(kFullWarp, p >= 0)) continue;
-    float2 v = make_float2(0.f, 0.f);
-    if (p >= 0) v = __ldg(gh + s);
+    longlong2 v = make_longlong2(0, 0);
+    if (p >= 0) v = quantise_pair(__ldg(gh + s), scale);
     // Chunked: the row's chunk and its offset there; the word of feature 0.
     const uint32_t* wp = packed;
     int off = r;
@@ -366,7 +413,7 @@ __global__ void __launch_bounds__(512, 4) histogram_rows_kernel(
         const int k2 = __shfl_xor_sync(kFullWarp, key, 2);
         const unsigned hot = __ballot_sync(
             kFullWarp, p >= 0 && (bin == missing || key == k1 || key == k2));
-        float2 sum = v;
+        longlong2 sum = v;
         bool adds = p >= 0;
         if (__popc(hot) > 1) {
           const unsigned peers = __match_any_sync(kFullWarp, key);
@@ -385,25 +432,27 @@ __global__ void histogram_global_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words)
     const float2* __restrict__ gh,        // (n_rows,) (g, h)
     const int* __restrict__ pos,          // (n_rows,) node; n_nodes, -1 = inactive
-    float* __restrict__ out,              // (n_nodes, n_features, max_bins, 2)
+    long long* __restrict__ out,          // (n_nodes, n_features, max_bins, 2)
+    const int* __restrict__ kexp,         // the call's exponent k
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
     int bits) {
   const uint32_t mask = symbol_mask(bits);
+  const double scale = pow2(__ldg(kexp));
   const long long stride = (long long)gridDim.x * blockDim.x;
   // The warp steps through the words together (see histogram_rows_kernel).
   for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        w - (threadIdx.x & 31) < n_words; w += stride) {
     int node[SPW];
-    float2 v[SPW];
+    longlong2 v[SPW];
     bool any = false;
 #pragma unroll
     for (int j = 0; j < SPW; ++j) {
       const long long row = w * SPW + j;
       const int p = (w < n_words && row < n_rows) ? __ldg(pos + row) : -1;
       node[j] = (p >= 0 && p < n_nodes) ? p : -1;
-      v[j] = make_float2(0.f, 0.f);
+      v[j] = make_longlong2(0, 0);
       if (node[j] >= 0) {
-        v[j] = __ldg(gh + row);
+        v[j] = quantise_pair(__ldg(gh + row), scale);
         any = true;
       }
     }
@@ -419,15 +468,30 @@ __global__ void histogram_global_kernel(
         const int bin = (int)((word >> (j * bits)) & mask);
         const int key = node[j] >= 0 ? node[j] * max_bins + bin : -1;
         const unsigned peers = __match_any_sync(kFullWarp, key);
-        const float2 sum = reduce_peers(peers, v[j]);
+        const longlong2 sum = reduce_peers(peers, v[j]);
         if (node[j] >= 0 && leads(peers))
-          atomicAdd(reinterpret_cast<float2*>(
-                        out + (((long long)node[j] * n_features + f) * max_bins +
-                               bin) * 2),
-                    sum);
+          add_pair_global(
+              out + (((long long)node[j] * n_features + f) * max_bins + bin) * 2,
+              sum);
       }
     }
   }
+}
+
+// The conversion pass: out[i] = float(double(acc[i]) * 2^-k), each rounding
+// to nearest even, as kernels/fixed.py::dequantise computes it; NaN
+// everywhere when k is kNonFinite.
+__global__ void histogram_dequantise_kernel(const long long* __restrict__ acc,
+                                            const int* __restrict__ kexp,
+                                            float* __restrict__ out,
+                                            long long n) {
+  const int k = __ldg(kexp);
+  const double inv = k == kNonFinite ? 0.0 : pow2(-k);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = k == kNonFinite ? __int_as_float(0x7fc00000)
+                             : __double2float_rn(__ll2double_rn(acc[i]) * inv);
 }
 
 // Grid and dynamic shared memory of the two private kernels.
@@ -436,7 +500,7 @@ cudaError_t private_launch_shape(Kernel kernel, int n_items, int n_features,
                                  int n_nodes, int max_bins, int node_tile,
                                  int feat_group, int items_per_block,
                                  dim3* grid, size_t* smem) {
-  *smem = (size_t)feat_group * node_tile * max_bins * 2 * sizeof(float);
+  *smem = (size_t)feat_group * node_tile * max_bins * 2 * sizeof(long long);
   *grid = dim3((n_items + items_per_block - 1) / items_per_block,
                (n_features + feat_group - 1) / feat_group,
                (n_nodes + node_tile - 1) / node_tile);
@@ -445,8 +509,8 @@ cudaError_t private_launch_shape(Kernel kernel, int n_items, int n_features,
 }
 
 using PrivateKernel = void (*)(const uint32_t*, const float2*, const int*,
-                               float*, int, int, int, int, int, int, int, int,
-                               int, int, int);
+                               long long*, const int*, int, int, int, int, int,
+                               int, int, int, int, int, int);
 
 // The privatised kernel's instance for a plan of `blocks_per_sm` blocks.
 template <int SPW, bool kChunked = false>
@@ -464,7 +528,8 @@ PrivateKernel private_kernel(int blocks_per_sm) {
 // 0 for the flat words.
 template <int SPW, bool kChunked>
 cudaError_t launch_private(const void* packed, const void* gh, const void* pos,
-                           void* out, int n_rows, int n_features, int n_words,
+                           void* out, const void* kexp, int n_rows,
+                           int n_features, int n_words,
                            int n_nodes, int max_bins, int bits, int node_tile,
                            int feat_group, int words_per_block,
                            int blocks_per_sm, int threads, int chunk_rows,
@@ -477,15 +542,17 @@ cudaError_t launch_private(const void* packed, const void* gh, const void* pos,
       words_per_block, &grid, &smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(
-      (const uint32_t*)packed, (const float2*)gh, (const int*)pos, (float*)out,
-      n_rows, n_features, n_words, n_nodes, max_bins, bits, node_tile,
-      feat_group, words_per_block, chunk_rows, words_per_chunk);
+      (const uint32_t*)packed, (const float2*)gh, (const int*)pos,
+      (long long*)out, (const int*)kexp, n_rows, n_features, n_words, n_nodes,
+      max_bins, bits, node_tile, feat_group, words_per_block, chunk_rows,
+      words_per_chunk);
   return cudaGetLastError();
 }
 
 template <int SPW, bool kChunked>
 cudaError_t launch_rows(const void* packed, const void* gh, const void* pos,
-                        const void* rid, void* out, int n_slots,
+                        const void* rid, void* out, const void* kexp,
+                        int n_slots,
                         int n_features, int n_words, int n_nodes, int max_bins,
                         int bits, int node_tile, int feat_group,
                         int slots_per_block, int threads, int chunk_rows,
@@ -498,21 +565,23 @@ cudaError_t launch_rows(const void* packed, const void* gh, const void* pos,
   if (err != cudaSuccess) return err;
   histogram_rows_kernel<SPW, kChunked><<<grid, threads, smem, stream>>>(
       (const uint32_t*)packed, (const float2*)gh, (const int*)pos,
-      (const int*)rid, (float*)out, n_slots, n_features, n_words, n_nodes,
-      max_bins, bits, node_tile, feat_group, slots_per_block, chunk_rows,
-      words_per_chunk);
+      (const int*)rid, (long long*)out, (const int*)kexp, n_slots, n_features,
+      n_words, n_nodes, max_bins, bits, node_tile, feat_group, slots_per_block,
+      chunk_rows, words_per_chunk);
   return cudaGetLastError();
 }
 
 template <int SPW>
 cudaError_t launch_global(const void* packed, const void* gh, const void* pos,
-                          void* out, int n_rows, int n_features, int n_words,
-                          int n_nodes, int max_bins, int bits, int threads,
+                          void* out, const void* kexp, int n_rows,
+                          int n_features, int n_words, int n_nodes,
+                          int max_bins, int bits, int threads,
                           cudaStream_t stream) {
   const int blocks = (n_words + threads - 1) / threads;
   histogram_global_kernel<SPW><<<blocks, threads, 0, stream>>>(
-      (const uint32_t*)packed, (const float2*)gh, (const int*)pos, (float*)out,
-      n_rows, n_features, n_words, n_nodes, max_bins, bits);
+      (const uint32_t*)packed, (const float2*)gh, (const int*)pos,
+      (long long*)out, (const int*)kexp, n_rows, n_features, n_words, n_nodes,
+      max_bins, bits);
   return cudaGetLastError();
 }
 
@@ -549,16 +618,18 @@ static bool chunk_args_ok(int n_words, int chunk_rows, int words_per_chunk) {
                              n_words % words_per_chunk == 0);
 }
 
+// `out` is the int64 accumulator (n_nodes, n_features, max_bins, 2), added
+// into; `kexp` points to the call's int32 exponent on the device.
 extern "C" int rt_histogram_private(
     const void* packed, const void* gh, const void* pos, void* out,
-    int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
+    const void* kexp, int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
     int bits, int node_tile, int feat_group, int words_per_block,
     int blocks_per_sm, int threads, int chunk_rows, int words_per_chunk,
     void* stream) {
   if (!chunk_args_ok(n_words, chunk_rows, words_per_chunk))
     return (int)cudaErrorInvalidValue;
 #define RT_CALL(S)                                                          \
-  RT_CHUNK_SWITCH(launch_private, S, packed, gh, pos, out, n_rows,          \
+  RT_CHUNK_SWITCH(launch_private, S, packed, gh, pos, out, kexp, n_rows,    \
                   n_features, n_words, n_nodes, max_bins, bits, node_tile,  \
                   feat_group, words_per_block, blocks_per_sm, threads)
   RT_SPW_SWITCH(bits, RT_CALL)
@@ -567,14 +638,14 @@ extern "C" int rt_histogram_private(
 
 extern "C" int rt_histogram_rows(
     const void* packed, const void* gh, const void* pos, const void* rid,
-    void* out, int n_slots, int n_features, int n_words, int n_nodes,
+    void* out, const void* kexp, int n_slots, int n_features, int n_words, int n_nodes,
     int max_bins, int bits, int node_tile, int feat_group,
     int slots_per_block, int threads, int chunk_rows, int words_per_chunk,
     void* stream) {
   if (!chunk_args_ok(n_words, chunk_rows, words_per_chunk))
     return (int)cudaErrorInvalidValue;
 #define RT_CALL(S)                                                          \
-  RT_CHUNK_SWITCH(launch_rows, S, packed, gh, pos, rid, out, n_slots,       \
+  RT_CHUNK_SWITCH(launch_rows, S, packed, gh, pos, rid, out, kexp, n_slots, \
                   n_features, n_words, n_nodes, max_bins, bits, node_tile,  \
                   feat_group, slots_per_block, threads)
   RT_SPW_SWITCH(bits, RT_CALL)
@@ -583,13 +654,26 @@ extern "C" int rt_histogram_rows(
 
 extern "C" int rt_histogram_packed(
     const void* packed, const void* gh, const void* pos, void* out,
-    int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
-    int bits, int threads, void* stream) {
+    const void* kexp, int n_rows, int n_features, int n_words, int n_nodes,
+    int max_bins, int bits, int threads, void* stream) {
 #define RT_CALL(S)                                                          \
-  launch_global<S>(packed, gh, pos, out, n_rows, n_features, n_words,       \
+  launch_global<S>(packed, gh, pos, out, kexp, n_rows, n_features, n_words, \
                    n_nodes, max_bins, bits, threads, (cudaStream_t)stream)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
+}
+
+// float32 out[i] from the int64 accumulator acc[i], i < n, at the exponent
+// `kexp` points to: the one conversion of every histogram on the card.
+extern "C" int rt_histogram_dequantise(const void* acc, const void* kexp,
+                                       void* out, long long n, int threads,
+                                       void* stream) {
+  if (n <= 0) return 0;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  histogram_dequantise_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const long long*)acc, (const int*)kexp, (float*)out, n);
+  return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM of one histogram kernel (0 private, 1 row-id,

@@ -1,30 +1,38 @@
 """Wrappers of the histogram CUDA kernels (`csrc/histogram.cu`).
 
 All three compute the contract of `repro.core.histogram` (packed words,
-(g, h) pairs and level-local positions in, (n_nodes, F, max_bins, 2) out):
+(g, h) pairs and level-local positions in, (n_nodes, F, max_bins, 2) out),
+in 64-bit fixed point (`kernels/fixed.py`): each row's (g, h) quantised at
+the call's exponent, integer atomics into an int64 accumulator, and one
+conversion pass (`dequantise_kernel`) to float32. The result is the same
+bits on every call and is `torch.equal` to the fixed-point plain versions
+(`kernels/ref.py`, `*_fixed_ref`):
 
 * `build_histograms_packed_kernel`, counterpart of
   `repro.kernels.histogram.build_histograms_packed_kernel`: privatised
-  shared-memory histograms and atomics instead of one-hot matmuls, one
-  64-bit compare-and-swap per (g, h) and warp-aggregated adds where a warp
-  shows repeated bins.
+  shared-memory histograms and atomics instead of one-hot matmuls (each
+  int64 of a (g, h) added as two native 32-bit atomics and a carry) and
+  warp-aggregated adds where a warp shows repeated bins.
 * `build_histograms_rows_kernel`, the same privatised design over a
   compacted row buffer (slot i holds row `row_ids[i]`), with several word
-  loads in flight per slot, one 64-bit compare-and-swap per (g, h) and
-  warp-aggregated adds where a warp shows repeated bins: the kernel behind
+  loads in flight per slot and warp-aggregated adds where a warp shows
+  repeated bins: the kernel behind
   `core.histogram.build_histograms_packed_rows`, which the subtraction trick
   calls below the root.
 * `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`:
-  no private histogram, every (row, feature) adds straight into the output,
-  lanes of a warp with the same (node, bin) summed first and added with one
-  8-byte atomic, each warp starting at its own feature.
+  no private histogram, every (row, feature) adds straight into the
+  accumulator, lanes of a warp with the same (node, bin) summed first, each
+  warp starting at its own feature.
 
+Each takes the call's exponent (`exponent=`, an int32 0-d tensor on the
+card, read by the kernel through a pointer) or computes it from its own gh.
 Both private kernels take their grid from `launch_plan`, each with its own
 target of resident blocks per SM. Both flush their private histograms with
-global atomics into an output that the wrapper zeroes, or, given `out=`,
-into the caller's buffer as it stands: the streamed external-memory path
-(`core/stream.py`) adds one chunk's launch after another into one running
-histogram that way. Given `chunk_rows`, both read the
+integer global atomics into an int64 accumulator that the wrapper zeroes and
+converts, or, given `out=` (int64), into the caller's accumulator as it
+stands, unconverted: the streamed external-memory path (`core/stream.py`)
+adds one chunk's launch after another into one running slab that way, at
+the pass's one exponent, and converts once. Given `chunk_rows`, both read the
 external-memory chunk stack instead of the flat words: `packed` is then
 (n_chunks, F, words_per_chunk), row r's words are chunk r // chunk_rows's
 at offset r % chunk_rows, a chunk's padding rows (and the rows past the
@@ -32,8 +40,6 @@ real ones of a short last chunk) add nothing, and the whole stack is read
 in one launch (the kernels' chunked instantiation, `kChunked`). The plan
 sizes the privatised kernel's grid over the stack's n_chunks *
 words_per_chunk words as it sizes it over flat words.
-
-Float summation order is that of the atomics, not fixed from run to run.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.kernels import fixed as FX
 
 # A block sweeps at least this many words (or slots) per stripe, so the
 # flush of its private histogram stays small beside the work that filled it.
@@ -58,6 +65,9 @@ MIN_BLOCKS_PER_SM = 3
 # same plan.
 PRIVATE_BLOCKS_PER_SM = 2
 THREADS = 512  # threads per block
+# Bytes a (g, h) bin takes in the kernels' private histograms: two int64.
+BIN_BYTES = 16
+DEQUANTISE_THREADS = 256  # threads per block of the conversion pass
 
 
 class HistogramPlan(NamedTuple):
@@ -70,14 +80,18 @@ class HistogramPlan(NamedTuple):
 
 def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
                 limits: B.DeviceLimits,
-                blocks_per_sm: int = MIN_BLOCKS_PER_SM) -> HistogramPlan:
+                blocks_per_sm: int = MIN_BLOCKS_PER_SM,
+                bin_bytes: int = 8) -> HistogramPlan:
     """Size a block's private histogram for occupancy: at most an SM's
     shared memory over `blocks_per_sm` (less the per-block reserve), so
     that that many blocks fit; nodes first (the rest go to further node
     tiles on the grid's z axis), then features beside them (feature groups
     on y), each split evenly. The stripes on x make about one wave of
-    resident blocks. The row kernel passes its slot count as `n_words`."""
-    per_node = max_bins * 8  # one feature, one node: max_bins (g, h) floats
+    resident blocks. The row kernel passes its slot count as `n_words`.
+    A bin takes `bin_bytes`: 8 for a float32 (g, h) pair, the layout the
+    kernels had before the fixed point; the kernels' int64 pairs take
+    BIN_BYTES, which every launch passes."""
+    per_node = max_bins * bin_bytes  # one feature, one node: max_bins (g, h)
     cap = min(limits.smem_block,
               limits.smem_sm // blocks_per_sm - limits.smem_reserved)
     if per_node > cap:  # one node's bins alone: take what one block may use
@@ -125,14 +139,37 @@ def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tenso
 
 def _output(out: torch.Tensor | None, n_nodes: int, f: int, max_bins: int,
             dev: torch.device) -> torch.Tensor:
-    """The histogram the kernel adds into: zeros, or the caller's `out`
-    (checked, never zeroed)."""
+    """The int64 accumulator the kernel adds into: zeros, or the caller's
+    `out` (checked, never zeroed)."""
     if out is None:
-        return torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
-    B.expect(out, "out", torch.float32, 4)
+        return torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.int64, device=dev)
+    B.expect(out, "out", torch.int64, 4)
     if tuple(out.shape) != (n_nodes, f, max_bins, 2) or out.device != dev:
-        raise ValueError(f"out must be ({n_nodes}, {f}, {max_bins}, 2) float32 on {dev}, "
+        raise ValueError(f"out must be ({n_nodes}, {f}, {max_bins}, 2) int64 on {dev}, "
                          f"got {tuple(out.shape)} on {out.device}")
+    return out
+
+
+def _exponent(exponent: torch.Tensor | None, gh: torch.Tensor) -> torch.Tensor:
+    """The call's exponent: the caller's (checked), or computed from gh."""
+    if exponent is None:
+        return FX.exponent(gh)
+    B.expect(exponent, "exponent", torch.int32, 0)
+    if exponent.device != gh.device:
+        raise ValueError(f"exponent must be on {gh.device}, got {exponent.device}")
+    return exponent
+
+
+def dequantise_kernel(acc: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
+    """float32 histogram from an int64 accumulator at `exponent`, through
+    the conversion pass (`fixed.dequantise` computes the same bits)."""
+    B.expect(exponent, "exponent", torch.int32, 0)
+    if not acc.is_contiguous() or acc.dtype != torch.int64 or not acc.is_cuda:
+        raise ValueError("acc must be a contiguous int64 CUDA tensor")
+    out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    if acc.numel():
+        B.launch("rt_histogram_dequantise", acc.device, acc.data_ptr(),
+                 exponent.data_ptr(), out.data_ptr(), acc.numel(), DEQUANTISE_THREADS)
     return out
 
 
@@ -161,28 +198,31 @@ def build_histograms_packed_kernel(
     max_bins: int,
     bits: int,
     chunk_rows: int | None = None,  # given: packed is the chunk stack
-    out: torch.Tensor | None = None,  # given: added into, not zeroed
+    out: torch.Tensor | None = None,  # given: int64 accumulator, added into
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 on the card, through
     privatised shared-memory histograms; over the chunk stack in one launch
-    when `chunk_rows` is given; added into `out` when given."""
+    when `chunk_rows` is given. Given `out`, the quantised rows are added
+    into that int64 accumulator, which is returned unconverted."""
     gh = _check_inputs(packed, gh, positions, n_nodes, bits, chunk_rows)
     f, w, held = _words(packed, chunk_rows)
     n = gh.shape[0]
     if (w * (32 // bits) if held is None else held) < n:
         raise ValueError(f"the packed words hold fewer than {n} rows")
     dev = packed.device
-    out = _output(out, n_nodes, f, max_bins, dev)
-    if w == 0 or f == 0:
-        return out
-    plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
-                       PRIVATE_BLOCKS_PER_SM)
-    B.launch("rt_histogram_private", dev,
-             packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             n, f, w, n_nodes, max_bins, bits, plan.node_tile, plan.feat_group,
-             plan.words_per_block, plan.blocks_per_sm, THREADS, *_chunk_args(packed, chunk_rows))
-    B.count(build_histograms_packed_kernel)
-    return out
+    k = _exponent(exponent, gh)
+    acc = _output(out, n_nodes, f, max_bins, dev)
+    if w > 0 and f > 0:
+        plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
+                           PRIVATE_BLOCKS_PER_SM, BIN_BYTES)
+        B.launch("rt_histogram_private", dev,
+                 packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), acc.data_ptr(),
+                 k.data_ptr(), n, f, w, n_nodes, max_bins, bits, plan.node_tile,
+                 plan.feat_group, plan.words_per_block, plan.blocks_per_sm, THREADS,
+                 *_chunk_args(packed, chunk_rows))
+        B.count(build_histograms_packed_kernel)
+    return acc if out is not None else dequantise_kernel(acc, k)
 
 
 def build_histograms_rows_kernel(
@@ -194,13 +234,15 @@ def build_histograms_rows_kernel(
     max_bins: int,
     bits: int,
     chunk_rows: int | None = None,  # given: packed is the chunk stack
-    out: torch.Tensor | None = None,  # given: added into, not zeroed
+    out: torch.Tensor | None = None,  # given: int64 accumulator, added into
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh_sel
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 of the rows in a compacted
-    buffer, added into `out` when given. A slot at the dump position, or
-    whose row id lies outside the packed words (the stack's n_chunks *
-    chunk_rows rows when `chunk_rows` is given), contributes nothing and its
-    row is never read."""
+    buffer; given `out`, added into that int64 accumulator, which is
+    returned unconverted. A slot at the dump position, or whose row id lies
+    outside the packed words (the stack's n_chunks * chunk_rows rows when
+    `chunk_rows` is given), contributes nothing and its row is never
+    read."""
     gh_sel = _check_inputs(packed, gh_sel, pos_sel, n_nodes, bits, chunk_rows)
     B.expect(row_ids, "row_ids", torch.int32, 1)
     if row_ids.shape[0] != pos_sel.shape[0]:
@@ -209,17 +251,18 @@ def build_histograms_rows_kernel(
     f, w, _ = _words(packed, chunk_rows)
     m = pos_sel.shape[0]
     dev = packed.device
-    out = _output(out, n_nodes, f, max_bins, dev)
-    if m == 0 or w == 0 or f == 0:
-        return out
-    plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index))
-    B.launch("rt_histogram_rows", dev,
-             packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
-             row_ids.data_ptr(), out.data_ptr(), m, f, w, n_nodes, max_bins, bits,
-             plan.node_tile, plan.feat_group, plan.words_per_block, THREADS,
-             *_chunk_args(packed, chunk_rows))
-    B.count(build_histograms_rows_kernel)
-    return out
+    k = _exponent(exponent, gh_sel)
+    acc = _output(out, n_nodes, f, max_bins, dev)
+    if m > 0 and w > 0 and f > 0:
+        plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index),
+                           bin_bytes=BIN_BYTES)
+        B.launch("rt_histogram_rows", dev,
+                 packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
+                 row_ids.data_ptr(), acc.data_ptr(), k.data_ptr(), m, f, w, n_nodes,
+                 max_bins, bits, plan.node_tile, plan.feat_group, plan.words_per_block,
+                 THREADS, *_chunk_args(packed, chunk_rows))
+        B.count(build_histograms_rows_kernel)
+    return acc if out is not None else dequantise_kernel(acc, k)
 
 
 def histogram_packed(
@@ -229,23 +272,24 @@ def histogram_packed(
     n_nodes: int,
     max_bins: int,
     bits: int,
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh
 ) -> torch.Tensor:
     """Histogram (n_nodes, F, max_bins, 2) float32 on the card, every add a
-    global atomic into the output."""
+    global integer atomic into the int64 accumulator, then converted."""
     gh = _check_inputs(packed, gh, positions, n_nodes, bits)
     f, w = packed.shape
     n = gh.shape[0]
     if w * (32 // bits) < n:
         raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
     dev = packed.device
-    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
-    if w == 0 or f == 0:
-        return out
-    B.launch("rt_histogram_packed", dev,
-             packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             n, f, w, n_nodes, max_bins, bits, THREADS)
-    B.count(histogram_packed)
-    return out
+    k = _exponent(exponent, gh)
+    acc = _output(None, n_nodes, f, max_bins, dev)
+    if w > 0 and f > 0:
+        B.launch("rt_histogram_packed", dev,
+                 packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), acc.data_ptr(),
+                 k.data_ptr(), n, f, w, n_nodes, max_bins, bits, THREADS)
+        B.count(histogram_packed)
+    return dequantise_kernel(acc, k)
 
 
 def occupancy(kind: str, plan: HistogramPlan | None, bits: int) -> int:

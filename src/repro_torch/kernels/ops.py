@@ -4,6 +4,13 @@ of `repro.kernels.ops`.
 A CUDA tensor goes to the kernel, a CPU tensor to the plain version in
 `kernels/ref.py`. Nothing else: a kernel that fails to build or launch
 raises, it never gives way to the plain version.
+
+Histograms: `fixed_point_histograms(device)` alone says where they are built
+in 64-bit fixed point (`kernels/fixed.py`): on a CUDA device, where the
+kernels always add so. On the CPU the histogram ops run the float plain
+versions (float32 sums in row order, the reference's arithmetic), unless
+that function is replaced, as the CPU tests replace it to run the card's
+arithmetic through whole fits.
 """
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ import torch
 
 from repro_torch.core import quantile as Q
 from repro_torch.core.compress import PackedBins, bits_needed, pack
+from repro_torch.kernels import fixed as FX
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import (
@@ -21,6 +29,7 @@ from repro_torch.kernels.ensemble_traversal import (
 from repro_torch.kernels.histogram import (
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
+    dequantise_kernel,
     histogram_packed,
 )
 from repro_torch.kernels.pairwise import pairwise_grad as pairwise_grad_kernel
@@ -49,44 +58,81 @@ def launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def fixed_point_histograms(device) -> bool:
+    """Whether histograms on `device` are built in 64-bit fixed point: true
+    for a CUDA device, false for the CPU. Every histogram op, the dense
+    scatter and the running slabs ask this, and nothing else decides."""
+    return torch.device(device).type == "cuda"
+
+
+def dequantise(acc: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
+    """float32 histogram from an int64 accumulator at `exponent`: the
+    conversion pass on the card, `fixed.dequantise` elsewhere (the same
+    bits)."""
+    if acc.is_cuda:
+        return dequantise_kernel(acc.contiguous(), exponent)
+    return FX.dequantise(acc, exponent)
+
+
 def histogram_packed_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
-                        n_nodes: int, max_bins: int, bits: int) -> torch.Tensor:
+                        n_nodes: int, max_bins: int, bits: int,
+                        exponent: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram from packed words through the
-    global-atomic kernel; positions n_nodes or -1 are inactive."""
+    global-atomic kernel; positions n_nodes or -1 are inactive. In fixed
+    point at `exponent` (None: from gh) where `fixed_point_histograms`
+    holds."""
     if packed.is_cuda:
         return histogram_packed(packed, gh.contiguous(),
                                 positions.to(torch.int32).contiguous(),
-                                n_nodes, max_bins, bits)
+                                n_nodes, max_bins, bits, exponent=exponent)
+    if fixed_point_histograms(packed.device):
+        return R.histogram_packed_fixed_ref(packed, gh, positions, n_nodes, max_bins, bits,
+                                            exponent=exponent)
     return R.histogram_packed_ref(packed, gh, positions, n_nodes, max_bins, bits)
 
 
-def _slab_nodes(out: torch.Tensor | None, n_nodes: int, chunk_rows) -> torch.Tensor | None:
-    """A running slab's first n_nodes nodes, the kernels' `out=` (the dump
-    slot is the plain versions' alone); slabs are for the flat words."""
+def _slab_nodes(out: torch.Tensor | None, n_nodes: int, chunk_rows, gh: torch.Tensor,
+                exponent: torch.Tensor | None):
+    """(a running slab's first n_nodes nodes, the exponent to add at): the
+    kernels' `out=` (the dump slot is the plain versions' alone); slabs are
+    for the flat words. A fixed-point (int64) slab adds at its pass's
+    exponent; given none, at the slab's own (`fixed.running_exponent`)."""
     if out is None:
-        return None
+        return None, exponent
     if chunk_rows is not None:
         raise ValueError("out= adds flat words (one chunk) into a slab, not the chunk stack")
     if out.ndim != 4 or out.shape[0] != n_nodes + 1:
         raise ValueError(f"out must be an (n_nodes + 1, F, max_bins, 2) slab of "
                          f"{n_nodes + 1} nodes, got {tuple(out.shape)}")
-    return out[:n_nodes]
+    if out.dtype == torch.int64 and exponent is None:
+        exponent = FX.running_exponent(out, gh)
+    return out[:n_nodes], exponent
 
 
 def histogram_private_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
                          n_nodes: int, max_bins: int, bits: int,
                          chunk_rows: int | None = None,
-                         out: torch.Tensor | None = None) -> torch.Tensor:
+                         out: torch.Tensor | None = None,
+                         exponent: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram from packed words through the
     privatised kernel; with `chunk_rows`, from the (n_chunks, F,
     words_per_chunk) chunk stack, in one launch. Given `out`, a running
     (n_nodes + 1, F, max_bins, 2) slab (its last node the dump slot), the
-    rows are added into it (`core.histogram.histogram_chunk_update`)."""
-    nodes = _slab_nodes(out, n_nodes, chunk_rows)
+    rows are added into it (`core.histogram.histogram_chunk_update`): an
+    int64 slab where `fixed_point_histograms` holds, at the pass's
+    `exponent` (given none, at the slab's own). Without `out` the exponent
+    is the call's own unless given."""
+    nodes, exponent = _slab_nodes(out, n_nodes, chunk_rows, gh, exponent)
     if packed.is_cuda:
         return build_histograms_packed_kernel(
             packed.contiguous(), gh.contiguous(), positions.to(torch.int32).contiguous(),
-            n_nodes, max_bins, bits, chunk_rows, out=nodes)
+            n_nodes, max_bins, bits, chunk_rows, out=nodes, exponent=exponent)
+    if fixed_point_histograms(packed.device):
+        if chunk_rows is not None:
+            return R.histogram_chunked_fixed_ref(packed, gh, positions, n_nodes, max_bins,
+                                                 bits, chunk_rows, exponent=exponent)
+        return R.histogram_fixed_ref(packed, gh, positions, n_nodes, max_bins, bits,
+                                     exponent=exponent, out=out)
     if chunk_rows is not None:
         return R.histogram_chunked_ref(packed, gh, positions, n_nodes, max_bins, bits,
                                        chunk_rows)
@@ -115,17 +161,26 @@ def build_histograms_kernel(bins: torch.Tensor, gh: torch.Tensor, positions: tor
 def histogram_rows(packed: torch.Tensor, gh_sel: torch.Tensor, pos_sel: torch.Tensor,
                    row_ids: torch.Tensor, n_nodes: int, max_bins: int,
                    bits: int, chunk_rows: int | None = None,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
+                   out: torch.Tensor | None = None,
+                   exponent: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram of a compacted row buffer; with
     `chunk_rows`, over the chunk stack (global row ids), in one launch.
     Given `out`, a running slab as for `histogram_private_op`, the slots
-    are added into it (`core.histogram.histogram_rows_chunk_update`)."""
-    nodes = _slab_nodes(out, n_nodes, chunk_rows)
+    are added into it (`core.histogram.histogram_rows_chunk_update`), an
+    int64 one at the pass's `exponent`."""
+    nodes, exponent = _slab_nodes(out, n_nodes, chunk_rows, gh_sel, exponent)
     if packed.is_cuda:
         return build_histograms_rows_kernel(
             packed.contiguous(), gh_sel.contiguous(), pos_sel.to(torch.int32).contiguous(),
             row_ids.to(torch.int32).contiguous(), n_nodes, max_bins, bits, chunk_rows,
-            out=nodes)
+            out=nodes, exponent=exponent)
+    if fixed_point_histograms(packed.device):
+        if chunk_rows is not None:
+            return R.histogram_rows_chunked_fixed_ref(packed, gh_sel, pos_sel, row_ids,
+                                                      n_nodes, max_bins, bits, chunk_rows,
+                                                      exponent=exponent)
+        return R.histogram_rows_fixed_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
+                                          max_bins, bits, exponent=exponent, out=out)
     if chunk_rows is not None:
         return R.histogram_rows_chunked_ref(packed, gh_sel, pos_sel, row_ids, n_nodes,
                                             max_bins, bits, chunk_rows)

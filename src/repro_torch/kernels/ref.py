@@ -6,13 +6,23 @@ dispatch in `kernels/ops.py` sends a CPU tensor here), and the kernels are
 held against them on the card. Where the kernel's arithmetic is
 deterministic (split scan, cut selection, traversal, unpack) the plain
 version performs the same operations in the same order, so the two agree
-bit for bit; the histogram kernels add with atomics, in no fixed order.
+bit for bit.
+
+The histograms have two plain versions each. The float ones (`histogram_ref`,
+...) add float (g, h) in row order, as the reference does: the CPU's
+arithmetic. The fixed-point ones (`*_fixed_ref`) compute the card's
+arithmetic (`kernels/fixed.py`): every row quantised at the call's exponent,
+an int64 `index_add_`, one conversion. Integer sums do not depend on order,
+so a kernel is `torch.equal` to its fixed-point plain version; given `out=`
+(an int64 slab) they add into it at the pass's exponent and return its
+first n_nodes nodes unconverted, as the kernels' wrappers do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import histogram as H
+from repro_torch.kernels import fixed as FX
 from repro_torch.core.compress import (
     gather_rows_chunked,
     symbols_per_word,
@@ -41,11 +51,41 @@ def histogram_ref(
     scattered into that running slab in row order (`build_histograms`'
     `flat`)."""
     bins = unpack(packed, bits, gh.shape[0])
-    return H.build_histograms(bins, gh, positions, n_nodes, max_bins, flat=out)
+    return H.scatter_histograms(bins, gh, positions, n_nodes, max_bins, flat=out)
 
 
 # `histogram_packed` computes the same function as the privatised kernel.
 histogram_packed_ref = histogram_ref
+
+
+def _scatter_fixed(bins, gh, positions, n_nodes, max_bins, exponent, out):
+    """The fixed-point scatter of the plain versions: quantise at `exponent`
+    (None: from gh), an int64 `index_add_` in row order (into `out` when
+    given, returned unconverted), else one conversion to float32."""
+    k = FX.exponent(gh) if exponent is None else exponent
+    acc = H.scatter_histograms(bins, FX.quantise(gh, k), positions, n_nodes, max_bins,
+                               flat=out)
+    return acc if out is not None else FX.dequantise(acc, k)
+
+
+def histogram_fixed_ref(
+    packed: torch.Tensor,  # (F, W) int32 words
+    gh: torch.Tensor,  # (N, 2) float
+    positions: torch.Tensor,  # (N,) int32, n_nodes (or -1) = inactive
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh
+    out: torch.Tensor | None = None,  # (n_nodes + 1, F, max_bins, 2) int64 slab
+) -> torch.Tensor:
+    """Fixed-point plain version of the privatised kernel (and of
+    `histogram_packed`): (n_nodes, F, max_bins, 2) float32, or given `out`
+    the slab's first n_nodes nodes, int64."""
+    bins = unpack(packed, bits, gh.shape[0])
+    return _scatter_fixed(bins, gh, positions, n_nodes, max_bins, exponent, out)
+
+
+histogram_packed_fixed_ref = histogram_fixed_ref
 
 
 def histogram_rows_ref(
@@ -63,14 +103,37 @@ def histogram_rows_ref(
     slot whose row id lies outside the packed words goes to the dump slot,
     as one at the dump position does. Returns (n_nodes, F, max_bins, 2) in
     gh_sel's dtype; given `out`, scattered into that running slab."""
+    bins, pos = _rows_bins(packed, pos_sel, row_ids, n_nodes, bits)
+    return H.scatter_histograms(bins, gh_sel, pos, n_nodes, max_bins, flat=out)
+
+
+def _rows_bins(packed, pos_sel, row_ids, n_nodes: int, bits: int):
+    """(m, F) bins of each slot's row and the slots' positions, a slot whose
+    row id lies outside the packed words moved to the dump slot."""
     spw = symbols_per_word(bits)
     rid = row_ids.to(torch.int64)
     inside = (rid >= 0) & (rid < packed.shape[1] * spw)
     rid = torch.where(inside, rid, 0)
     words = words_as_uint(packed[:, rid // spw])  # (F, m)
     bins = ((words >> ((rid % spw) * bits)) & ((1 << bits) - 1)).t()
-    pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
-    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins, flat=out)
+    return bins, torch.where(inside, pos_sel.to(torch.int64), n_nodes)
+
+
+def histogram_rows_fixed_ref(
+    packed: torch.Tensor,  # (F, W) int32 words
+    gh_sel: torch.Tensor,  # (m, 2) float
+    pos_sel: torch.Tensor,  # (m,) int node per slot, n_nodes = dump
+    row_ids: torch.Tensor,  # (m,) int row per slot, >= W * spw = padding
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh_sel
+    out: torch.Tensor | None = None,  # (n_nodes + 1, F, max_bins, 2) int64 slab
+) -> torch.Tensor:
+    """Fixed-point plain version of the row-id kernel: float32, or given
+    `out` the slab's first n_nodes nodes, int64."""
+    bins, pos = _rows_bins(packed, pos_sel, row_ids, n_nodes, bits)
+    return _scatter_fixed(bins, gh_sel, pos, n_nodes, max_bins, exponent, out)
 
 
 def histogram_chunked_ref(
@@ -86,7 +149,24 @@ def histogram_chunked_ref(
     chunk unpacked, its padding dropped, then the scatter-add in row order:
     bit for bit `histogram_ref` on the flat words of the same rows."""
     bins = unpack_chunked(packed, bits, chunk_rows, gh.shape[0])
-    return H.build_histograms(bins, gh, positions, n_nodes, max_bins)
+    return H.scatter_histograms(bins, gh, positions, n_nodes, max_bins)
+
+
+def histogram_chunked_fixed_ref(
+    packed: torch.Tensor,  # (n_chunks, F, words_per_chunk) int32 chunk stack
+    gh: torch.Tensor,  # (N, 2)
+    positions: torch.Tensor,  # (N,) int, n_nodes (or -1) = inactive
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh
+) -> torch.Tensor:
+    """Fixed-point plain version of the privatised kernel's chunked
+    contract: bit for bit `histogram_fixed_ref` on the flat words of the
+    same rows."""
+    bins = unpack_chunked(packed, bits, chunk_rows, gh.shape[0])
+    return _scatter_fixed(bins, gh, positions, n_nodes, max_bins, exponent, None)
 
 
 def histogram_rows_chunked_ref(
@@ -104,11 +184,34 @@ def histogram_rows_chunked_ref(
     order. A slot whose row id lies past the stack's n_chunks * chunk_rows
     rows goes to the dump slot: bit for bit `histogram_rows_ref` on the
     flat words of the same rows."""
+    bins, pos = _rows_bins_chunked(packed, pos_sel, row_ids, n_nodes, bits, chunk_rows)
+    return H.scatter_histograms(bins, gh_sel, pos, n_nodes, max_bins)
+
+
+def _rows_bins_chunked(packed, pos_sel, row_ids, n_nodes: int, bits: int, chunk_rows: int):
+    """`_rows_bins` over the chunk stack (global row ids)."""
     rid = row_ids.to(torch.int64)
     inside = (rid >= 0) & (rid < packed.shape[0] * chunk_rows)
     bins = gather_rows_chunked(packed, bits, chunk_rows, torch.where(inside, rid, 0))
-    pos = torch.where(inside, pos_sel.to(torch.int64), n_nodes)
-    return H.build_histograms(bins, gh_sel, pos, n_nodes, max_bins)
+    return bins, torch.where(inside, pos_sel.to(torch.int64), n_nodes)
+
+
+def histogram_rows_chunked_fixed_ref(
+    packed: torch.Tensor,  # (n_chunks, F, words_per_chunk) int32 chunk stack
+    gh_sel: torch.Tensor,  # (m, 2)
+    pos_sel: torch.Tensor,  # (m,) int node per slot, n_nodes = dump
+    row_ids: torch.Tensor,  # (m,) int global row per slot, past the stack = padding
+    n_nodes: int,
+    max_bins: int,
+    bits: int,
+    chunk_rows: int,
+    exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh_sel
+) -> torch.Tensor:
+    """Fixed-point plain version of the row-id kernel's chunked contract:
+    bit for bit `histogram_rows_fixed_ref` on the flat words of the same
+    rows."""
+    bins, pos = _rows_bins_chunked(packed, pos_sel, row_ids, n_nodes, bits, chunk_rows)
+    return _scatter_fixed(bins, gh_sel, pos, n_nodes, max_bins, exponent, None)
 
 
 def inclusive_scan(v: torch.Tensor) -> torch.Tensor:

@@ -1457,3 +1457,149 @@ def test_lm_constrain_raises_on_card_outside_a_trace():
     with pytest.raises(ValueError, match="needs a mesh"):
         TF._constrain(x, ShardingRules().act(), ShardingRules())
     assert TF._constrain(x, ShardingRules().act(), NO_SHARDING) is x
+
+
+# --- 64-bit fixed-point histograms: the same bits every call ------------------------
+
+def _fixed_cases(rng, dev, chunk_rows=333):
+    """Real-valued (g, h) on uniform and skewed words at 1 and 8 nodes:
+    (name, kernel call, fixed-point plain call) for each of the five
+    histogram instantiations (#1 flat and chunked, the row-id kernel flat
+    and chunked, `histogram_packed`)."""
+    for n, f, max_bins, n_nodes, skew in [(2999, 5, 256, 1, 0.0), (4096, 28, 256, 8, 0.8),
+                                          (1500, 3, 16, 3, 0.0)]:
+        flat, stack, bits = _chunk_stack(rng, n, f, max_bins, chunk_rows, skew)
+        flat, stack = flat.to(dev), stack.to(dev)
+        gh = torch.from_numpy(np.stack([rng.normal(size=n) * 3, rng.random(n)], 1)
+                              .astype(np.float32)).to(dev)
+        pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)
+        pos[rng.random(n) < 0.05] = -1
+        pos = torch.from_numpy(pos).to(dev)
+        m = n // 2
+        rid = np.sort(rng.choice(n, size=m - 7, replace=False))
+        rid = torch.from_numpy(np.concatenate([rid, np.full(7, n)]).astype(np.int32)).to(dev)
+        sel = torch.where(torch.arange(m, device=dev) < m - 7, pos[rid.long().clamp(max=n - 1)]
+                          .clamp(min=0), n_nodes).to(torch.int32)
+        gh_sel = gh[rid.long().clamp(max=n - 1)].contiguous()
+        a = (gh, pos, n_nodes, max_bins, bits)
+        r = (gh_sel, sel, rid, n_nodes, max_bins, bits)
+        yield (f"private-{n}", lambda: build_histograms_packed_kernel(flat, *a),
+               lambda: ref.histogram_fixed_ref(flat, *a))
+        yield (f"private-chunked-{n}",
+               lambda: build_histograms_packed_kernel(stack, *a, chunk_rows),
+               lambda: ref.histogram_chunked_fixed_ref(stack, *a, chunk_rows))
+        yield (f"rows-{n}", lambda: build_histograms_rows_kernel(flat, *r),
+               lambda: ref.histogram_rows_fixed_ref(flat, *r))
+        yield (f"rows-chunked-{n}", lambda: build_histograms_rows_kernel(stack, *r, chunk_rows),
+               lambda: ref.histogram_rows_chunked_fixed_ref(stack, *r, chunk_rows))
+        yield (f"packed-{n}", lambda: histogram_packed(flat, *a),
+               lambda: ref.histogram_packed_fixed_ref(flat, *a))
+
+
+@pytest.mark.cuda
+def test_fixed_point_kernels_equal_their_plain_versions_on_card(rng):
+    """Every histogram instantiation `torch.equal` to its fixed-point plain
+    version on real-valued (g, h), and the same bits on a second call."""
+    dev = _cuda()
+    for name, kernel, plain in _fixed_cases(rng, dev):
+        got = kernel()
+        assert torch.equal(got, plain()), name
+        assert torch.equal(kernel(), got), name
+
+
+@pytest.mark.cuda
+def test_fixed_point_non_finite_gh_gives_nan_on_card(rng):
+    """One NaN (g, h) anywhere in a call, an inactive row's too, makes the
+    whole histogram NaN, in the kernels as in their plain versions."""
+    dev = _cuda()
+    packed, gh, pos, bits = _hist_inputs(rng, 1001, 5, 256, 4)
+    gh[7, 0] = np.nan
+    pos[7] = 4  # inactive
+    args = (packed.to(dev), torch.from_numpy(gh).to(dev), torch.from_numpy(pos).to(dev),
+            4, 256, bits)
+    for kernel in (build_histograms_packed_kernel, histogram_packed):
+        assert bool(torch.isnan(kernel(*args)).all())
+    assert bool(torch.isnan(ref.histogram_fixed_ref(*args)).all())
+
+
+@pytest.mark.cuda
+def test_fixed_point_slab_is_one_call_on_card(rng):
+    """Chunk after chunk into one int64 slab at the pass's exponent
+    (`core.histogram.slab_exponent`) is `torch.equal` to one flat call over
+    the same rows, for both private kernels."""
+    from repro_torch.core import histogram as TH
+
+    dev = _cuda()
+    n, f, max_bins, n_nodes, chunk_rows = 4096, 28, 256, 8, 1000
+    flat, stack, bits = _chunk_stack(rng, n, f, max_bins, chunk_rows, 0.3)
+    gh = torch.from_numpy(np.stack([rng.normal(size=n), rng.random(n)], 1)
+                          .astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.integers(0, n_nodes + 1, size=n).astype(np.int32)).to(dev)
+    flat, stack = flat.to(dev), stack.to(dev)
+    slab = TH.new_slab(n_nodes, f, max_bins, dev)
+    assert slab.dtype == torch.int64
+    k = TH.slab_exponent(slab, gh)
+    for c in range(stack.shape[0]):
+        s, t = c * chunk_rows, min((c + 1) * chunk_rows, n)
+        TH.histogram_chunk_update(slab, stack[c], gh[s:t], pos[s:t], n_nodes, max_bins, bits,
+                                  exponent=k)
+    assert torch.equal(TH.finalize_slab_histogram(slab, n_nodes, max_bins, exponent=k),
+                       build_histograms_packed_kernel(flat, gh, pos, n_nodes, max_bins, bits))
+    rid = torch.from_numpy(np.sort(rng.choice(n, n // 2, replace=False)).astype(np.int32)).to(dev)
+    sel = (pos[rid.long()] % n_nodes).to(torch.int32)
+    gh_sel = gh[rid.long()].contiguous()
+    slab = TH.new_slab(n_nodes, f, max_bins, dev)
+    k = TH.slab_exponent(slab, gh_sel)
+    for c in range(stack.shape[0]):
+        m = (rid >= c * chunk_rows) & (rid < (c + 1) * chunk_rows)
+        TH.histogram_rows_chunk_update(slab, stack[c], gh_sel[m], sel[m], rid[m] - c * chunk_rows,
+                                       n_nodes, max_bins, bits, exponent=k)
+    assert torch.equal(TH.finalize_slab_histogram(slab, n_nodes, max_bins, exponent=k),
+                       build_histograms_rows_kernel(flat, gh_sel, sel, rid, n_nodes, max_bins,
+                                                    bits))
+
+
+def _assert_same_fit(a, b) -> None:
+    from repro_torch.core.predict import ENSEMBLE_FIELDS
+
+    for fld in ENSEMBLE_FIELDS:
+        assert torch.equal(getattr(a.ensemble, fld), getattr(b.ensemble, fld)), fld
+    assert torch.equal(a.margins, b.margins)
+
+
+@pytest.mark.cuda
+def test_fits_same_bits_twice_on_card(rng):
+    """A default fit, a dense one and a streamed one, each twice: trees and
+    margins `torch.equal`; the streamed fit and the resident chunked one
+    equal the flat fit, and the dense fit the packed one."""
+    from repro_torch.core import Booster, DeviceDMatrix, ExternalDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    kw = dict(n_rounds=3, max_depth=4, max_bins=64, objective="binary:logistic")
+    flat = Booster(**kw).fit(d)
+    _assert_same_fit(flat, Booster(**kw).fit(d))
+    dense = Booster(**kw, compress_matrix=False).fit(d)
+    _assert_same_fit(dense, Booster(**kw, compress_matrix=False).fit(d))
+    _assert_same_fit(dense, flat)
+    res = Booster(**kw).fit(ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=d,
+                                                        paging="resident"))
+    _assert_same_fit(res, flat)
+    for _ in range(2):
+        e = ExternalDMatrix.from_arrays(x, y, chunk_rows=700, ref=d, paging="stream",
+                                        prefetch_chunks=2)
+        _assert_same_fit(Booster(**kw).fit(e), flat)
+
+
+@pytest.mark.cuda
+def test_update_is_one_longer_fit_on_card(rng):
+    """fit(2) + update(2) on the card is fit(4) bit for bit, as on the CPU."""
+    from repro_torch.core import Booster, DeviceDMatrix
+
+    _cuda()
+    x, y = _binary_data(rng)
+    d = DeviceDMatrix(x, label=y, max_bins=64)
+    kw = dict(max_depth=4, max_bins=64, objective="binary:logistic")
+    _assert_same_fit(Booster(n_rounds=2, **kw).fit(d).update(d, 2),
+                     Booster(n_rounds=4, **kw).fit(d))

@@ -13,7 +13,9 @@ Prints one JSON line per measurement:
   with 80% of the symbols in the missing bin, at 1, 8 and 32 nodes, the mean
   ms (L2 flushed before each of 20 launches, the variants interleaved) of
   the earlier kernel under its plan (3 blocks per SM), the shipped kernel
-  through the library, and `tools/kernel_parts.cu`'s copies of its loop with
+  through the library (its int64 accumulator zeroed, the kernel, the
+  conversion pass: what its wrapper launches), and `tools/kernel_parts.cu`'s
+  copies of its float-atomic loop (the design before the fixed point) with
   one part of the design at a time, under the shipped plan:
   `float` (two float atomicAdds a symbol), `float_lockstep`,
   `float_lockstep_match`, `pair_cas`, `pair_cas_lockstep`, and
@@ -43,9 +45,12 @@ from repro_torch.core import DeviceDMatrix  # noqa: E402
 from repro_torch.core.compress import pack, unpack  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.kernels import build as KB, ref  # noqa: E402
+from repro_torch.kernels import fixed as FX  # noqa: E402
 from repro_torch.kernels.histogram import (  # noqa: E402
+    BIN_BYTES,
     PRIVATE_BLOCKS_PER_SM,
     THREADS,
+    dequantise_kernel,
     launch_plan,
 )
 
@@ -108,6 +113,8 @@ def main() -> int:
                             torch.ones(n, device=dev)], 1).contiguous()
     flush = torch.empty(128 << 18, device=dev)
     limits = KB.device_limits(0)
+    exps = {gh.data_ptr(): FX.exponent(gh), gh_exact.data_ptr(): FX.exponent(gh_exact)}
+    acc = torch.zeros((max(NODES), f, MAX_BINS, 2), dtype=torch.int64, device=dev)
 
     def mean_ms(fn, iters=20) -> list[float]:
         fn()
@@ -141,7 +148,9 @@ def main() -> int:
             pos = torch.randint(0, nn, (n,), device=dev, generator=gen, dtype=torch.int32)
             pos = torch.where(torch.rand(n, device=dev, generator=gen) < 0.05, nn, pos)
             pos = pos.to(torch.int32).contiguous()
-            plan = launch_plan(w, f, nn, MAX_BINS, limits, PRIVATE_BLOCKS_PER_SM)
+            plan = launch_plan(w, f, nn, MAX_BINS, limits, PRIVATE_BLOCKS_PER_SM, BIN_BYTES)
+            # the float-atomic copies' plan: 8 bytes a bin
+            float_plan = launch_plan(w, f, nn, MAX_BINS, limits, PRIVATE_BLOCKS_PER_SM)
             old = launch_plan(w, f, nn, MAX_BINS, limits, EARLIER_BLOCKS_PER_SM)
             ptrs = (wd.data_ptr(),)
 
@@ -152,14 +161,19 @@ def main() -> int:
                         MAX_BINS, bits, old.node_tile, old.feat_group, old.words_per_block,
                         THREADS, stream)
                 if kind == "shipped":
-                    return lib.rt_histogram_private(
-                        *ptrs, g.data_ptr(), pos.data_ptr(), o.data_ptr(), n, f, w, nn,
-                        MAX_BINS, bits, plan.node_tile, plan.feat_group,
-                        plan.words_per_block, plan.blocks_per_sm, THREADS, 0, 0, stream)
+                    a = acc[:nn].zero_()
+                    err = lib.rt_histogram_private(
+                        *ptrs, g.data_ptr(), pos.data_ptr(), a.data_ptr(),
+                        exps[g.data_ptr()].data_ptr(), n, f, w, nn, MAX_BINS, bits,
+                        plan.node_tile, plan.feat_group, plan.words_per_block,
+                        plan.blocks_per_sm, THREADS, 0, 0, stream)
+                    o.copy_(dequantise_kernel(a, exps[g.data_ptr()]))
+                    return err
                 return parts.parts_histogram(
-                    PARTS[kind], plan.blocks_per_sm, *ptrs, g.data_ptr(), pos.data_ptr(),
-                    o.data_ptr(), n, f, w, nn, MAX_BINS, plan.node_tile, plan.feat_group,
-                    plan.words_per_block, stream)
+                    PARTS[kind], float_plan.blocks_per_sm, *ptrs, g.data_ptr(),
+                    pos.data_ptr(), o.data_ptr(), n, f, w, nn, MAX_BINS,
+                    float_plan.node_tile, float_plan.feat_group,
+                    float_plan.words_per_block, stream)
 
             kinds = ["earlier", "shipped", *PARTS]
             want = ref.histogram_ref(wd, gh_exact, pos, nn, MAX_BINS, bits)
