@@ -412,6 +412,7 @@ HELD_OUT = 100_000
 ROUNDS, DEPTH, MAX_BINS = 10, 6, 256
 HIST_NODES = (1, 8, 32)  # full-level histograms checked: levels 0, 3 and 5
 ROW_PARENTS = (1, 4, 16)  # row-id histograms checked: parents of levels 1, 3, 5
+ALTERNATING_ROUNDS = 5  # #1 at 32 nodes and scatter_add_, timed in turns
 FIT_PAIRS = 5  # host times vary between fits: the median of five pairs
 L2_FLUSH_BYTES = 128 << 20  # more than the 50 MB L2, written between timed launches
 SKEW = 0.8  # share of the skewed words' symbols moved to the missing bin
@@ -457,11 +458,18 @@ REPLACES = {
     "ensemble_traversal": "src/repro/kernels/ensemble_traversal.py:175",
     "decompress": "src/repro/kernels/decompress.py:45",
     "pairwise_grad": "src/repro/core/objectives.py:289",
+    # Port-only: the fixed-point exponent of the histograms #1 and row-id
+    # (the reference adds float32); it serves the first's TPU kernel.
+    "fixed_exponent": "src/repro/kernels/histogram.py:332",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/"
-           + ("histogram" if name.startswith("histogram") else
+           + ("histogram" if name.startswith("histogram") or name == "fixed_exponent" else
               "pairwise" if name == "pairwise_grad" else name) + ".cu"
            for name in REPLACES}
+# Inputs of the exponent kernel's edge check: (name, (g, h) rows).
+EXPONENT_EDGES = (("no_rows", []), ("one_row", [[0.75, -3.0]]), ("all_zero", [[0.0, 0.0]] * 1000),
+                  ("subnormal", [[1e-40, -1e-40]] * 17), ("two_to_127", [[2.0**127, 1.0]]),
+                  ("inf", [[1.0, float("inf")]]), ("nan", [[float("nan"), 0.5]]))
 # Further fits on the main matrix: Booster knobs beside the main path's.
 FITS = {
     "kernel": {"use_kernel_histograms": True},
@@ -1186,16 +1194,16 @@ def main() -> int:
     )
     from repro_torch.kernels import fixed as FX
     from repro_torch.kernels.histogram import (
-        BIN_BYTES as HIST_BIN_BYTES,
         MIN_BLOCKS_PER_SM,
-        PRIVATE_BLOCKS_PER_SM,
-        THREADS as HIST_THREADS,
         build_histograms_packed_kernel,
         build_histograms_rows_kernel,
         dequantise_kernel,
+        device_kernels,
+        fixed_exponent,
         histogram_packed,
         launch_plan,
         occupancy,
+        private_plan,
     )
     from repro_torch.kernels import pairwise as KP
     from repro_torch.kernels.pairwise import pairwise_grad
@@ -1280,6 +1288,10 @@ def main() -> int:
         raise SystemExit(f"raw and bin-space margins differ by {bin_err}")
     expect_launches("main path", launches, {**path_launches(), "quantile_cuts": 1,
                                             "ensemble_traversal": 1})
+    # Every histogram call of the main fit computes its own exponent: one
+    # exponent kernel a call (which also zeroes the call's accumulator).
+    expect_launches("main path", launches, {"fixed_exponent": launches["histogram_private"]
+                                            + launches["histogram_rows"]})
 
     # --- 4. further fits on the same matrix -----------------------------------
     ens = bst.ensemble
@@ -3010,6 +3022,86 @@ def main() -> int:
                             npar, pos, rid, npar, MAX_BINS, bits, words=stack_, data=data,
                             chunk_rows=cr)
     del skew_stack
+    # #1 at 64 nodes (three node tiles) on both word sets, and both private
+    # kernels adding into a running int64 slab that holds earlier sums
+    # (`out=`, the streamed pass's form) at 32 and 64 nodes and 16 parents:
+    # `torch.equal` to the fixed-point plain version's slab.
+    pos64 = level_positions(64)
+    for words, data in ((packed, "higgs"), (skewed, "skewed")):
+        check_histogram("histogram_private", build_histograms_packed_kernel,
+                        ref.histogram_ref, ref.histogram_fixed_ref, 64, pos64, 64, MAX_BINS,
+                        bits, words=words, data=data)
+    out_equal = {}
+    k_gh = FX.exponent(gh)
+    for nn, pos in ((32, levels[32]), (64, pos64)):
+        slab = torch.randint(-2**40, 2**40, (nn + 1, f, MAX_BINS, 2), device=dev,
+                             generator=gen)
+        mine = slab[:nn].clone()
+        ref.histogram_fixed_ref(packed, gh, pos, nn, MAX_BINS, bits, exponent=k_gh, out=slab)
+        build_histograms_packed_kernel(packed, gh, pos, nn, MAX_BINS, bits, out=mine,
+                                       exponent=k_gh)
+        out_equal[f"histogram_private_{nn}"] = torch.equal(mine, slab[:nn])
+    rid16, pos16 = buffers[16]
+    gh16 = gh[rid16.to(torch.int64).clamp(max=n - 1)].contiguous()
+    k16 = FX.exponent(gh16)
+    slab = torch.randint(-2**40, 2**40, (17, f, MAX_BINS, 2), device=dev, generator=gen)
+    mine = slab[:16].clone()
+    ref.histogram_rows_fixed_ref(packed, gh16, pos16, rid16, 16, MAX_BINS, bits, exponent=k16,
+                                 out=slab)
+    build_histograms_rows_kernel(packed, gh16, pos16, rid16, 16, MAX_BINS, bits, out=mine,
+                                 exponent=k16)
+    out_equal["histogram_rows_16"] = torch.equal(mine, slab[:16])
+    results["out_slab_bit_for_bit"] = out_equal
+    if not all(out_equal.values()):
+        raise SystemExit(f"a kernel's out= slab differs from its plain version's: {out_equal}")
+    del slab, mine, pos64
+    # The exponent kernel against `fixed.exponent` (its plain version) on the
+    # edge inputs, alone and after the main (g, h), and on the main inputs;
+    # the accumulator it is handed comes back zeroed.
+    exp_inputs = {name_e: torch.tensor(rows_e, dtype=torch.float32, device=dev).reshape(-1, 2)
+                  for name_e, rows_e in EXPONENT_EDGES}
+    exp_inputs.update({f"{k}_after_main": torch.cat([gh, v]) for k, v in exp_inputs.items()},
+                      main_gh=gh, main_gh_exact=gh_exact)
+    exp_checked = []
+    for name_v, gh_e in exp_inputs.items():
+        junk = torch.full((8, f, MAX_BINS, 2), -1, dtype=torch.int64, device=dev)
+        got_k, want_k = int(fixed_exponent(gh_e, zero=junk)), int(FX.exponent(gh_e))
+        exp_checked.append({"input": name_v, "rows": int(gh_e.shape[0]), "k": got_k,
+                            "plain_k": want_k, "zeroed": not bool(junk.any())})
+    results["fixed_exponent"] = {
+        "max_abs_err": float(max(abs(r["k"] - r["plain_k"]) for r in exp_checked)),
+        "tolerance": "bit for bit (an int32); the accumulator zeroed", "inputs": exp_checked}
+    if any(r["k"] != r["plain_k"] or not r["zeroed"] for r in exp_checked):
+        raise SystemExit(f"the exponent kernel disagrees with fixed.exponent: {exp_checked}")
+    # A wrapper call without out=: three launches (the exponent with the
+    # zeroing, the histogram, the conversion), by the counters (the exponent
+    # kernel and the histogram kernel once each) and by the device's own
+    # record: the call captured into a CUDA graph, never launched, holds
+    # exactly those three kernel nodes in that order and no other node.
+    three = {}
+    rid1, pos1 = buffers[1]
+    gh1 = gh[rid1.to(torch.int64).clamp(max=n - 1)].contiguous()
+    for name_c, counter, call in (
+            ("histogram_private_kernel", "histogram_private",
+             lambda: build_histograms_packed_kernel(packed, gh, levels[8], 8, MAX_BINS, bits)),
+            ("histogram_rows_kernel", "histogram_rows",
+             lambda: build_histograms_rows_kernel(packed, gh1, pos1, rid1, 1, MAX_BINS, bits)),
+            ("histogram_global_kernel", "histogram_packed",
+             lambda: histogram_packed(packed, gh, levels[8], 8, MAX_BINS, bits))):
+        call()
+        torch.cuda.synchronize()
+        before = ops.launches()
+        call()
+        torch.cuda.synchronize()
+        after = ops.launches()
+        three[name_c] = {"counted": {k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]},
+                         "device_kernels": device_kernels(call, dev)}
+        if three[name_c]["counted"] != {"fixed_exponent": 1, counter: 1} or \
+                three[name_c]["device_kernels"] != ["fixed_exponent_kernel", name_c,
+                                                    "histogram_dequantise_kernel"]:
+            raise SystemExit(f"a histogram call is not three launches: {three[name_c]}")
+    results["launches_a_call"] = three
     # Two chunk updates into one int64 slab at the pass's exponent (the
     # streamed path's unit) against one call over the same rows, for both
     # private kernels: the main words split at a word boundary near n / 2,
@@ -3342,11 +3434,10 @@ def main() -> int:
     def plan_reading(kind: str, n_items: int, nodes: int) -> dict:
         """A private kernel's launch plan, and the resident blocks per SM that
         the CUDA runtime allows it (registers and threads included)."""
-        private = kind == "private"
-        plan = launch_plan(n_items, f, nodes, MAX_BINS, limits,
-                           PRIVATE_BLOCKS_PER_SM if private else MIN_BLOCKS_PER_SM,
-                           HIST_BIN_BYTES)
+        plan = (private_plan(n_items, f, nodes, MAX_BINS, bits, limits) if kind == "private"
+                else launch_plan(n_items, f, nodes, MAX_BINS, limits, MIN_BLOCKS_PER_SM))
         return {"node_tile": plan.node_tile, "feat_group": plan.feat_group,
+                "threads": plan.threads,
                 "items_per_block": plan.words_per_block, "smem_bytes": plan.smem_bytes,
                 "blocks_per_sm_by_smem": plan.blocks_per_sm,
                 "blocks_per_sm_occupancy": occupancy(kind, plan, bits)}
@@ -3355,12 +3446,12 @@ def main() -> int:
         """#1 under `plan` (a `HistogramPlan`), through the library itself,
         with what its wrapper adds (the exponent, the zeroed int64
         accumulator, the conversion pass): the launch is not counted."""
-        acc = torch.zeros((nn, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
-        k_ = FX.exponent(gh_)
+        acc = torch.empty((nn, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
+        k_ = fixed_exponent(gh_, zero=acc)
         KB.check(KB.lib().rt_histogram_private(
             words_.data_ptr(), gh_.data_ptr(), pos.data_ptr(), acc.data_ptr(), k_.data_ptr(),
             n, f, w, nn, MAX_BINS, bits, plan.node_tile, plan.feat_group,
-            plan.words_per_block, plan.blocks_per_sm, HIST_THREADS, 0, 0, KB.stream(dev)),
+            plan.words_per_block, plan.threads, 0, 0, KB.stream(dev)),
             "histogram_private")
         return dequantise_kernel(acc, k_)
 
@@ -3378,12 +3469,13 @@ def main() -> int:
             b_ms, b_by = bound(f * w * 4 + n * 8 + n * 4 + nn * f * MAX_BINS * 8,
                                2 * active * f)
             hargs = (words_, gh, pos, nn, MAX_BINS, bits)
-            # #1 under the plans of 1, 2 and 3 blocks per SM (1: a block fills
-            # its opt-in shared memory), each first checked exact against the
+            # #1 under the plans of 1, 2 and 3 512-thread blocks per SM (1: a
+            # block fills its opt-in shared memory) and under its own (one
+            # 1024-thread block per SM), each first checked exact against the
             # wrapper on integer (g, h); a plan met twice is timed once.
-            plans = {f"blocks_per_sm_{t}": launch_plan(w, f, nn, MAX_BINS, limits, t,
-                                                       HIST_BIN_BYTES)
-                     for t in (3, 2, 1)}
+            plans = {**{f"blocks_per_sm_{t}": launch_plan(w, f, nn, MAX_BINS, limits, t)
+                        for t in (3, 2, 1)},
+                     "shipped": private_plan(w, f, nn, MAX_BINS, bits, limits)}
             want_exact = build_histograms_packed_kernel(words_, gh_exact, *hargs[2:])
             plan_ms: dict[tuple, float] = {}
             for name_p, plan_p in plans.items():
@@ -3397,9 +3489,11 @@ def main() -> int:
             row = {
                 "n_nodes": nn, "data": data,
                 "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
-                "private_plan": f"blocks_per_sm_{PRIVATE_BLOCKS_PER_SM}",
+                "private_plan": "shipped",
+                "private_back_to_back_ms": back_to_back_ms(
+                    lambda: build_histograms_packed_kernel(*hargs)),
                 "private_plans": {k: {"plan": [v.node_tile, v.feat_group, v.words_per_block,
-                                               v.smem_bytes],
+                                               v.smem_bytes, v.threads],
                                       "ms": plan_ms[v]} for k, v in plans.items()},
                 "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
                 "library_ms": time_ms(library_scatter(dense_, pos, gh, nn), iters=5),
@@ -3429,6 +3523,7 @@ def main() -> int:
                 "n_parents": npar, "data": data, "slots": m, "valid_slots": int(valid.sum()),
                 "words_touched": n_words_touched,
                 "ms": time_ms(lambda: build_histograms_rows_kernel(*rargs)),
+                "back_to_back_ms": back_to_back_ms(lambda: build_histograms_rows_kernel(*rargs)),
                 "library_ms": time_ms(library_scatter(
                     dense_[rid.to(torch.int64).clamp(max=n - 1)], pos, gh_sel, npar), iters=5),
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -3448,6 +3543,24 @@ def main() -> int:
         del dense_
     emit({"phase": "time", "histogram_levels": hist_rows})
     emit({"phase": "time", "histogram_rows_levels": rows_rows})
+    # #1 at 32 nodes, where it sits closest to one scatter_add_: the two
+    # alternating in this call, ALTERNATING_ROUNDS rounds of 20 events each,
+    # so that the verdict is not one reading's.
+    alternating = []
+    for words_, data in ((packed, "higgs"), (skewed, "skewed")):
+        dense_ = dense if data == "higgs" else unpack(words_, bits, n)
+        hargs = (words_, gh, levels[32], 32, MAX_BINS, bits)
+        library = library_scatter(dense_, levels[32], gh, 32)
+        tree_ms, lib_ms = [], []
+        for _ in range(ALTERNATING_ROUNDS):
+            tree_ms.append(time_ms(lambda: build_histograms_packed_kernel(*hargs)))
+            lib_ms.append(time_ms(library))
+        alternating.append({"n_nodes": 32, "data": data, "private_ms": tree_ms,
+                            "library_ms": lib_ms,
+                            "private_at_or_below_every_round": all(
+                                t <= b for t, b in zip(tree_ms, lib_ms))})
+        del dense_, library
+    emit({"phase": "time", "histogram_32_alternating": alternating})
     # The chunked instantiations beside the flat ones on the same rows, back
     # to back and by events: #1 at 1 and 8 nodes, the row-id kernel at 1 and
     # 16 parents; each bound counts the words it must read (#1: the words
@@ -3652,6 +3765,18 @@ def main() -> int:
     times["quantile_cuts"].update(bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = traversal_bound(ens.nodes, xte, ens.n_classes, DEPTH)
     times["ensemble_traversal"].update(bound_ms=b_ms, bound_by=b_by)
+    # The exponent kernel at the main path's root call: every row's (g, h)
+    # read once, the root's int64 accumulator zeroed, k written; two masks
+    # and two maxima a row. Its plain version is `fixed.exponent` and the
+    # zeroing, the wrapper's launches before this kernel.
+    root_acc = torch.empty((1, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
+    b_ms, b_by = bound(n * 8 + root_acc.numel() * 8 + 4, 4 * n)
+    times["fixed_exponent"] = {
+        "ms": time_ms(lambda: fixed_exponent(gh, zero=root_acc)),
+        "back_to_back_ms": back_to_back_ms(lambda: fixed_exponent(gh, zero=root_acc)),
+        "plain_ms": time_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
+        "plain_back_to_back_ms": back_to_back_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
     def decompress_times(words_, rows_, b) -> dict:
         """Events and back to back, beside the bound (the words read once, one

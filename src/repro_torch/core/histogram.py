@@ -52,7 +52,7 @@ def build_histograms(
         if flat is not None:
             raise ValueError("flat= adds float (g, h); a fixed-point slab takes "
                              "histogram_chunk_update with the pass's exponent")
-        k = FX.exponent(gh)
+        k = ops.fixed_point_exponent(gh)
         acc = scatter_histograms(bins, FX.quantise(gh, k), positions, n_nodes, max_bins)
         return ops.dequantise(acc, k)
     return scatter_histograms(bins, gh, positions, n_nodes, max_bins, flat)
@@ -179,8 +179,11 @@ def slab_exponent(slab: torch.Tensor, gh: torch.Tensor) -> torch.Tensor | None:
     """The exponent of a pass into `slab` whose rows' (g, h) are all of `gh`
     (the whole pass's, not a chunk's): what every chunk update and the
     finalize of a fixed-point slab take, so that the pass adds the integers
-    of one resident call. None for a float slab."""
-    return FX.exponent(gh) if slab.dtype == torch.int64 else None
+    of one resident call: the exponent kernel on the card. None for a float
+    slab."""
+    from repro_torch.kernels import ops
+
+    return ops.fixed_point_exponent(gh) if slab.dtype == torch.int64 else None
 
 
 def histogram_chunk_update(

@@ -15,8 +15,7 @@ bits on every call and is `torch.equal` to the fixed-point plain versions
   warp-aggregated adds where a warp shows repeated bins.
 * `build_histograms_rows_kernel`, the same privatised design over a
   compacted row buffer (slot i holds row `row_ids[i]`), with several word
-  loads in flight per slot and warp-aggregated adds where a warp shows
-  repeated bins: the kernel behind
+  loads in flight per slot: the kernel behind
   `core.histogram.build_histograms_packed_rows`, which the subtraction trick
   calls below the root.
 * `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`:
@@ -24,15 +23,26 @@ bits on every call and is `torch.equal` to the fixed-point plain versions
   accumulator, lanes of a warp with the same (node, bin) summed first, each
   warp starting at its own feature.
 
+The two private kernels never add a symbol of the missing bin
+(`max_bins - 1`): each block adds minus the sum of its other bins into the
+missing entry of each of its (node, feature)s, and its share of the node
+totals (the feature groups of a stripe split the rows' totals between
+them) into the missing entry of every feature; over the blocks that is the
+missing bin, exactly (integers). Their private histograms hold
+`max_bins - 1` bins a feature and node, 16 bytes a bin. The privatised
+kernel takes one 1024-thread block an SM (`private_plan`), whose private
+histogram may fill the SM's shared memory: 32 nodes at 256 bins (130 KB a
+feature) in one node tile, every word read once.
+
 Each takes the call's exponent (`exponent=`, an int32 0-d tensor on the
-card, read by the kernel through a pointer) or computes it from its own gh.
-Both private kernels take their grid from `launch_plan`, each with its own
-target of resident blocks per SM. Both flush their private histograms with
-integer global atomics into an int64 accumulator that the wrapper zeroes and
-converts, or, given `out=` (int64), into the caller's accumulator as it
-stands, unconverted: the streamed external-memory path (`core/stream.py`)
-adds one chunk's launch after another into one running slab that way, at
-the pass's one exponent, and converts once. Given `chunk_rows`, both read the
+card, read by the kernel through a pointer) or computes it from its own gh
+with `fixed_exponent`, one launch that also zeroes the int64 accumulator: a
+call without `out=` is three launches (the exponent and the zeroing, the
+histogram, the conversion). Given `out=` (int64), the kernels add into the
+caller's accumulator as it stands, unconverted: the streamed
+external-memory path (`core/stream.py`) adds one chunk's launch after
+another into one running slab that way, at the pass's one exponent, and
+converts once. Given `chunk_rows`, the private kernels read the
 external-memory chunk stack instead of the flat words: `packed` is then
 (n_chunks, F, words_per_chunk), row r's words are chunk r // chunk_rows's
 at offset r % chunk_rows, a chunk's padding rows (and the rows past the
@@ -44,27 +54,40 @@ words_per_chunk words as it sizes it over flat words.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build as B
-from repro_torch.kernels import fixed as FX
 
 # A block sweeps at least this many words (or slots) per stripe, so the
 # flush of its private histogram stays small beside the work that filled it.
 MIN_WORDS_PER_BLOCK = 1024
 # The plan caps a block's private histogram so that this many blocks fit in
 # one SM's shared memory: on spread-out bins, at one 224 KB block per SM the
-# row-id kernel took 2-2.5x its time at four 56 KB blocks.
+# row-id kernel took 2-2.5x its time at four 56 KB blocks (float bodies).
 MIN_BLOCKS_PER_SM = 3
-# The privatised kernel's own target: at 8 nodes two blocks of 7 features
-# beat three of 4 and one of 14 on both word sets at 1M and 11M rows
-# (PERF.md §6); at 1 and 32 nodes the targets of two and three give the
-# same plan.
-PRIVATE_BLOCKS_PER_SM = 2
-THREADS = 512  # threads per block
+# Threads per block of the row-id and global kernels, and of #1 where a
+# word holds more than four symbols.
+THREADS = 512
+# The privatised kernel's blocks where a word holds at most four symbols:
+# 1024 threads, one an SM (64 registers a thread fill its registers), so
+# that a block may take the SM's whole shared memory: 32 nodes at 256 bins
+# in one node tile, every word read once. Two 512-thread blocks an SM took
+# two tiles: 0.4909 against 0.3341 ms by events at 32 nodes, Higgs-shaped
+# words (PERF.md §6, tools/private_plans.py). Wider-symbol words keep two
+# 512-thread blocks an SM (PRIVATE_NARROW_BLOCKS_PER_SM).
+PRIVATE_THREADS = 1024
+PRIVATE_BLOCKS_PER_SM = 1
+PRIVATE_NARROW_BLOCKS_PER_SM = 2
+# A stripe of #1 holds at least this many rows per bin that its block
+# flushes (feat_group x node_tile x (max_bins - 1)): at 8 nodes, four
+# waves of 1,894-word stripes took 0.248 ms where one wave of 7,576 took
+# 0.225; at 32 nodes four waves of 13,158 beat one of 50,000 (0.334
+# against 0.421; PERF.md §6).
+FLUSH_ROWS = 2
 # Bytes a (g, h) bin takes in the kernels' private histograms: two int64.
 BIN_BYTES = 16
 DEQUANTISE_THREADS = 256  # threads per block of the conversion pass
@@ -74,24 +97,32 @@ class HistogramPlan(NamedTuple):
     node_tile: int  # nodes per block (grid z = ceil(n_nodes / node_tile))
     feat_group: int  # features per block (grid y)
     words_per_block: int  # packed words (or buffer slots) per stripe (grid x)
-    smem_bytes: int  # a block's private histogram
+    smem_bytes: int  # a block's private histogram and share of the node totals
     blocks_per_sm: int  # blocks whose shared memory and threads fit on one SM
+    threads: int  # threads per block
 
 
+def private_bytes(feat_group: int, node_tile: int, max_bins: int) -> int:
+    """A block's dynamic shared memory: feat_group x node_tile x the
+    max_bins - 1 bins it adds, an int64 (g, h) each, then its share of the
+    node totals (csrc/histogram.cu private_launch_shape)."""
+    return (feat_group * node_tile * (max_bins - 1) + node_tile) * BIN_BYTES
+
+
+# Cached: a plan is host time in every wrapper call (row buffers' sizes vary).
+@functools.lru_cache(maxsize=256)
 def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
                 limits: B.DeviceLimits,
                 blocks_per_sm: int = MIN_BLOCKS_PER_SM,
-                bin_bytes: int = 8) -> HistogramPlan:
+                threads: int = THREADS) -> HistogramPlan:
     """Size a block's private histogram for occupancy: at most an SM's
     shared memory over `blocks_per_sm` (less the per-block reserve), so
     that that many blocks fit; nodes first (the rest go to further node
     tiles on the grid's z axis), then features beside them (feature groups
     on y), each split evenly. The stripes on x make about one wave of
-    resident blocks. The row kernel passes its slot count as `n_words`.
-    A bin takes `bin_bytes`: 8 for a float32 (g, h) pair, the layout the
-    kernels had before the fixed point; the kernels' int64 pairs take
-    BIN_BYTES, which every launch passes."""
-    per_node = max_bins * bin_bytes  # one feature, one node: max_bins (g, h)
+    resident blocks of `threads` threads. The row kernel passes its slot
+    count as `n_words`."""
+    per_node = private_bytes(1, 1, max_bins)  # one feature, one node
     cap = min(limits.smem_block,
               limits.smem_sm // blocks_per_sm - limits.smem_reserved)
     if per_node > cap:  # one node's bins alone: take what one block may use
@@ -99,19 +130,48 @@ def launch_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int,
     if per_node > cap:
         raise ValueError(
             f"max_bins={max_bins} needs {per_node} B of shared memory per "
-            f"node, more than the {cap} B a block may use"
-        )
+            f"node, more than the {cap} B a block may use")
     node_tiles = math.ceil(n_nodes / (cap // per_node))
     node_tile = math.ceil(n_nodes / node_tiles)
-    groups = math.ceil(n_features / (cap // (node_tile * per_node)))
+    per_feature = node_tile * (max_bins - 1) * BIN_BYTES  # its bins at the tile's nodes
+    fit = ((cap - private_bytes(0, node_tile, max_bins)) // per_feature if per_feature
+           else n_features)
+    groups = math.ceil(n_features / max(1, min(fit, n_features)))
     feat_group = math.ceil(n_features / groups)
-    smem = feat_group * node_tile * per_node
+    smem = private_bytes(feat_group, node_tile, max_bins)
     per_sm = min(limits.smem_sm // (smem + limits.smem_reserved),
-                 limits.threads_sm // THREADS)
+                 limits.threads_sm // threads)
     row_blocks = max(1, min(math.ceil(n_words / MIN_WORDS_PER_BLOCK),
                             math.ceil(per_sm * limits.n_sm / (groups * node_tiles))))
     return HistogramPlan(node_tile, feat_group, math.ceil(n_words / row_blocks),
-                         smem, per_sm)
+                         smem, per_sm, threads)
+
+
+@functools.lru_cache(maxsize=256)
+def private_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int, bits: int,
+                 limits: B.DeviceLimits) -> HistogramPlan:
+    """The privatised kernel's plan. Where a word holds at most four symbols:
+    `launch_plan` for one PRIVATE_THREADS block an SM, its stripes then made
+    for four waves of such blocks, or two, or one, the most at which a
+    stripe's rows number at least FLUSH_ROWS times the bins its block
+    flushes. Where a word holds more: two 512-thread blocks an SM."""
+    spw = 32 // bits
+    if spw > 4:
+        return launch_plan(n_words, n_features, n_nodes, max_bins, limits,
+                           PRIVATE_NARROW_BLOCKS_PER_SM)
+    plan = launch_plan(n_words, n_features, n_nodes, max_bins, limits,
+                       PRIVATE_BLOCKS_PER_SM, PRIVATE_THREADS)
+    blocks_a_stripe = (math.ceil(n_features / plan.feat_group)
+                       * math.ceil(n_nodes / plan.node_tile))
+    flushed = plan.feat_group * plan.node_tile * (max_bins - 1)
+    for waves in (4, 2, 1):
+        stripes = max(1, min(math.ceil(n_words / MIN_WORDS_PER_BLOCK),
+                             math.ceil(waves * PRIVATE_BLOCKS_PER_SM * limits.n_sm
+                                       / blocks_a_stripe)))
+        words = math.ceil(n_words / stripes)
+        if words * spw >= FLUSH_ROWS * flushed:
+            break
+    return plan._replace(words_per_block=words)
 
 
 def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
@@ -137,27 +197,47 @@ def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tenso
     return gh.clone() if gh.data_ptr() % 8 else gh
 
 
-def _output(out: torch.Tensor | None, n_nodes: int, f: int, max_bins: int,
-            dev: torch.device) -> torch.Tensor:
-    """The int64 accumulator the kernel adds into: zeros, or the caller's
-    `out` (checked, never zeroed)."""
-    if out is None:
-        return torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.int64, device=dev)
-    B.expect(out, "out", torch.int64, 4)
-    if tuple(out.shape) != (n_nodes, f, max_bins, 2) or out.device != dev:
-        raise ValueError(f"out must be ({n_nodes}, {f}, {max_bins}, 2) int64 on {dev}, "
-                         f"got {tuple(out.shape)} on {out.device}")
-    return out
+def fixed_exponent(gh: torch.Tensor, zero: torch.Tensor | None = None) -> torch.Tensor:
+    """The call's exponent (`fixed.exponent(gh)`, its plain version, bit for
+    bit) for the (n, 2) float32 (g, h) on the card, an int32 0-d tensor there,
+    in one launch that also zeroes `zero` (a contiguous int64 tensor on the
+    same card) when given."""
+    B.expect(gh, "gh", torch.float32, 2)
+    if gh.shape[1] != 2 or gh.data_ptr() % 8:
+        raise ValueError(f"gh must be (N, 2) and 8-byte aligned, got {tuple(gh.shape)}")
+    if zero is not None:
+        B.expect(zero, "zero", torch.int64, zero.ndim)
+        if zero.device != gh.device:
+            raise ValueError(f"zero must be on {gh.device}, got {zero.device}")
+    k = torch.empty((), dtype=torch.int32, device=gh.device)
+    B.launch("rt_fixed_exponent", gh.device, gh.data_ptr(), gh.shape[0], k.data_ptr(),
+             zero.data_ptr() if zero is not None else None,
+             zero.numel() if zero is not None else 0)
+    B.count(fixed_exponent)
+    return k
 
 
-def _exponent(exponent: torch.Tensor | None, gh: torch.Tensor) -> torch.Tensor:
-    """The call's exponent: the caller's (checked), or computed from gh."""
+def _accumulator(out: torch.Tensor | None, exponent: torch.Tensor | None,
+                 gh: torch.Tensor, n_nodes: int, f: int,
+                 max_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the int64 accumulator the kernel adds into, the call's exponent):
+    the caller's `out` (checked, never zeroed) or a new one, zeroed in the
+    exponent kernel's launch when the exponent is computed from gh."""
+    dev = gh.device
+    if exponent is not None:
+        B.expect(exponent, "exponent", torch.int32, 0)
+        if exponent.device != dev:
+            raise ValueError(f"exponent must be on {dev}, got {exponent.device}")
+    if out is not None:
+        B.expect(out, "out", torch.int64, 4)
+        if tuple(out.shape) != (n_nodes, f, max_bins, 2) or out.device != dev:
+            raise ValueError(f"out must be ({n_nodes}, {f}, {max_bins}, 2) int64 on "
+                             f"{dev}, got {tuple(out.shape)} on {out.device}")
+        return out, exponent if exponent is not None else fixed_exponent(gh)
+    acc = torch.empty((n_nodes, f, max_bins, 2), dtype=torch.int64, device=dev)
     if exponent is None:
-        return FX.exponent(gh)
-    B.expect(exponent, "exponent", torch.int32, 0)
-    if exponent.device != gh.device:
-        raise ValueError(f"exponent must be on {gh.device}, got {exponent.device}")
-    return exponent
+        return acc, fixed_exponent(gh, zero=acc)
+    return acc.zero_(), exponent
 
 
 def dequantise_kernel(acc: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
@@ -211,15 +291,13 @@ def build_histograms_packed_kernel(
     if (w * (32 // bits) if held is None else held) < n:
         raise ValueError(f"the packed words hold fewer than {n} rows")
     dev = packed.device
-    k = _exponent(exponent, gh)
-    acc = _output(out, n_nodes, f, max_bins, dev)
+    acc, k = _accumulator(out, exponent, gh, n_nodes, f, max_bins)
     if w > 0 and f > 0:
-        plan = launch_plan(w, f, n_nodes, max_bins, B.device_limits(dev.index),
-                           PRIVATE_BLOCKS_PER_SM, BIN_BYTES)
+        plan = private_plan(w, f, n_nodes, max_bins, bits, B.device_limits(dev.index))
         B.launch("rt_histogram_private", dev,
                  packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), acc.data_ptr(),
                  k.data_ptr(), n, f, w, n_nodes, max_bins, bits, plan.node_tile,
-                 plan.feat_group, plan.words_per_block, plan.blocks_per_sm, THREADS,
+                 plan.feat_group, plan.words_per_block, plan.threads,
                  *_chunk_args(packed, chunk_rows))
         B.count(build_histograms_packed_kernel)
     return acc if out is not None else dequantise_kernel(acc, k)
@@ -251,16 +329,14 @@ def build_histograms_rows_kernel(
     f, w, _ = _words(packed, chunk_rows)
     m = pos_sel.shape[0]
     dev = packed.device
-    k = _exponent(exponent, gh_sel)
-    acc = _output(out, n_nodes, f, max_bins, dev)
+    acc, k = _accumulator(out, exponent, gh_sel, n_nodes, f, max_bins)
     if m > 0 and w > 0 and f > 0:
-        plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index),
-                           bin_bytes=BIN_BYTES)
+        plan = launch_plan(m, f, n_nodes, max_bins, B.device_limits(dev.index))
         B.launch("rt_histogram_rows", dev,
                  packed.data_ptr(), gh_sel.data_ptr(), pos_sel.data_ptr(),
                  row_ids.data_ptr(), acc.data_ptr(), k.data_ptr(), m, f, w, n_nodes,
                  max_bins, bits, plan.node_tile, plan.feat_group, plan.words_per_block,
-                 THREADS, *_chunk_args(packed, chunk_rows))
+                 plan.threads, *_chunk_args(packed, chunk_rows))
         B.count(build_histograms_rows_kernel)
     return acc if out is not None else dequantise_kernel(acc, k)
 
@@ -282,8 +358,7 @@ def histogram_packed(
     if w * (32 // bits) < n:
         raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
     dev = packed.device
-    k = _exponent(exponent, gh)
-    acc = _output(None, n_nodes, f, max_bins, dev)
+    acc, k = _accumulator(None, exponent, gh, n_nodes, f, max_bins)
     if w > 0 and f > 0:
         B.launch("rt_histogram_packed", dev,
                  packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), acc.data_ptr(),
@@ -297,14 +372,48 @@ def occupancy(kind: str, plan: HistogramPlan | None, bits: int) -> int:
     "packed") at `plan`'s shared memory on the current card, as the CUDA
     runtime computes it; `histogram_packed` takes no plan."""
     kernel = ("private", "rows", "packed").index(kind)
-    smem, plan_blocks = (plan.smem_bytes, plan.blocks_per_sm) if plan else (0, 0)
+    smem = plan.smem_bytes if plan else 0
     blocks = ctypes.c_int(0)
-    B.check(B.lib().rt_histogram_occupancy(kernel, bits, THREADS, smem, plan_blocks,
+    threads = plan.threads if plan else THREADS
+    B.check(B.lib().rt_histogram_occupancy(kernel, bits, threads, smem,
                                            ctypes.addressof(blocks)),
             "rt_histogram_occupancy")
     return blocks.value
 
 
+# The kernels `device_kernels` names, by the code the C side gives a node.
+KERNEL_NAMES = {0: "fixed_exponent_kernel", 1: "histogram_private_kernel",
+                2: "histogram_rows_kernel", 3: "histogram_global_kernel",
+                4: "histogram_dequantise_kernel", -1: "another kernel",
+                -2: "not a kernel"}
+
+
+def device_kernels(call, device: torch.device, max_nodes: int = 64) -> list[str]:
+    """What one `call()` puts on `device`'s stream, in launch order, by
+    kernel name (`KERNEL_NAMES`): the call is captured into a CUDA graph
+    that is never launched, so the count is the device's own record, not the
+    wrappers' counters. The call first runs once on the capture's stream,
+    uncaptured, so that the caching allocator holds its buffers there."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    codes = (ctypes.c_int * max_nodes)()
+    n_nodes = ctypes.c_int(0)
+    with torch.cuda.stream(side):
+        call()
+        side.synchronize()
+        B.check(B.lib().rt_capture_begin(side.cuda_stream), "capture_begin")
+        try:
+            call()
+        finally:
+            B.check(B.lib().rt_capture_kernels(side.cuda_stream, ctypes.addressof(codes),
+                                               max_nodes, ctypes.addressof(n_nodes)),
+                    "capture_kernels")
+    if n_nodes.value > max_nodes:
+        raise ValueError(f"the call made {n_nodes.value} device nodes, more than {max_nodes}")
+    return [KERNEL_NAMES[codes[i]] for i in range(n_nodes.value)]
+
+
 build_histograms_packed_kernel.launches = 0
 build_histograms_rows_kernel.launches = 0
 histogram_packed.launches = 0
+fixed_exponent.launches = 0

@@ -30,6 +30,7 @@ from repro_torch.kernels.histogram import (
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
     dequantise_kernel,
+    fixed_exponent,
     histogram_packed,
 )
 from repro_torch.kernels.pairwise import pairwise_grad as pairwise_grad_kernel
@@ -46,6 +47,7 @@ KERNELS = {
     "ensemble_traversal": ensemble_margins_kernel,
     "decompress": decompress,
     "pairwise_grad": pairwise_grad_kernel,
+    "fixed_exponent": fixed_exponent,
 }
 
 
@@ -63,6 +65,14 @@ def fixed_point_histograms(device) -> bool:
     for a CUDA device, false for the CPU. Every histogram op, the dense
     scatter and the running slabs ask this, and nothing else decides."""
     return torch.device(device).type == "cuda"
+
+
+def fixed_point_exponent(gh: torch.Tensor) -> torch.Tensor:
+    """The fixed-point exponent of the (n, 2) (g, h): the exponent kernel
+    on the card (one launch), `fixed.exponent` elsewhere (the same k)."""
+    if gh.is_cuda:
+        return fixed_exponent(gh.contiguous())
+    return FX.exponent(gh)
 
 
 def dequantise(acc: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:

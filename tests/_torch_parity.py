@@ -78,3 +78,17 @@ def replay_uniform(path, shape, device):
 
     u = np.array(jax.random.uniform(jax_key(path), tuple(shape)), dtype=np.float32)
     return torch.from_numpy(u).to(device)
+
+
+# The fixed-point exponent's edge inputs, (n, 2) float32 (g, h): the CPU
+# tests hold the exponent kernel's arithmetic to `fixed.exponent` on them,
+# the card tests the kernel itself.
+EXPONENT_EDGES = {
+    "no_rows": np.zeros((0, 2), np.float32),
+    "one_row": np.array([[0.75, -3.0]], np.float32),
+    "all_zero": np.zeros((1000, 2), np.float32),
+    "subnormal": np.full((17, 2), np.float32(1e-40)) * np.array([1, -1], np.float32),
+    "two_to_127": np.array([[2.0**127, 1.0], [0.0, -1.0]], np.float32),
+    "inf": np.array([[1.0, 2.0], [np.inf, 0.5]], np.float32),
+    "nan": np.array([[1.0, np.nan], [3.0, 0.5]], np.float32),
+}

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import compress as TC
 from repro_torch.core import quantile as TQ
+from repro_torch.kernels import fixed as FX
 from repro_torch.kernels import ops, pairwise, ref
 from repro_torch.kernels.decompress import decompress
 from repro_torch.kernels.ensemble_traversal import ensemble_margins_kernel, pack_nodes
@@ -28,7 +29,7 @@ from repro_torch.kernels.histogram import (
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
 
-from _torch_parity import constrained_split_inputs, tied_split_histogram
+from _torch_parity import EXPONENT_EDGES, constrained_split_inputs, tied_split_histogram
 
 
 @pytest.fixture
@@ -471,7 +472,7 @@ def test_compute_cuts_and_fit_on_card(rng):
     assert ops.launches() == {
         "histogram_private": 3, "histogram_rows": 9, "histogram_packed": 0,
         "split_scan": 12, "quantile_cuts": 1, "ensemble_traversal": 1, "decompress": 0,
-        "pairwise_grad": 0}
+        "pairwise_grad": 0, "fixed_exponent": 12}
     binned = bst.predict_margins(DeviceDMatrix(x, ref=d))
     np.testing.assert_allclose(raw.cpu().numpy(), binned.cpu().numpy(), atol=1e-5)
 
@@ -1236,6 +1237,36 @@ def test_shards_on_two_cards(rng):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
 
 
+@pytest.mark.cuda
+def test_fixed_point_histogram_on_two_cards(rng):
+    """The exponent kernel (a cluster launch) and #1 on each of two cards
+    from shard threads started together, so that cuda:1's first launches
+    come from a thread whose current card was cuda:0: k `torch.equal` to
+    `fixed.exponent` and the histogram to its fixed-point plain version on
+    both cards."""
+    from repro_torch import dist as D
+    from repro_torch.kernels.histogram import fixed_exponent
+
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    packed, gh, pos, bits = _hist_inputs(rng, 4096, 28, 256, 4)
+    gh_t, pos_t = torch.from_numpy(gh), torch.from_numpy(pos)
+    want = ref.histogram_fixed_ref(packed, gh_t, pos_t, 4, 256, bits)
+    mesh = D.make_mesh((2,), ("data",))
+
+    def body(p):
+        dev = mesh.device(p)
+        k = fixed_exponent(gh_t.to(dev)).cpu()
+        return k, build_histograms_packed_kernel(packed.to(dev), gh_t.to(dev),
+                                                 pos_t.to(dev), 4, 256, bits).cpu()
+
+    torch.cuda.set_device(0)
+    for k, got in D.spmd(mesh, body, [0, 1]):
+        assert torch.equal(k, FX.exponent(gh_t))
+        assert torch.equal(got, want)
+
+
 def _feature_sharded_trees(rng, hist_builder=None, ctx=None):
     """Every position's depth-3 tree of a (2, 2) ("data", "model") mesh of
     cuda:0 positions, grown with `grow_tree(feature_axis="model")`, and the
@@ -1557,6 +1588,123 @@ def test_fixed_point_slab_is_one_call_on_card(rng):
     assert torch.equal(TH.finalize_slab_histogram(slab, n_nodes, max_bins, exponent=k),
                        build_histograms_rows_kernel(flat, gh_sel, sel, rid, n_nodes, max_bins,
                                                     bits))
+
+
+def _shaped_words(rng, kind, n, f, max_bins, chunk_rows):
+    """(flat words, chunk stack, bits) of Higgs-shaped (spread), skewed
+    (80% of the symbols in the missing bin) or constant-feature (feature 0
+    all in bin 7) bins."""
+    flat, stack, bits = _chunk_stack(rng, n, f, max_bins, chunk_rows,
+                                     0.8 if kind == "skewed" else 0.0)
+    if kind == "constant":
+        bins = TC.unpack(flat, bits, n)
+        bins[:, 0] = 7
+        flat = TC.pack(bins, bits)
+        for i, s in enumerate(range(0, n, chunk_rows)):
+            words = TC.pack(bins[s:s + chunk_rows], bits)
+            stack[i, :, :words.shape[1]] = words
+    return flat, stack, bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spread", "skewed", "constant"])
+def test_private_kernels_equal_fixed_plain_at_every_level_on_card(rng, kind):
+    """#1 at 1 / 8 / 32 / 64 nodes and the row-id kernel at 1 / 4 / 16
+    parents, flat and chunked, without and with `out=` (an int64 slab
+    holding earlier sums): `torch.equal` to the fixed-point plain versions.
+    The kernels skip the missing bin and derive it from node totals at the
+    flush, which the feature groups of a stripe split between them (28
+    groups of one feature at 32 and 64 nodes and 16 parents)."""
+    dev = _cuda()
+    n, f, max_bins, chunk_rows = 20_011, 28, 256, 4_999
+    flat, stack, bits = (t.to(dev) if torch.is_tensor(t) else t
+                         for t in _shaped_words(rng, kind, n, f, max_bins, chunk_rows))
+    gh = torch.from_numpy(np.stack([rng.normal(size=n) * 3, rng.random(n)], 1)
+                          .astype(np.float32)).to(dev)
+    k = torch.tensor(FX.exponent(gh.cpu()).item(), dtype=torch.int32, device=dev)
+    for n_nodes in (1, 8, 32, 64):
+        pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)
+        pos[rng.random(n) < 0.05] = -1
+        pos = torch.from_numpy(pos).to(dev)
+        a = (gh, pos, n_nodes, max_bins, bits)
+        want = ref.histogram_fixed_ref(flat, *a)
+        assert torch.equal(build_histograms_packed_kernel(flat, *a), want), n_nodes
+        assert torch.equal(build_histograms_packed_kernel(stack, *a, chunk_rows), want), n_nodes
+        slab = torch.randint(-2**40, 2**40, (n_nodes + 1, f, max_bins, 2), device=dev)
+        mine = slab[:n_nodes].clone()
+        ref.histogram_fixed_ref(flat, *a, exponent=k, out=slab)
+        build_histograms_packed_kernel(stack, *a, chunk_rows, out=mine, exponent=k)
+        assert torch.equal(mine, slab[:n_nodes]), n_nodes
+    for n_par in (1, 4, 16):
+        rid = np.sort(rng.choice(n, size=n // 2 - 9, replace=False))
+        rid = torch.from_numpy(np.concatenate([rid, np.full(9, n)]).astype(np.int32)).to(dev)
+        sel = torch.from_numpy(rng.integers(0, n_par + 1, size=n // 2).astype(np.int32))
+        sel = torch.where(rid.cpu() < n, sel, n_par).to(torch.int32).to(dev)
+        r = (gh[rid.long().clamp(max=n - 1)].contiguous(), sel, rid, n_par, max_bins, bits)
+        want = ref.histogram_rows_fixed_ref(flat, *r)
+        assert torch.equal(build_histograms_rows_kernel(flat, *r), want), n_par
+        assert torch.equal(build_histograms_rows_kernel(stack, *r, chunk_rows), want), n_par
+        kr = torch.tensor(FX.exponent(r[0].cpu()).item(), dtype=torch.int32, device=dev)
+        slab = torch.randint(-2**40, 2**40, (n_par + 1, f, max_bins, 2), device=dev)
+        mine = slab[:n_par].clone()
+        ref.histogram_rows_fixed_ref(flat, *r, exponent=kr, out=slab)
+        build_histograms_rows_kernel(flat, *r, out=mine, exponent=kr)
+        assert torch.equal(mine, slab[:n_par]), n_par
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(EXPONENT_EDGES))
+def test_fixed_exponent_kernel_on_card(rng, edge):
+    """The exponent kernel's k `torch.equal` to `fixed.exponent` (its plain
+    version) on the edge inputs, on a large input, and the accumulator it
+    was handed zeroed."""
+    from repro_torch.kernels.histogram import fixed_exponent
+
+    dev = _cuda()
+    for gh in (EXPONENT_EDGES[edge],
+               np.concatenate([rng.normal(size=(300_001, 2)).astype(np.float32),
+                               EXPONENT_EDGES[edge]])):
+        g = torch.from_numpy(np.ascontiguousarray(gh)).to(dev)
+        acc = torch.full((3, 5, 7, 2), -1, dtype=torch.int64, device=dev)
+        k = fixed_exponent(g, zero=acc)
+        assert k.dtype == torch.int32 and k.shape == ()
+        assert torch.equal(k.cpu(), FX.exponent(torch.from_numpy(gh))), edge
+        assert not bool(acc.any())
+        assert torch.equal(fixed_exponent(g).cpu(), k.cpu())
+
+
+@pytest.mark.cuda
+def test_histogram_call_is_three_launches_on_card(rng):
+    """A wrapper call without `out=`: the exponent kernel (which zeroes the
+    accumulator), the histogram kernel, the conversion pass, by the launch
+    counters (one each of the counted two) and by the device's own record
+    (the call captured into a CUDA graph: exactly those three kernel nodes,
+    in that order, and no other node)."""
+    from repro_torch.kernels.histogram import device_kernels, fixed_exponent
+
+    dev = _cuda()
+    n, f, max_bins = 4096, 28, 256
+    flat, _, bits = _chunk_stack(rng, n, f, max_bins, 1000)
+    flat = flat.to(dev)
+    gh = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.integers(0, 5, size=n).astype(np.int32)).to(dev)
+    rid = torch.arange(0, n, 2, dtype=torch.int32, device=dev)
+    gh_sel, pos_sel = gh[::2].contiguous(), pos[::2].contiguous()
+    calls = {"histogram_private_kernel": lambda: build_histograms_packed_kernel(
+                 flat, gh, pos, 4, max_bins, bits),
+             "histogram_rows_kernel": lambda: build_histograms_rows_kernel(
+                 flat, gh_sel, pos_sel, rid, 4, max_bins, bits),
+             "histogram_global_kernel": lambda: histogram_packed(flat, gh, pos, 4, max_bins,
+                                                                 bits)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        assert sum(ops.launches().values()) == 2 and fixed_exponent.launches == 1, name
+        assert device_kernels(call, dev) == [
+            "fixed_exponent_kernel", name, "histogram_dequantise_kernel"], name
 
 
 def _assert_same_fit(a, b) -> None:

@@ -30,6 +30,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import DeviceLimits
 from repro_torch.kernels.histogram import BIN_BYTES, PRIVATE_BLOCKS_PER_SM, launch_plan
 
+from _torch_parity import EXPONENT_EDGES
+
 HIST_TOL = dict(rtol=1e-5, atol=2e-5)
 FIT_TOL = dict(rtol=1e-5, atol=1e-5)
 CHUNKS = (333, 500)
@@ -276,16 +278,246 @@ def test_slab_without_a_pass_exponent_keeps_its_own(rng, fixed_point):
 
 @pytest.mark.parametrize("n_nodes", [1, 8, 32])
 def test_fixed_point_launch_plan(n_nodes):
-    """The wrappers' plan at 16 bytes a bin (two int64) still fits an
-    H100's shared memory at its targets of blocks per SM, at the main
+    """The wrappers' plan (two int64 a bin, max_bins - 1 bins a feature and
+    node, the missing bin never added, and a share of the node totals) fits
+    an H100's shared memory at its targets of blocks per SM, at the main
     path's widths (28 features, 256 bins)."""
     for target in (PRIVATE_BLOCKS_PER_SM, 3):
-        plan = launch_plan(250_000, 28, n_nodes, 256, H100, target, BIN_BYTES)
+        plan = launch_plan(250_000, 28, n_nodes, 256, H100, target)
         share = H100.smem_sm // target - H100.smem_reserved
-        assert plan.smem_bytes == plan.feat_group * plan.node_tile * 256 * BIN_BYTES
+        assert plan.smem_bytes == (plan.feat_group * plan.node_tile * 255
+                                   + plan.node_tile) * BIN_BYTES
         assert plan.smem_bytes <= min(share, H100.smem_block)
         assert plan.blocks_per_sm >= target
         assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_sm
+
+
+# --- the kernels' missing bin: node totals less the other bins --------------------
+#
+# The private kernels never add a symbol of the missing bin (max_bins - 1).
+# Each block adds its other bins and minus their sum into the missing entry
+# of each of its (node, feature)s, and its share of its stripe's node totals
+# into the missing entry of every feature: with one feature group a block
+# sums its whole stripe's totals (T_block - its other bins), with G groups
+# the block of group g sums the rows of its loop's passes p with p % G == g.
+# A plain-torch model of that arithmetic, over rows (or slots) cut into
+# arbitrary blocks, must give the fixed-point plain version's int64
+# accumulator bit for bit.
+
+MISSING_CASES = ["spread", "skewed", "constant_feature", "all_missing_feature",
+                 "empty_node", "ragged_words", "chunk_stack_100003", "running_slab",
+                 "nonfinite"]
+ODD_CHUNK = 100_003  # the smoke's odd chunk size: padding in every chunk
+
+
+def _missing_case(rng, case):
+    """(bins, gh, positions, n_nodes, max_bins, bits) of one case."""
+    n, f, max_bins, n_nodes, skew = 1000, 5, 32, 4, 0.0
+    if case == "skewed":
+        n, f, max_bins, n_nodes, skew = 999, 3, 256, 8, 0.8
+    elif case == "ragged_words":
+        n = 1001  # 5-bit symbols, 6 a word: the last word holds 5 rows
+    elif case == "chunk_stack_100003":
+        n, f = 150_000, 3
+    bins, gh, pos, bits = _inputs(rng, n, f, max_bins, n_nodes, skew)
+    if case == "constant_feature":
+        bins[:, 0] = 7
+    elif case == "all_missing_feature":
+        bins[:, 1] = max_bins - 1
+    elif case == "empty_node":
+        pos[pos == 2] = 3
+    elif case == "nonfinite":
+        gh[17, 0] = np.nan
+    elif case == "running_slab":
+        gh[n // 2:] *= 1000.0  # the second chunk rescales the slab
+    return bins, gh, pos, n_nodes, max_bins, bits
+
+
+def _block_terms(bins, q, node, n_nodes, max_bins, feats, share):
+    """One block's int64 (n_nodes, F, max_bins, 2) contribution: its
+    features' non-missing bins and minus their sum in the missing bin, and
+    the node totals of its `share` of the rows in every feature's missing
+    bin. Rows whose node lies outside [0, n_nodes) count in neither."""
+    f = bins.shape[1]
+    live = (node >= 0) & (node < n_nodes)
+    out = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.int64)
+    b, r = bins[live][:, feats], q[live]
+    hist = torch.zeros((n_nodes * len(feats) * max_bins, 2), dtype=torch.int64)
+    i, c = torch.nonzero(b < max_bins - 1, as_tuple=True)
+    hist.index_add_(0, (node[live][i] * len(feats) + c) * max_bins + b[i, c], r[i])
+    hist = hist.view(n_nodes, len(feats), max_bins, 2)
+    hist[:, :, -1] = -hist[:, :, :-1].sum(2)
+    out[:, feats] = hist
+    mine = live & share
+    total = torch.zeros((n_nodes, 2), dtype=torch.int64).index_add_(0, node[mine], q[mine])
+    out[:, :, -1] += total[:, None]
+    return out
+
+
+def _by_blocks(rng, bins, q, node, n_nodes, max_bins, unit=1, groups=1):
+    """The model's accumulator: the rows cut into random stripes (at
+    multiples of `unit`, a word of symbols; one stripe may be empty), each
+    stripe's rows read by `groups` blocks, one a group of the features; a
+    pass of a block's loop is 7 units of rows."""
+    n, f = bins.shape
+    inner = np.minimum(rng.integers(0, n // unit + 1, 7) * unit, n)
+    cuts = np.sort(np.concatenate([[0, n], inner, inner[:1]]))  # inner[0] twice: empty
+    acc = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.int64)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        passes = torch.arange(hi - lo) // (7 * unit) % groups
+        for g, feats in enumerate(np.array_split(np.arange(f), groups)):
+            acc += _block_terms(bins[lo:hi], q[lo:hi], node[lo:hi], n_nodes, max_bins,
+                                torch.from_numpy(feats), passes == g)
+    return acc
+
+
+def _stack_symbols(stack, bins_t, gh, pos, bits, chunk_rows):
+    """Every symbol of the chunk stack in the privatised kernel's walk
+    order (chunk by chunk, padding included): its bins, and the quantised
+    (g, h) rows and nodes there, padding at node -1."""
+    n_chunks, f, wpc = stack.shape
+    per = wpc * (32 // bits)
+    off = torch.arange(n_chunks * per) % per
+    row = torch.arange(n_chunks * per) // per * chunk_rows + off
+    real = (off < chunk_rows) & (row < bins_t.shape[0])
+    row = torch.where(real, row, 0)
+    sym = torch.cat([TC.unpack(stack[c], bits, per) for c in range(n_chunks)])
+    return sym, row, real
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("case", MISSING_CASES)
+def test_private_kernel_missing_bin_is_totals_less_bins(rng, case, groups):
+    """The privatised kernel's arithmetic: the rows (or, on the chunk stack,
+    its symbols, padding included) cut into arbitrary blocks of whole words,
+    each adding its non-missing bins and its node totals less them, sum to
+    `histogram_fixed_ref`'s int64 accumulator bit for bit, into a fresh or a
+    running slab, and convert to its float32 histogram."""
+    bins, gh, pos, n_nodes, max_bins, bits = _missing_case(rng, case)
+    n, f = bins.shape
+    spw = 32 // bits
+    ghT, posT, bins_t = torch.from_numpy(gh), torch.from_numpy(pos), torch.from_numpy(bins)
+    packed = _pack(bins, bits)
+    k = FX.exponent(ghT)
+    want = torch.zeros((n_nodes + 1, f, max_bins, 2), dtype=torch.int64)
+    ref.histogram_fixed_ref(packed, ghT, posT, n_nodes, max_bins, bits, exponent=k, out=want)
+    want = want[:n_nodes]
+    q = FX.quantise(ghT, k)
+    if case == "running_slab":
+        # Two chunks into one slab given no pass exponent: each at the
+        # slab's own, the slab rescaled before the second.
+        a = torch.zeros((n_nodes + 1, f, max_bins, 2), dtype=torch.int64)
+        b = a.clone()
+        ks = []
+        for lo, hi in ((0, n // 2 // spw * spw), (n // 2 // spw * spw, n)):
+            ka = FX.running_exponent(a, ghT[lo:hi])
+            ref.histogram_fixed_ref(_pack(bins[lo:hi], bits), ghT[lo:hi], posT[lo:hi], n_nodes,
+                                    max_bins, bits, exponent=ka, out=a)
+            kb = FX.running_exponent(b, ghT[lo:hi])
+            assert torch.equal(ka, kb)
+            b[:n_nodes] += _by_blocks(rng, bins_t[lo:hi], FX.quantise(ghT[lo:hi], kb),
+                                      posT[lo:hi].long(), n_nodes, max_bins, spw, groups)
+            ks.append(int(kb))
+        assert ks[1] < ks[0]  # the slab was rescaled for the second chunk
+        assert torch.equal(a[:n_nodes], b[:n_nodes])
+        return
+    if case == "chunk_stack_100003":
+        stack = _stack(bins, bits, ODD_CHUNK)
+        sym, row, real = _stack_symbols(stack, bins_t, ghT, posT, bits, ODD_CHUNK)
+        node = torch.where(real, posT.long()[row], -1)
+        got = _by_blocks(rng, sym, torch.where(real[:, None], q[row], 0), node, n_nodes,
+                         max_bins, spw, groups)
+        assert torch.equal(FX.dequantise(got, k), ref.histogram_chunked_fixed_ref(
+            stack, ghT, posT, n_nodes, max_bins, bits, ODD_CHUNK))
+    else:
+        got = _by_blocks(rng, bins_t, q, posT.long(), n_nodes, max_bins, spw, groups)
+    assert torch.equal(got, want)
+    plain = ref.histogram_fixed_ref(packed, ghT, posT, n_nodes, max_bins, bits)
+    if case == "nonfinite":
+        assert int(k) == FX.NONFINITE and not bool(got.any())
+        assert bool(torch.isnan(FX.dequantise(got, k)).all() and torch.isnan(plain).all())
+    else:
+        assert torch.equal(FX.dequantise(got, k), plain)
+    if case == "empty_node":
+        assert not bool(got[2].any())
+    if case == "all_missing_feature":
+        assert not bool(got[:, 1, :-1].any()) and bool(got[:, 1, -1].any())
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("case", MISSING_CASES)
+def test_rows_kernel_missing_bin_is_totals_less_bins(rng, case, groups):
+    """The row-id kernel's arithmetic: a compacted buffer's slots cut into
+    arbitrary blocks, each adding its slots' non-missing bins and its node
+    totals less them (dump and padding slots in neither), sum to
+    `histogram_rows_fixed_ref`'s int64 accumulator bit for bit, flat or over
+    the chunk stack's global row ids, into a fresh or a running slab."""
+    bins, gh, pos, n_nodes, max_bins, bits = _missing_case(rng, case)
+    n, f = bins.shape
+    ghT, bins_t = torch.from_numpy(gh), torch.from_numpy(bins)
+    rid, sel = _buffer(rng, n, n_nodes, pos)
+    ridT, selT = torch.from_numpy(rid), torch.from_numpy(sel)
+    gh_sel = ghT[np.minimum(rid, n - 1)]
+    if case == "nonfinite":  # a slot's own (g, h), whichever rows were selected
+        gh_sel[5, 1] = np.nan
+    packed = _pack(bins, bits)
+    k = FX.exponent(gh_sel)
+    slot_bins = bins_t[ridT.long().clamp(max=n - 1)]
+    node = torch.where(ridT < n, selT.long(), n_nodes)
+    want = torch.zeros((n_nodes + 1, f, max_bins, 2), dtype=torch.int64)
+    ref.histogram_rows_fixed_ref(packed, gh_sel, selT, ridT, n_nodes, max_bins, bits,
+                                 exponent=k, out=want)
+    want = want[:n_nodes]
+    if case == "running_slab":
+        a = torch.zeros((n_nodes + 1, f, max_bins, 2), dtype=torch.int64)
+        b = a.clone()
+        half = rid.shape[0] // 2
+        for lo, hi in ((0, half), (half, rid.shape[0])):
+            ka = FX.running_exponent(a, gh_sel[lo:hi])
+            ref.histogram_rows_fixed_ref(packed, gh_sel[lo:hi], selT[lo:hi], ridT[lo:hi],
+                                         n_nodes, max_bins, bits, exponent=ka, out=a)
+            kb = FX.running_exponent(b, gh_sel[lo:hi])
+            b[:n_nodes] += _by_blocks(rng, slot_bins[lo:hi], FX.quantise(gh_sel[lo:hi], kb),
+                                      node[lo:hi], n_nodes, max_bins, 1, groups)
+        assert torch.equal(a[:n_nodes], b[:n_nodes])
+        return
+    got = _by_blocks(rng, slot_bins, FX.quantise(gh_sel, k), node, n_nodes, max_bins, 1, groups)
+    assert torch.equal(got, want)
+    plain = ref.histogram_rows_fixed_ref(packed, gh_sel, selT, ridT, n_nodes, max_bins, bits)
+    if case == "chunk_stack_100003":
+        assert torch.equal(plain, ref.histogram_rows_chunked_fixed_ref(
+            _stack(bins, bits, ODD_CHUNK), gh_sel, selT, ridT, n_nodes, max_bins, bits,
+            ODD_CHUNK))
+    if case == "nonfinite":
+        assert int(k) == FX.NONFINITE and not bool(got.any())
+        assert bool(torch.isnan(FX.dequantise(got, k)).all() and torch.isnan(plain).all())
+    else:
+        assert torch.equal(FX.dequantise(got, k), plain)
+
+
+def _exponent_by_bits(gh: torch.Tensor) -> int:
+    """The exponent kernel's arithmetic (csrc/histogram.cu exponent_of) in
+    plain integers: the largest |g| or |h| as the bits of a non-negative
+    float32, frexp's exponent read from those bits, then k."""
+    bits = gh.contiguous().view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    top = int(bits.max()) if bits.numel() else 0
+    if top >= 0x7F800000:
+        return FX.NONFINITE
+    e = 0 if top == 0 else top.bit_length() - 149 if top < 0x00800000 else (top >> 23) - 126
+    n = gh.shape[0]
+    return min(max(62 - ((n - 1).bit_length() if n > 1 else 0) - e, -1022), 1022)
+
+
+@pytest.mark.parametrize("edge", sorted(EXPONENT_EDGES))
+def test_exponent_kernel_contract_is_fixed_exponent(rng, edge):
+    """The exponent kernel's arithmetic on the bits gives `fixed.exponent`
+    (its plain version) on each edge input, alone and beside 300,001 normal
+    rows, whose maximum the edge value may or may not exceed."""
+    for gh in (EXPONENT_EDGES[edge],
+               np.concatenate([rng.normal(size=(300_001, 2)).astype(np.float32),
+                               EXPONENT_EDGES[edge]])):
+        ghT = torch.from_numpy(np.ascontiguousarray(gh))
+        assert _exponent_by_bits(ghT) == int(FX.exponent(ghT)), edge
 
 
 # --- whole fits in the card's arithmetic -------------------------------------------

@@ -53,11 +53,17 @@ from repro_torch.kernels.ensemble_traversal import (
     traversal_plan,
 )
 from repro_torch.kernels.histogram import (
+    BIN_BYTES,
+    FLUSH_ROWS,
     PRIVATE_BLOCKS_PER_SM,
+    PRIVATE_NARROW_BLOCKS_PER_SM,
+    PRIVATE_THREADS,
     build_histograms_packed_kernel,
     build_histograms_rows_kernel,
     histogram_packed,
     launch_plan,
+    private_bytes,
+    private_plan,
 )
 from repro_torch.kernels.quantile_cuts import quantile_cuts_from_sorted
 from repro_torch.kernels.split_scan import split_scan
@@ -455,41 +461,61 @@ def test_wrappers_take_only_cuda_tensors():
 @pytest.mark.parametrize("n_nodes,max_bins", [(1, 256), (8, 256), (32, 256), (200, 256),
                                               (5, 16), (64, 1024)])
 def test_histogram_launch_plan_fits_shared_memory(n_nodes, max_bins):
-    """The plan caps a block's private histogram so that three blocks fit on
-    an SM, and covers every node, feature and word."""
+    """The plan caps a block's private histogram (max_bins - 1 bins a
+    feature and node, 16 bytes a bin, and its share of the node totals) so
+    that three blocks fit on an SM, and covers every node, feature and
+    word."""
     plan = launch_plan(250_000, 28, n_nodes, max_bins, H100)
     cap = H100.smem_sm // 3 - H100.smem_reserved
-    assert plan.smem_bytes == plan.feat_group * plan.node_tile * max_bins * 8  # (g, h) f32
+    assert plan.smem_bytes == private_bytes(plan.feat_group, plan.node_tile, max_bins)
+    assert plan.smem_bytes == (plan.feat_group * plan.node_tile * (max_bins - 1)
+                               + plan.node_tile) * BIN_BYTES
     assert plan.smem_bytes <= cap and plan.blocks_per_sm >= 3
     assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_sm
     assert 1 <= plan.node_tile <= n_nodes and 1 <= plan.feat_group <= 28
-    if n_nodes * max_bins * 8 <= cap:  # one feature at every node fits
+    if private_bytes(1, n_nodes, max_bins) <= cap:  # one feature at every node fits
         assert plan.node_tile == n_nodes
     assert plan.words_per_block * -(-250_000 // plan.words_per_block) >= 250_000
-    if (n_nodes, max_bins) == (32, 256):
-        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (32, 1, 65536)
+    if (n_nodes, max_bins) == (32, 256):  # two node tiles of one feature
+        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (16, 1, 65536)
     if (n_nodes, max_bins) == (1, 256):
-        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (1, 28, 57344)
+        assert (plan.node_tile, plan.feat_group, plan.smem_bytes) == (1, 14, 57136)
 
 
 @pytest.mark.parametrize("n_nodes", [1, 8, 32, 64])
 def test_private_histogram_launch_plan(n_nodes):
     """The privatised kernel's own plan at the main path's widths (28
-    features, 256 bins) fits an H100's shared memory, holds its target of
-    blocks per SM, and gives a block as many of a level's nodes, then
-    features, as its share of an SM holds, split evenly."""
-    plan = launch_plan(250_000, 28, n_nodes, 256, H100, PRIVATE_BLOCKS_PER_SM)
-    per_node = 256 * 8
+    features, 256 bins, 8-bit symbols) fits an H100's shared memory, holds
+    its target of blocks per SM (one of 1024 threads), and gives a block as
+    many of a level's nodes, then features, as its share of an SM holds,
+    split evenly: 32 nodes take one node tile. Its stripes keep at least
+    FLUSH_ROWS rows a flushed bin, or make one wave. Narrower symbols keep
+    two 512-thread blocks an SM."""
+    plan = private_plan(250_000, 28, n_nodes, 256, 8, H100)
+    per_node = private_bytes(1, 1, 256)
     share = H100.smem_sm // PRIVATE_BLOCKS_PER_SM - H100.smem_reserved
-    assert plan.smem_bytes == plan.feat_group * plan.node_tile * per_node
+    assert plan.threads == PRIVATE_THREADS
+    assert plan.smem_bytes == private_bytes(plan.feat_group, plan.node_tile, 256)
     assert plan.smem_bytes <= min(share, H100.smem_block)
     assert plan.blocks_per_sm * (plan.smem_bytes + H100.smem_reserved) <= H100.smem_sm
     assert plan.blocks_per_sm >= PRIVATE_BLOCKS_PER_SM
     assert plan.node_tile == -(-n_nodes // -(-n_nodes // (share // per_node)))
     if plan.feat_group < 28:  # one feature more would not fit the share
-        assert (plan.feat_group + 1) * plan.node_tile * per_node > share
+        assert private_bytes(plan.feat_group + 1, plan.node_tile, 256) > share
+    groups = -(-28 // plan.feat_group)
+    assert -(-28 // groups) == plan.feat_group  # split evenly
+    if groups > 1:  # one group fewer would not fit the share
+        assert private_bytes(-(-28 // (groups - 1)), plan.node_tile, 256) > share
     assert 1 <= plan.node_tile <= n_nodes and 1 <= plan.feat_group <= 28
     assert plan.words_per_block * -(-250_000 // plan.words_per_block) >= 250_000
+    stripes = -(-250_000 // plan.words_per_block)
+    a_stripe = groups * -(-n_nodes // plan.node_tile)
+    assert (plan.words_per_block * 4 >= FLUSH_ROWS * plan.feat_group * plan.node_tile * 255
+            or stripes <= -(-H100.n_sm * PRIVATE_BLOCKS_PER_SM // a_stripe))
+    if n_nodes == 32:
+        assert (plan.node_tile, plan.feat_group) == (32, 1)
+    assert private_plan(250_000, 28, n_nodes, 64, 6, H100) == launch_plan(
+        250_000, 28, n_nodes, 64, H100, PRIVATE_NARROW_BLOCKS_PER_SM)
 
 
 def test_traversal_trees_per_block():

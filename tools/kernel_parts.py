@@ -1,35 +1,55 @@
-"""Time the parts of the privatised histogram's and the split scan's designs.
+"""Time the parts of the two private histogram kernels' design against a
+parent tree's kernels, in one process on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA card:
 
-    python3 tools/kernel_parts.py --parent DIR [--rows N]
+    git archive <parent> | tar -x -C build/parent
+    python3 tools/kernel_parts.py --parent build/parent [--rows N]
 
-DIR is a checkout of an earlier commit to compare with, whose
-`kernels/csrc/histogram.cu` exports `rt_histogram_private` without the
-blocks-per-SM argument and whose `split_scan.cu` exports `rt_split_scan`.
-Prints one JSON line per measurement:
+The parent's `kernels/csrc/histogram.cu` is built into its own library
+(its C entry points take the exponent pointer, the plan's blocks per SM
+and no cluster); its launch plan is read from its own
+`kernels/histogram.py`. On the Higgs-shaped training words and on a copy
+with 80% of the symbols in the missing bin, #1 at 1, 8 and 32 nodes and the
+row-id kernel at 1, 4 and 16 parents (level positions and compacted
+buffers as `chip_smoke.py` makes them), each of these calls, as its
+wrapper makes it (the exponent, the zeroed int64 accumulator, the kernel,
+the conversion pass), is first checked `torch.equal` to the fixed-point
+plain version and then timed by events (L2 flushed before each of 20
+launches) and back to back (100 launches queued behind a sleeping kernel),
+in turns (every variant, then every variant in reverse):
 
-* `histogram`: on the training words of the Higgs-shaped data and on a copy
-  with 80% of the symbols in the missing bin, at 1, 8 and 32 nodes, the mean
-  ms (L2 flushed before each of 20 launches, the variants interleaved) of
-  the earlier kernel under its plan (3 blocks per SM), the shipped kernel
-  through the library (its int64 accumulator zeroed, the kernel, the
-  conversion pass: what its wrapper launches), and `tools/kernel_parts.cu`'s
-  copies of its float-atomic loop (the design before the fixed point) with
-  one part of the design at a time, under the shipped plan:
-  `float` (two float atomicAdds a symbol), `float_lockstep`,
-  `float_lockstep_match`, `pair_cas`, `pair_cas_lockstep`, and
-  `pair_cas_lockstep_match` (the shipped body). Each is first checked exact
-  against the plain version on integer (g, h).
-* `split_scan`: at 1, 8 and 32 nodes x 28 features x 256 bins, device us a
-  launch of 200 launches queued back to back behind a sleeping kernel, for
-  the earlier kernel, the shipped one, the shipped one without lane 0's
-  prefix sums and without the scoring of thresholds, and an empty launch.
+* `parent`: the parent's kernel under the parent's plan, its exponent by
+  `fixed.exponent` (about seven torch launches) and `torch.zeros`;
+* `parent_one_launch_exponent`: the same kernel after this tree's exponent
+  kernel, which zeroes the accumulator too (the one-launch exponent alone);
+* `block_totals`: the design kept in `tools/kernel_parts.cu` without a
+  cluster: the missing bin skipped, each block summing its whole stripe's
+  node totals (as much as one more feature a row) and adding their
+  difference into its own features' missing bins;
+* `tree`: this tree's wrapper: the missing bin skipped, the stripe's node
+  totals split between its feature groups;
+* `other_registers` (the row-id kernel): this tree's kernel under its plan
+  from a copy of `csrc/histogram.cu` with the other register cap, 64
+  (`__launch_bounds__(512, 2)`) in place of 40;
+* `histogram_cluster_2`, `_4`, `_8`: `tools/kernel_parts.cu` with one
+  private histogram spread over a thread-block cluster of that many blocks
+  (one node tile, more features a block, adds to a neighbour's nodes
+  through distributed shared memory); only the sizes up to the level's
+  nodes.
+
+Both designs of `kernel_parts.cu` run under `cluster_plan`, at two
+512-thread blocks an SM (`PARTS_BLOCKS_PER_SM`).
+
+Then the exponent alone on the main (g, h): `fixed.exponent` and
+`torch.zeros` of the root's accumulator against the exponent kernel. Prints
+one JSON line per measurement, and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -47,20 +67,22 @@ from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.kernels import build as KB, ref  # noqa: E402
 from repro_torch.kernels import fixed as FX  # noqa: E402
 from repro_torch.kernels.histogram import (  # noqa: E402
-    BIN_BYTES,
-    PRIVATE_BLOCKS_PER_SM,
+    MIN_BLOCKS_PER_SM,
     THREADS,
+    build_histograms_packed_kernel,
+    build_histograms_rows_kernel,
     dequantise_kernel,
+    fixed_exponent,
     launch_plan,
+    private_plan,
 )
 
 MAX_BINS = 256
 NODES = (1, 8, 32)
+PARENTS = (1, 4, 16)
 SKEW = 0.8
-EARLIER_BLOCKS_PER_SM = 3  # the earlier kernel's plan
-PARTS = {"float": 0, "pair_cas": 1, "float_lockstep": 4, "pair_cas_lockstep": 5,
-         "float_lockstep_match": 6, "pair_cas_lockstep_match": 7}
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PARTS_BLOCKS_PER_SM = 2  # kernel_parts.cu's #1 designs: two 512-thread blocks an SM
+P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def shared_library(sources: list[Path], name: str) -> ctypes.CDLL:
@@ -74,6 +96,42 @@ def shared_library(sources: list[Path], name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+def cluster_plan(n_items: int, f: int, n_nodes: int, limits, blocks_per_sm: int,
+                 cluster: int) -> tuple[int, int, int, int, int]:
+    """(node_tile, feat_group, items_per_block, blocks_per_sm, cluster) of
+    `kernel_parts.cu`'s design: a block holds every cluster-th node of the
+    tile, max_bins - 1 bins a feature and node, its rows' totals at every
+    node of the tile and the cluster's at its own nodes."""
+    def nbytes(fg, tile):
+        per = -(-tile // cluster)
+        return (fg * per * (MAX_BINS - 1) + tile + per) * 16
+    cap = min(limits.smem_block, limits.smem_sm // blocks_per_sm - limits.smem_reserved)
+    tiles = 1
+    while nbytes(1, -(-n_nodes // tiles)) > cap:
+        tiles += 1
+    tile = -(-n_nodes // tiles)
+    most = 1
+    while most < f and nbytes(most + 1, tile) <= cap:
+        most += 1
+    groups = -(-f // most)
+    fg = -(-f // groups)
+    per_sm = min(limits.smem_sm // (nbytes(fg, tile) + limits.smem_reserved),
+                 limits.threads_sm // THREADS)
+    rows = max(1, min(-(-n_items // 1024), -(-per_sm * limits.n_sm // (groups * tiles))))
+    rows = -(-rows // cluster) * cluster
+    return tile, fg, -(-n_items // rows), per_sm, cluster
+
+
+def parent_plan_module(parent: Path):
+    """The parent's `kernels/histogram.py` under its own name, for its
+    `launch_plan` (a function of its arguments alone)."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_histogram", parent / "src" / "repro_torch" / "kernels" / "histogram.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
@@ -83,13 +141,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_parts needs an NVIDIA card")
 
-    csrc = args.parent / "src" / "repro_torch" / "kernels" / "csrc"
-    earlier = shared_library([csrc / "histogram.cu", csrc / "split_scan.cu"], "earlier")
-    parts = shared_library([ROOT / "tools" / "kernel_parts.cu"], "parts")
-    earlier.rt_histogram_private.argtypes = [P] * 4 + [I] * 10 + [P]
-    earlier.rt_split_scan.argtypes = [P, P, P, I, I, I, F, F, P]
-    parts.parts_histogram.argtypes = [I, I] + [P] * 4 + [I] * 8 + [P]
-    parts.parts_split_scan.argtypes = [I, P, P, P, I, I, I, F, F, P]
+    parent = shared_library(
+        [args.parent / "src" / "repro_torch" / "kernels" / "csrc" / "histogram.cu"], "parent")
+    parent.rt_histogram_private.argtypes = [P] * 5 + [I] * 13 + [P]
+    parent.rt_histogram_rows.argtypes = [P] * 6 + [I] * 12 + [P]
+    parent.rt_histogram_dequantise.argtypes = [P] * 3 + [ctypes.c_longlong, I, P]
+    old = parent_plan_module(args.parent)
+    spread = shared_library([ROOT / "tools" / "kernel_parts.cu"], "histogram_cluster")
+    spread.parts_histogram_private.argtypes = [P] * 5 + [I] * 14 + [P]
+    spread.parts_histogram_rows.argtypes = [P] * 6 + [I] * 13 + [P]
+    source = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "histogram.cu").read_text()
+    swaps = (("__launch_bounds__(512, 3) histogram_rows_kernel",
+              "__launch_bounds__(512, 2) histogram_rows_kernel"),)
+    for old_text, new_text in swaps:
+        if old_text not in source:
+            raise SystemExit(f"csrc/histogram.cu no longer has {old_text!r}")
+        source = source.replace(old_text, new_text)
+    copy = ROOT / "build" / "kernel_parts" / "other_registers.cu"
+    copy.parent.mkdir(parents=True, exist_ok=True)
+    copy.write_text(source)
+    other = shared_library([copy], "other_registers")
+    other.rt_histogram_rows.argtypes = [P] * 6 + [I] * 12 + [P]
     lib = KB.lib()
 
     dev = torch.device("cuda", 0)
@@ -99,8 +171,6 @@ def main() -> int:
     dm = DeviceDMatrix(x, label=y, max_bins=MAX_BINS)
     del x, y
     packed, bits, n = dm.matrix.packed, dm.bits, dm.n_rows
-    if bits != 8:
-        raise SystemExit(f"kernel_parts times 8-bit symbols, got {bits}")
     f, w = packed.shape
     dense = unpack(packed, bits, n)
     words = {"higgs": packed,
@@ -109,14 +179,10 @@ def main() -> int:
     del dense
     gh = torch.stack([torch.randn(n, device=dev, generator=gen),
                       torch.rand(n, device=dev, generator=gen)], 1).contiguous()
-    gh_exact = torch.stack([torch.randint(-1, 2, (n,), device=dev, generator=gen).float(),
-                            torch.ones(n, device=dev)], 1).contiguous()
     flush = torch.empty(128 << 18, device=dev)
     limits = KB.device_limits(0)
-    exps = {gh.data_ptr(): FX.exponent(gh), gh_exact.data_ptr(): FX.exponent(gh_exact)}
-    acc = torch.zeros((max(NODES), f, MAX_BINS, 2), dtype=torch.int64, device=dev)
 
-    def mean_ms(fn, iters=20) -> list[float]:
+    def events_ms(fn, iters=20) -> list[float]:
         fn()
         out = []
         for _ in range(iters):
@@ -129,7 +195,7 @@ def main() -> int:
             out.append(s.elapsed_time(e))
         return out
 
-    def back_to_back_us(fn, launches=200) -> float:
+    def back_to_back_ms(fn, launches=100) -> float:
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(50_000_000)
@@ -139,86 +205,164 @@ def main() -> int:
             fn()
         e.record()
         torch.cuda.synchronize()
-        return s.elapsed_time(e) / launches * 1e3
+        return s.elapsed_time(e) / launches
 
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": n,
-                      "shipped_blocks_per_sm": PRIVATE_BLOCKS_PER_SM}), flush=True)
+    def parent_dequantise(acc, k):
+        out = torch.empty(acc.shape, dtype=torch.float32, device=dev)
+        KB.check(parent.rt_histogram_dequantise(acc.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                                acc.numel(), 256, stream), "parent dequantise")
+        return out
+
+    def accumulator(gh_, nn, one_launch):
+        """(zeroed int64 accumulator, exponent) as the parent's wrapper or
+        this tree's makes them."""
+        if one_launch:
+            acc = torch.empty((nn, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
+            return acc, fixed_exponent(gh_, zero=acc)
+        return (torch.zeros((nn, f, MAX_BINS, 2), dtype=torch.int64, device=dev),
+                FX.exponent(gh_))
+
+    def private_call(kind, words_, pos, nn):
+        """#1 through what its wrapper launches, under variant `kind`."""
+        if kind == "tree":
+            return lambda: build_histograms_packed_kernel(words_, gh, pos, nn, MAX_BINS, bits)
+        if kind.startswith("parent"):
+            plan = old.launch_plan(w, f, nn, MAX_BINS, limits, old.PRIVATE_BLOCKS_PER_SM,
+                                   old.BIN_BYTES)
+
+            def run():
+                acc, k = accumulator(gh, nn, kind != "parent")
+                KB.check(parent.rt_histogram_private(
+                    words_.data_ptr(), gh.data_ptr(), pos.data_ptr(), acc.data_ptr(),
+                    k.data_ptr(), n, f, w, nn, MAX_BINS, bits, plan.node_tile,
+                    plan.feat_group, plan.words_per_block, plan.blocks_per_sm, THREADS, 0, 0,
+                    stream), kind)
+                return parent_dequantise(acc, k)
+            return run
+        shape = cluster_plan(w, f, nn, limits, PARTS_BLOCKS_PER_SM,
+                             1 if kind == "block_totals" else int(kind.rsplit("_", 1)[1]))
+        fn = spread.parts_histogram_private
+
+        def run():
+            acc, k = accumulator(gh, nn, True)
+            KB.check(fn(words_.data_ptr(), gh.data_ptr(), pos.data_ptr(), acc.data_ptr(),
+                        k.data_ptr(), n, f, w, nn, MAX_BINS, bits, *shape, THREADS, 0, 0,
+                        stream), kind)
+            return dequantise_kernel(acc, k)
+        return run
+
+    def rows_call(kind, words_, gh_sel, pos, rid, npar):
+        """The row-id kernel through what its wrapper launches."""
+        m = rid.shape[0]
+        if kind == "tree":
+            return lambda: build_histograms_rows_kernel(words_, gh_sel, pos, rid, npar,
+                                                        MAX_BINS, bits)
+        if kind == "other_registers":
+            plan = launch_plan(m, f, npar, MAX_BINS, limits)
+
+            def run_other():
+                acc, k = accumulator(gh_sel, npar, True)
+                KB.check(other.rt_histogram_rows(
+                    words_.data_ptr(), gh_sel.data_ptr(), pos.data_ptr(), rid.data_ptr(),
+                    acc.data_ptr(), k.data_ptr(), m, f, w, npar, MAX_BINS, bits,
+                    plan.node_tile, plan.feat_group, plan.words_per_block, THREADS, 0, 0,
+                    stream), kind)
+                return dequantise_kernel(acc, k)
+            return run_other
+        if kind.startswith("parent"):
+            plan = old.launch_plan(m, f, npar, MAX_BINS, limits, bin_bytes=old.BIN_BYTES)
+
+            def run():
+                acc, k = accumulator(gh_sel, npar, kind != "parent")
+                KB.check(parent.rt_histogram_rows(
+                    words_.data_ptr(), gh_sel.data_ptr(), pos.data_ptr(), rid.data_ptr(),
+                    acc.data_ptr(), k.data_ptr(), m, f, w, npar, MAX_BINS, bits,
+                    plan.node_tile, plan.feat_group, plan.words_per_block, THREADS, 0, 0,
+                    stream), kind)
+                return parent_dequantise(acc, k)
+            return run
+        shape = cluster_plan(m, f, npar, limits, MIN_BLOCKS_PER_SM,
+                             1 if kind == "block_totals" else int(kind.rsplit("_", 1)[1]))
+        shape = (*shape[:3], shape[4])
+        fn = spread.parts_histogram_rows
+
+        def run():
+            acc, k = accumulator(gh_sel, npar, True)
+            KB.check(fn(words_.data_ptr(), gh_sel.data_ptr(), pos.data_ptr(), rid.data_ptr(),
+                        acc.data_ptr(), k.data_ptr(), m, f, w, npar, MAX_BINS, bits, *shape,
+                        THREADS, 0, 0, stream), kind)
+            return dequantise_kernel(acc, k)
+        return run
+
+    def measure(label: dict, calls: dict, want: torch.Tensor, plans: dict) -> None:
+        for kind, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()  # a fault shows at its own variant
+            if not torch.equal(got, want):
+                raise SystemExit(f"{kind} is not the fixed-point plain version's bits: {label}")
+        ev = {k: [] for k in calls}
+        b2b = {k: [] for k in calls}
+        for kind in list(calls) + list(calls)[::-1]:
+            ev[kind] += events_ms(calls[kind])
+            b2b[kind].append(back_to_back_ms(calls[kind]))
+        print(json.dumps({**label, "plans": plans,
+                          "events_ms": {k: statistics.mean(v) for k, v in ev.items()},
+                          "back_to_back_ms": {k: statistics.mean(v) for k, v in b2b.items()}}),
+              flush=True)
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": n, "features": f,
+                      "bits": bits}), flush=True)
     for data, wd in words.items():
         for nn in NODES:
-            pos = torch.randint(0, nn, (n,), device=dev, generator=gen, dtype=torch.int32)
-            pos = torch.where(torch.rand(n, device=dev, generator=gen) < 0.05, nn, pos)
+            pos = torch.randint(0, nn + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+            pos = torch.where(torch.rand(n, device=dev, generator=gen) < 0.05, -1, pos)
             pos = pos.to(torch.int32).contiguous()
-            plan = launch_plan(w, f, nn, MAX_BINS, limits, PRIVATE_BLOCKS_PER_SM, BIN_BYTES)
-            # the float-atomic copies' plan: 8 bytes a bin
-            float_plan = launch_plan(w, f, nn, MAX_BINS, limits, PRIVATE_BLOCKS_PER_SM)
-            old = launch_plan(w, f, nn, MAX_BINS, limits, EARLIER_BLOCKS_PER_SM)
-            ptrs = (wd.data_ptr(),)
+            kinds = ["parent", "parent_one_launch_exponent", "block_totals", "tree",
+                     *(f"histogram_cluster_{c}" for c in (2, 4, 8) if c <= nn)]
+            plans = {"parent": list(old.launch_plan(w, f, nn, MAX_BINS, limits,
+                                                    old.PRIVATE_BLOCKS_PER_SM, old.BIN_BYTES)),
+                     "block_totals": list(cluster_plan(w, f, nn, limits,
+                                                       PARTS_BLOCKS_PER_SM, 1)),
+                     "tree": list(private_plan(w, f, nn, MAX_BINS, bits, limits)),
+                     **{f"histogram_cluster_{c}": list(cluster_plan(
+                         w, f, nn, limits, PARTS_BLOCKS_PER_SM, c))
+                        for c in (2, 4, 8) if c <= nn}}
+            measure({"kernel": "histogram_private", "data": data, "n_nodes": nn},
+                    {k: private_call(k, wd, pos, nn) for k in kinds},
+                    ref.histogram_fixed_ref(wd, gh, pos, nn, MAX_BINS, bits), plans)
+        for npar in PARENTS:
+            m = n // 2
+            rid = torch.nonzero(torch.rand(n, device=dev, generator=gen) < 0.45)[:m, 0]
+            k_ = rid.shape[0]
+            rid = torch.cat([rid, torch.full((m - k_,), n, device=dev, dtype=rid.dtype)])
+            pos = torch.randint(0, npar, (m,), device=dev, generator=gen, dtype=torch.int32)
+            dump = torch.rand(m, device=dev, generator=gen) < 0.05
+            pos = torch.where(dump | (torch.arange(m, device=dev) >= k_), npar, pos)
+            rid, pos = rid.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous()
+            gh_sel = gh[rid.to(torch.int64).clamp(max=n - 1)].contiguous()
+            kinds = ["parent", "parent_one_launch_exponent", "block_totals", "tree",
+                     "other_registers",
+                     *(f"histogram_cluster_{c}" for c in (2, 4, 8) if c <= npar)]
+            plans = {"parent": list(old.launch_plan(m, f, npar, MAX_BINS, limits,
+                                                    bin_bytes=old.BIN_BYTES)),
+                     "block_totals": list(cluster_plan(m, f, npar, limits,
+                                                       MIN_BLOCKS_PER_SM, 1)),
+                     "tree": list(launch_plan(m, f, npar, MAX_BINS, limits)),
+                     **{f"histogram_cluster_{c}": list(cluster_plan(
+                         m, f, npar, limits, MIN_BLOCKS_PER_SM, c))
+                        for c in (2, 4, 8) if c <= npar}}
+            measure({"kernel": "histogram_rows", "data": data, "n_parents": npar},
+                    {k: rows_call(k, wd, gh_sel, pos, rid, npar) for k in kinds},
+                    ref.histogram_rows_fixed_ref(wd, gh_sel, pos, rid, npar, MAX_BINS, bits),
+                    plans)
 
-            def run(kind, g, o):
-                if kind == "earlier":
-                    return earlier.rt_histogram_private(
-                        *ptrs, g.data_ptr(), pos.data_ptr(), o.data_ptr(), n, f, w, nn,
-                        MAX_BINS, bits, old.node_tile, old.feat_group, old.words_per_block,
-                        THREADS, stream)
-                if kind == "shipped":
-                    a = acc[:nn].zero_()
-                    err = lib.rt_histogram_private(
-                        *ptrs, g.data_ptr(), pos.data_ptr(), a.data_ptr(),
-                        exps[g.data_ptr()].data_ptr(), n, f, w, nn, MAX_BINS, bits,
-                        plan.node_tile, plan.feat_group, plan.words_per_block,
-                        plan.blocks_per_sm, THREADS, 0, 0, stream)
-                    o.copy_(dequantise_kernel(a, exps[g.data_ptr()]))
-                    return err
-                return parts.parts_histogram(
-                    PARTS[kind], float_plan.blocks_per_sm, *ptrs, g.data_ptr(),
-                    pos.data_ptr(), o.data_ptr(), n, f, w, nn, MAX_BINS,
-                    float_plan.node_tile, float_plan.feat_group,
-                    float_plan.words_per_block, stream)
-
-            kinds = ["earlier", "shipped", *PARTS]
-            want = ref.histogram_ref(wd, gh_exact, pos, nn, MAX_BINS, bits)
-            out = torch.zeros((nn, f, MAX_BINS, 2), device=dev)
-            for kind in kinds:
-                out.zero_()
-                KB.check(run(kind, gh_exact, out), kind)
-                torch.cuda.synchronize()
-                if not torch.equal(out, want):
-                    raise SystemExit(f"{kind} disagrees with the plain version at {nn} nodes "
-                                     f"on the {data} words")
-            times = {k: [] for k in kinds}
-            for kind in kinds + kinds[::-1]:
-                times[kind] += mean_ms(lambda: run(kind, gh, out))
-            print(json.dumps({"histogram": data, "n_nodes": nn,
-                              "plan": [plan.node_tile, plan.feat_group, plan.smem_bytes,
-                                       plan.blocks_per_sm],
-                              "ms": {k: statistics.mean(v) for k, v in times.items()}}),
-                  flush=True)
-
-    for nn in NODES:
-        pos = torch.randint(0, nn, (n,), device=dev, generator=gen, dtype=torch.int32)
-        hist = ref.histogram_ref(words["higgs"], gh, pos, nn, MAX_BINS, bits).contiguous()
-        parent = hist[:, 0].sum(dim=1).contiguous()
-        want = ref.split_scan_ref(hist, parent, 1.0, 1.0)
-        out = torch.empty((nn, f, 5), device=dev)
-        args_ = (hist.data_ptr(), parent.data_ptr(), out.data_ptr(), nn, f, MAX_BINS, 1.0, 1.0,
-                 stream)
-        kinds = {"earlier": lambda: earlier.rt_split_scan(*args_),
-                 "shipped": lambda: lib.rt_split_scan(*args_),
-                 "without_prefix_sums": lambda: parts.parts_split_scan(1, *args_),
-                 "without_scoring": lambda: parts.parts_split_scan(2, *args_),
-                 "empty_launch": lambda: lib.rt_empty_launch(stream)}
-        for kind in ("earlier", "shipped"):
-            out.zero_()
-            KB.check(kinds[kind](), kind)
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                raise SystemExit(f"split scan {kind} is not bit-identical at {nn} nodes")
-        us = {k: [] for k in kinds}
-        for kind in list(kinds) + list(kinds)[::-1]:
-            us[kind].append(back_to_back_us(kinds[kind]))
-        print(json.dumps({"split_scan": [nn, f, MAX_BINS],
-                          "us_per_launch": {k: statistics.mean(v) for k, v in us.items()}}),
-              flush=True)
+    root = torch.empty((1, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
+    calls = {"fixed_exponent_and_zeros": lambda: (FX.exponent(gh), root.zero_()),
+             "exponent_kernel": lambda: fixed_exponent(gh, zero=root)}
+    print(json.dumps({"exponent": [n, 2],
+                      "events_ms": {k: statistics.mean(events_ms(v)) for k, v in calls.items()},
+                      "back_to_back_ms": {k: back_to_back_ms(v) for k, v in calls.items()}}),
+          flush=True)
     print(json.dumps({"nvidia_smi": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}))
