@@ -295,9 +295,11 @@ Phases, each printing one JSON line:
                 tensors). Gates: no record is an error, the skips are the
                 reference's (LM_DRYRUN_SKIPS); the largest argument_bytes
                 that fits the card is allocated for real (a position's local
-                parameters, AdamW state and batch) and
-                `torch.cuda.memory_allocated()` grows by the record's bytes
-                within the caching allocator's 512-byte rounding a tensor.
+                parameters, AdamW state and batch) and the bytes its tensors
+                request (`memory_stats()["requested_bytes.all.current"]`)
+                grow by the record's bytes plus less than 512 a tensor
+                (`memory_allocated()`'s growth, which depends on the caching
+                allocator's history, is read beside it).
                 One line a record (per-device argument and peak bytes, the
                 roofline terms, the ops that fell back). Reading: the
                 partition model's peak for the `lm` phase's training step
@@ -353,7 +355,14 @@ Phases, each printing one JSON line:
                 privatised kernel also under the plans of 1, 2 and 3 blocks
                 per SM (1: a block fills its opt-in shared memory, as the
                 earlier fill plan did), on both word sets, the wrapper's own
-                plan marked; the split scan at 1, 8 and 32 nodes beside an empty
+                plan marked; `histogram_packed` (the cluster kernel) by
+                events and back to back at 1, 8 and 32 nodes on both word
+                sets beside #1 and `scatter_add_`, with its plan (node tile,
+                feature group, cluster size, words a block, shared bytes)
+                and the blocks per SM and clusters the runtime allows it;
+                #1, the cluster kernel and `scatter_add_` in
+                ALTERNATING_ROUNDS turns at 32 nodes on both word sets;
+                the split scan at 1, 8 and 32 nodes beside an empty
                 launch on the same stream, each also as device time per launch
                 of 100 launches queued back to back, and its constrained and
                 masked (half the (node, feature) problems) variants beside it;
@@ -412,7 +421,7 @@ HELD_OUT = 100_000
 ROUNDS, DEPTH, MAX_BINS = 10, 6, 256
 HIST_NODES = (1, 8, 32)  # full-level histograms checked: levels 0, 3 and 5
 ROW_PARENTS = (1, 4, 16)  # row-id histograms checked: parents of levels 1, 3, 5
-ALTERNATING_ROUNDS = 5  # #1 at 32 nodes and scatter_add_, timed in turns
+ALTERNATING_ROUNDS = 5  # #1, histogram_packed and scatter_add_ at 32 nodes, in turns
 FIT_PAIRS = 5  # host times vary between fits: the median of five pairs
 L2_FLUSH_BYTES = 128 << 20  # more than the 50 MB L2, written between timed launches
 SKEW = 0.8  # share of the skewed words' symbols moved to the missing bin
@@ -868,10 +877,16 @@ def lm_dryrun_phase(dev, train_peak_gib: float) -> None:
     want = big["memory_analysis"]["argument_bytes"]
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
+    # The gate reads the bytes the tensors requested, which the allocator's
+    # history does not change; `memory_allocated()` (its blocks, which a
+    # cached block may serve whole) is read beside it.
+    requested = "requested_bytes.all.current"
     base = torch.cuda.memory_allocated(dev)
+    base_req = torch.cuda.memory_stats(dev)[requested]
     local = LD.local_arguments(structs, specs, mesh, dev, read)
     grew = torch.cuda.memory_allocated(dev) - base
-    alloc_ok = 0 <= grew - want < 512 * len(local)
+    grew_req = torch.cuda.memory_stats(dev)[requested] - base_req
+    alloc_ok = 0 <= grew_req - want < 512 * len(local)
     n_local = len(local)
     del local
     torch.cuda.empty_cache()
@@ -890,8 +905,9 @@ def lm_dryrun_phase(dev, train_peak_gib: float) -> None:
             "trace_s": {f"{r['arch']}:{r['shape']}:{r['mesh']}": r["trace_s"] for r in ok},
             "fallback_ops": sorted({k for r in ok for k in r["partition"]["fallback_ops"]}),
             "allocated": {"arch": big["arch"], "shape": big["shape"], "mesh": big["mesh"],
-                          "record_bytes": want, "memory_allocated_grew": grew,
-                          "tensors": n_local, "within_rounding": alloc_ok},
+                          "record_bytes": want, "requested_bytes_grew": grew_req,
+                          "memory_allocated_grew": grew, "tensors": n_local,
+                          "within_rounding": alloc_ok},
             "train_peak_estimate_gib": est / 2**30, "train_peak_card_gib": train_peak_gib,
             "nvidia_smi": smi}
     emit(line)
@@ -971,6 +987,51 @@ def path_launches(use_kernel_histograms: bool = False, dense: bool = False) -> d
     if dense and not use_kernel_histograms:
         full = rows = 0
     return {"histogram_private": full, "histogram_rows": rows, "split_scan": ROUNDS * DEPTH}
+
+
+def time_ms(fn, dev, flush, iters=20, warmup=3) -> float:
+    """Mean CUDA-event ms of one `fn()` on card `dev` over `iters` calls,
+    after `warmup` untimed ones; before each timed call the `flush` buffer
+    (larger than the 50 MB L2) is zeroed, so every call finds the L2 cold,
+    as a kernel does in a fit."""
+    import torch
+
+    with torch.cuda.device(dev):
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        for _ in range(iters):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize(dev)
+            total += s.elapsed_time(e)
+    return total / iters
+
+
+def back_to_back_ms(fn, dev, launches=100) -> float:
+    """Device ms per call of `launches` calls of `fn()` on card `dev` queued
+    behind a sleeping kernel, so that no host time falls between them: for
+    kernels of a few microseconds, whose single-launch event times are
+    mostly the host's. Inputs stay in L2, as a level's histogram does in a
+    fit."""
+    import torch
+
+    with torch.cuda.device(dev):
+        fn()
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(50_000_000)  # ~25 ms of device time to queue behind
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(launches):
+            fn()
+        e.record()
+        torch.cuda.synchronize(dev)
+    return s.elapsed_time(e) / launches
 
 
 def count_syncs(fn) -> int:
@@ -1203,6 +1264,7 @@ def main() -> int:
         histogram_packed,
         launch_plan,
         occupancy,
+        packed_plan,
         private_plan,
     )
     from repro_torch.kernels import pairwise as KP
@@ -2884,49 +2946,24 @@ def main() -> int:
     want_hp = ref.histogram_packed_ref(packed, gh, levels[32], 32, MAX_BINS, bits)
     hp_ok = bool(((hp - want_hp).abs() <= counts_and_tolerance(
         ref.histogram_packed_ref, packed, gh, levels[32], 32, MAX_BINS, bits)).all())
+    hp_fixed = bool(torch.equal(hp, ref.histogram_packed_fixed_ref(
+        packed, gh, levels[32], 32, MAX_BINS, bits)))
     bins_exact = bool(torch.equal(bins, dense))
     unpack_exact = bool(torch.equal(bins_unpacked, dense))
     emit({"phase": "ops", "launches": ops_launches, "histogram_packed_op_ok": hp_ok,
+          "histogram_packed_op_fixed_plain_bit_for_bit": hp_fixed,
           "decompress_op_exact": bins_exact, "matrix_unpack_exact": unpack_exact,
           "bins_shape": list(bins.shape)})
     expect_launches("ops path", ops_launches, {"histogram_packed": 1, "decompress": 2})
-    if not (hp_ok and bins_exact and unpack_exact) or bins.shape != (n, f):
+    if not (hp_ok and hp_fixed and bins_exact and unpack_exact) or bins.shape != (n, f):
         raise SystemExit("the ops path's histogram or bins disagree with the plain versions")
     del bins, bins_unpacked
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
-    def time_ms(fn, iters=20, warmup=3) -> float:
-        for _ in range(warmup):
-            fn()
-        total = 0.0
-        for _ in range(iters):
-            flush.zero_()  # each launch finds the L2 cold, as in a fit
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            torch.cuda.synchronize()
-            total += s.elapsed_time(e)
-        return total / iters
-
-    def back_to_back_ms(fn, launches=100) -> float:
-        """Device ms per launch of `launches` launches queued behind a sleeping
-        kernel, so that no host time falls between them: for kernels of a few
-        microseconds, whose single-launch event times are mostly the host's.
-        Inputs stay in L2, as a level's histogram does in a fit."""
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(50_000_000)  # ~25 ms of device time to queue behind
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(launches):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / launches
+    # The module's timers, bound to this card and its L2 flush buffer.
+    event_ms = functools.partial(time_ms, dev=dev, flush=flush)
+    queued_ms = functools.partial(back_to_back_ms, dev=dev)
 
     def random_ensemble(n_trees: int, depth: int, n_features: int, g, leaf_share=0.2):
         """Random complete arenas: `leaf_share` of the nodes leaves, the last
@@ -3073,11 +3110,13 @@ def main() -> int:
         "tolerance": "bit for bit (an int32); the accumulator zeroed", "inputs": exp_checked}
     if any(r["k"] != r["plain_k"] or not r["zeroed"] for r in exp_checked):
         raise SystemExit(f"the exponent kernel disagrees with fixed.exponent: {exp_checked}")
-    # A wrapper call without out=: three launches (the exponent with the
-    # zeroing, the histogram, the conversion), by the counters (the exponent
-    # kernel and the histogram kernel once each) and by the device's own
-    # record: the call captured into a CUDA graph, never launched, holds
-    # exactly those three kernel nodes in that order and no other node.
+    # A private kernel's call without out=: three launches (the exponent
+    # with the zeroing, the histogram, the conversion); a histogram_packed
+    # call: two (the exponent, the cluster kernel, which converts as it
+    # stores). By the counters (the exponent kernel and the histogram kernel
+    # once each) and by the device's own record: the call captured into a
+    # CUDA graph, never launched, holds exactly those kernel nodes in that
+    # order and no other node.
     three = {}
     rid1, pos1 = buffers[1]
     gh1 = gh[rid1.to(torch.int64).clamp(max=n - 1)].contiguous()
@@ -3086,7 +3125,7 @@ def main() -> int:
              lambda: build_histograms_packed_kernel(packed, gh, levels[8], 8, MAX_BINS, bits)),
             ("histogram_rows_kernel", "histogram_rows",
              lambda: build_histograms_rows_kernel(packed, gh1, pos1, rid1, 1, MAX_BINS, bits)),
-            ("histogram_global_kernel", "histogram_packed",
+            ("histogram_cluster_kernel", "histogram_packed",
              lambda: histogram_packed(packed, gh, levels[8], 8, MAX_BINS, bits))):
         call()
         torch.cuda.synchronize()
@@ -3097,10 +3136,12 @@ def main() -> int:
         three[name_c] = {"counted": {k: after[k] - before[k] for k in after
                                      if after[k] != before[k]},
                          "device_kernels": device_kernels(call, dev)}
+        want_kernels = ["fixed_exponent_kernel", name_c]
+        if counter != "histogram_packed":
+            want_kernels.append("histogram_dequantise_kernel")
         if three[name_c]["counted"] != {"fixed_exponent": 1, counter: 1} or \
-                three[name_c]["device_kernels"] != ["fixed_exponent_kernel", name_c,
-                                                    "histogram_dequantise_kernel"]:
-            raise SystemExit(f"a histogram call is not three launches: {three[name_c]}")
+                three[name_c]["device_kernels"] != want_kernels:
+            raise SystemExit(f"a histogram call is not {want_kernels}: {three[name_c]}")
     results["launches_a_call"] = three
     # Two chunk updates into one int64 slab at the pass's exponent (the
     # streamed path's unit) against one call over the same rows, for both
@@ -3442,6 +3483,16 @@ def main() -> int:
                 "blocks_per_sm_by_smem": plan.blocks_per_sm,
                 "blocks_per_sm_occupancy": occupancy(kind, plan, bits)}
 
+    def packed_reading(nodes: int) -> dict:
+        """The cluster kernel's plan, its blocks, and the resident blocks per
+        SM and clusters on the card that the CUDA runtime allows it."""
+        plan = packed_plan(w, f, nodes, MAX_BINS, bits, limits)
+        return {**plan._asdict(),
+                "blocks": (-(-nodes // plan.node_tile) * -(-f // plan.feat_group)
+                           * plan.cluster),
+                "blocks_per_sm_occupancy": occupancy("packed", plan, bits),
+                "clusters_occupancy": occupancy("packed", plan, bits, clusters=True)}
+
     def private_at(plan, words_, gh_, pos, nn):
         """#1 under `plan` (a `HistogramPlan`), through the library itself,
         with what its wrapper adds (the exponent, the zeroed int64
@@ -3484,28 +3535,29 @@ def main() -> int:
                 if not torch.equal(private_at(plan_p, words_, gh_exact, pos, nn), want_exact):
                     raise SystemExit(f"histogram_private under plan {name_p} disagrees at "
                                      f"{nn} nodes on {data}")
-                plan_ms[plan_p] = time_ms(lambda: private_at(plan_p, words_, gh, pos, nn))
+                plan_ms[plan_p] = event_ms(lambda: private_at(plan_p, words_, gh, pos, nn))
             del want_exact
             row = {
                 "n_nodes": nn, "data": data,
-                "private_ms": time_ms(lambda: build_histograms_packed_kernel(*hargs)),
+                "private_ms": event_ms(lambda: build_histograms_packed_kernel(*hargs)),
                 "private_plan": "shipped",
-                "private_back_to_back_ms": back_to_back_ms(
+                "private_back_to_back_ms": queued_ms(
                     lambda: build_histograms_packed_kernel(*hargs)),
                 "private_plans": {k: {"plan": [v.node_tile, v.feat_group, v.words_per_block,
                                                v.smem_bytes, v.threads],
                                       "ms": plan_ms[v]} for k, v in plans.items()},
-                "packed_ms": time_ms(lambda: histogram_packed(*hargs)),
-                "library_ms": time_ms(library_scatter(dense_, pos, gh, nn), iters=5),
+                "packed_ms": event_ms(lambda: histogram_packed(*hargs)),
+                "packed_back_to_back_ms": queued_ms(lambda: histogram_packed(*hargs)),
+                "library_ms": event_ms(library_scatter(dense_, pos, gh, nn), iters=5),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             if data == "higgs":
                 row.update(
-                    private_zero_gh_ms=time_ms(lambda: build_histograms_packed_kernel(
+                    private_zero_gh_ms=event_ms(lambda: build_histograms_packed_kernel(
                         packed, zero_gh, pos, nn, MAX_BINS, bits)),
-                    plain_ms=time_ms(lambda: ref.histogram_ref(*hargs), iters=5),
+                    plain_ms=event_ms(lambda: ref.histogram_ref(*hargs), iters=5),
                     plan=plan_reading("private", w, nn),
-                    packed_blocks_per_sm_occupancy=occupancy("packed", None, bits))
+                    packed_plan=packed_reading(nn))
             hist_rows.append(row)
 
         for npar in ROW_PARENTS:
@@ -3522,14 +3574,14 @@ def main() -> int:
             row = {
                 "n_parents": npar, "data": data, "slots": m, "valid_slots": int(valid.sum()),
                 "words_touched": n_words_touched,
-                "ms": time_ms(lambda: build_histograms_rows_kernel(*rargs)),
-                "back_to_back_ms": back_to_back_ms(lambda: build_histograms_rows_kernel(*rargs)),
-                "library_ms": time_ms(library_scatter(
+                "ms": event_ms(lambda: build_histograms_rows_kernel(*rargs)),
+                "back_to_back_ms": queued_ms(lambda: build_histograms_rows_kernel(*rargs)),
+                "library_ms": event_ms(library_scatter(
                     dense_[rid.to(torch.int64).clamp(max=n - 1)], pos, gh_sel, npar), iters=5),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             if data == "higgs":
-                row["plain_ms"] = time_ms(lambda: ref.histogram_rows_ref(*rargs), iters=5)
+                row["plain_ms"] = event_ms(lambda: ref.histogram_rows_ref(*rargs), iters=5)
                 row["plan"] = plan_reading("rows", m, npar)
             if data == "higgs" and npar == ROW_PARENTS[-1]:
                 # The same slots in a random order: what the buffer's row order
@@ -3537,28 +3589,31 @@ def main() -> int:
                 perm = torch.randperm(m, device=dev, generator=gen)
                 shuffled = (packed, gh_sel[perm].contiguous(), pos[perm].contiguous(),
                             rid[perm].contiguous(), npar, MAX_BINS, bits)
-                row["shuffled_slots_ms"] = time_ms(
+                row["shuffled_slots_ms"] = event_ms(
                     lambda: build_histograms_rows_kernel(*shuffled))
             rows_rows.append(row)
         del dense_
     emit({"phase": "time", "histogram_levels": hist_rows})
     emit({"phase": "time", "histogram_rows_levels": rows_rows})
-    # #1 at 32 nodes, where it sits closest to one scatter_add_: the two
-    # alternating in this call, ALTERNATING_ROUNDS rounds of 20 events each,
-    # so that the verdict is not one reading's.
+    # #1 and the cluster kernel at 32 nodes, where they sit closest to one
+    # scatter_add_: the three in turns in this call, ALTERNATING_ROUNDS
+    # rounds of 20 events each, so that the verdict is not one reading's.
     alternating = []
     for words_, data in ((packed, "higgs"), (skewed, "skewed")):
         dense_ = dense if data == "higgs" else unpack(words_, bits, n)
         hargs = (words_, gh, levels[32], 32, MAX_BINS, bits)
         library = library_scatter(dense_, levels[32], gh, 32)
-        tree_ms, lib_ms = [], []
+        tree_ms, packed_ms, lib_ms = [], [], []
         for _ in range(ALTERNATING_ROUNDS):
-            tree_ms.append(time_ms(lambda: build_histograms_packed_kernel(*hargs)))
-            lib_ms.append(time_ms(library))
+            tree_ms.append(event_ms(lambda: build_histograms_packed_kernel(*hargs)))
+            packed_ms.append(event_ms(lambda: histogram_packed(*hargs)))
+            lib_ms.append(event_ms(library))
         alternating.append({"n_nodes": 32, "data": data, "private_ms": tree_ms,
-                            "library_ms": lib_ms,
+                            "packed_ms": packed_ms, "library_ms": lib_ms,
                             "private_at_or_below_every_round": all(
-                                t <= b for t, b in zip(tree_ms, lib_ms))})
+                                t <= b for t, b in zip(tree_ms, lib_ms)),
+                            "packed_rounds_at_or_below": sum(
+                                t <= b for t, b in zip(packed_ms, lib_ms))})
         del dense_, library
     emit({"phase": "time", "histogram_32_alternating": alternating})
     # The chunked instantiations beside the flat ones on the same rows, back
@@ -3584,11 +3639,11 @@ def main() -> int:
                                          MAX_BINS, bits, cr)
             chunked_rows.append({
                 "kernel": "histogram_private", "chunk_rows": cr, "n_chunks": n_ch,
-                "n_nodes": nn, "flat_ms": time_ms(flat_fn), "chunked_ms": time_ms(chunk_fn),
-                "chunked_plain_ms": time_ms(functools.partial(
+                "n_nodes": nn, "flat_ms": event_ms(flat_fn), "chunked_ms": event_ms(chunk_fn),
+                "chunked_plain_ms": event_ms(functools.partial(
                     ref.histogram_chunked_ref, stack_, gh, pos, nn, MAX_BINS, bits, cr), iters=5),
-                "flat_back_to_back_ms": back_to_back_ms(flat_fn),
-                "chunked_back_to_back_ms": back_to_back_ms(chunk_fn),
+                "flat_back_to_back_ms": queued_ms(flat_fn),
+                "chunked_back_to_back_ms": queued_ms(chunk_fn),
                 "flat_bound_ms": flat_b, "chunked_bound_ms": chunk_b, "bound_by": by})
         for npar in (1, 16):
             rid, pos = buffers[npar]
@@ -3608,12 +3663,12 @@ def main() -> int:
                                          npar, MAX_BINS, bits, cr)
             chunked_rows.append({
                 "kernel": "histogram_rows", "chunk_rows": cr, "n_chunks": n_ch,
-                "n_parents": npar, "flat_ms": time_ms(flat_fn), "chunked_ms": time_ms(chunk_fn),
-                "chunked_plain_ms": time_ms(functools.partial(
+                "n_parents": npar, "flat_ms": event_ms(flat_fn), "chunked_ms": event_ms(chunk_fn),
+                "chunked_plain_ms": event_ms(functools.partial(
                     ref.histogram_rows_chunked_ref, stack_, gh_sel, pos, rid, npar, MAX_BINS,
                     bits, cr), iters=5),
-                "flat_back_to_back_ms": back_to_back_ms(flat_fn),
-                "chunked_back_to_back_ms": back_to_back_ms(chunk_fn),
+                "flat_back_to_back_ms": queued_ms(flat_fn),
+                "chunked_back_to_back_ms": queued_ms(chunk_fn),
                 "flat_bound_ms": flat_b, "chunked_bound_ms": chunk_b, "bound_by": by})
     emit({"phase": "time", "histogram_chunked": chunked_rows})
     del ext_stacks
@@ -3633,13 +3688,13 @@ def main() -> int:
                            nn * f * (nb - 2) * (2 + 2 * 11))
         scan_rows.append({
             "n_nodes": nn, "shape": list(h_.shape[:3]),
-            "ms": time_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
-            "back_to_back_ms": back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
-            "plain_ms": time_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0), iters=5),
+            "ms": event_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
+            "back_to_back_ms": queued_ms(lambda: split_scan(h_, parent_, 1.0, 1.0)),
+            "plain_ms": event_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0), iters=5),
             "bound_ms": b_ms, "bound_by": b_by})
     emit({"phase": "time", "split_scan_levels": scan_rows,
-          "empty_launch_ms": time_ms(empty_launch),
-          "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)})
+          "empty_launch_ms": event_ms(empty_launch),
+          "empty_launch_back_to_back_ms": queued_ms(empty_launch)})
     # The constrained and the masked scan at the same levels, each beside the
     # unconstrained one in the same loop. Bounds: the constrained scan adds
     # the constraints' and bounds' bytes and 60 operations a candidate (two
@@ -3654,7 +3709,7 @@ def main() -> int:
         half = torch.rand(nn, f, device=dev, generator=gen) < 0.5
         kept = int(half.sum())
         row = {"n_nodes": nn, "kept_problems": kept, "unconstrained_back_to_back_ms":
-               back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0))}
+               queued_ms(lambda: split_scan(h_, parent_, 1.0, 1.0))}
         for variant, kw, nbytes, nops in (
                 ("monotone", kw_all["monotone"],
                  nn * f * nb * 8 + nn * 8 + f + nn * 8 + nn * f * 5 * 4,
@@ -3664,10 +3719,10 @@ def main() -> int:
                  kept * (nb - 2) * (2 + 2 * 11))):
             b_ms, b_by = bound(nbytes, nops)
             row[variant] = {
-                "ms": time_ms(lambda: split_scan(h_, parent_, 1.0, 1.0, **kw)),
-                "back_to_back_ms": back_to_back_ms(lambda: split_scan(h_, parent_, 1.0, 1.0,
+                "ms": event_ms(lambda: split_scan(h_, parent_, 1.0, 1.0, **kw)),
+                "back_to_back_ms": queued_ms(lambda: split_scan(h_, parent_, 1.0, 1.0,
                                                                       **kw)),
-                "plain_ms": time_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0, **kw),
+                "plain_ms": event_ms(lambda: ref.split_scan_ref(h_, parent_, 1.0, 1.0, **kw),
                                     iters=5),
                 "bound_ms": b_ms, "bound_by": b_by}
         variant_rows.append(row)
@@ -3735,6 +3790,9 @@ def main() -> int:
                               **{k: top[k] for k in ("plain_ms", "library_ms",
                                                      "bound_ms", "bound_by")}},
         "histogram_packed": {"ms": top["packed_ms"],
+                             "back_to_back_ms": top["packed_back_to_back_ms"],
+                             "device_kernels": results["launches_a_call"][
+                                 "histogram_cluster_kernel"]["device_kernels"],
                              **{k: top[k] for k in ("plain_ms", "library_ms",
                                                     "bound_ms", "bound_by")}},
         "histogram_rows": {k: top_rows[k] for k in ("ms", "plain_ms", "library_ms",
@@ -3742,20 +3800,20 @@ def main() -> int:
         "split_scan": {k: scan_rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
                                                       "bound_by")} | {"library_ms": None},
         "quantile_cuts": {
-            "ms": time_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
-            "back_to_back_ms": back_to_back_ms(
+            "ms": event_ms(lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
+            "back_to_back_ms": queued_ms(
                 lambda: quantile_cuts_from_sorted(srt, n_valid, MAX_BINS)),
-            "plain_ms": time_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, MAX_BINS), iters=5),
+            "plain_ms": event_ms(lambda: ref.quantile_cuts_ref(srt, n_valid, MAX_BINS), iters=5),
             "library_ms": None,
         },
         "ensemble_traversal": {
-            "ms": time_ms(lambda: ensemble_margins_kernel(ens.nodes, xte, ens.n_classes, DEPTH),
+            "ms": event_ms(lambda: ensemble_margins_kernel(ens.nodes, xte, ens.n_classes, DEPTH),
                           iters=50),
-            "plain_ms": time_ms(lambda: ref.ensemble_margins_ref(*targs), iters=5),
+            "plain_ms": event_ms(lambda: ref.ensemble_margins_ref(*targs), iters=5),
             "library_ms": None,
         },
         "decompress": {
-            "plain_ms": time_ms(lambda: ref.decompress_ref(packed, bits, n), iters=5),
+            "plain_ms": event_ms(lambda: ref.decompress_ref(packed, bits, n), iters=5),
             "library_ms": None,
         },
     }
@@ -3772,10 +3830,10 @@ def main() -> int:
     root_acc = torch.empty((1, f, MAX_BINS, 2), dtype=torch.int64, device=dev)
     b_ms, b_by = bound(n * 8 + root_acc.numel() * 8 + 4, 4 * n)
     times["fixed_exponent"] = {
-        "ms": time_ms(lambda: fixed_exponent(gh, zero=root_acc)),
-        "back_to_back_ms": back_to_back_ms(lambda: fixed_exponent(gh, zero=root_acc)),
-        "plain_ms": time_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
-        "plain_back_to_back_ms": back_to_back_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
+        "ms": event_ms(lambda: fixed_exponent(gh, zero=root_acc)),
+        "back_to_back_ms": queued_ms(lambda: fixed_exponent(gh, zero=root_acc)),
+        "plain_ms": event_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
+        "plain_back_to_back_ms": queued_ms(lambda: (FX.exponent(gh), root_acc.zero_())),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
     def decompress_times(words_, rows_, b) -> dict:
@@ -3789,11 +3847,11 @@ def main() -> int:
         src = torch.empty(nbytes // 16, dtype=torch.int64, device=dev)
         dst = torch.empty_like(src)
         row = {"rows": rows_, "features": feats, "bits": b,
-               "ms": time_ms(lambda: decompress(words_, b, rows_)),
-               "back_to_back_ms": back_to_back_ms(lambda: decompress(words_, b, rows_)),
+               "ms": event_ms(lambda: decompress(words_, b, rows_)),
+               "back_to_back_ms": queued_ms(lambda: decompress(words_, b, rows_)),
                "bound_ms": b_ms_, "bound_by": b_by_,
-               "copy_ms": time_ms(lambda: dst.copy_(src)),
-               "copy_back_to_back_ms": back_to_back_ms(lambda: dst.copy_(src))}
+               "copy_ms": event_ms(lambda: dst.copy_(src)),
+               "copy_back_to_back_ms": queued_ms(lambda: dst.copy_(src))}
         del src, dst
         torch.cuda.empty_cache()
         return row
@@ -3806,22 +3864,22 @@ def main() -> int:
         "shape": list(srt.shape),
         "ms": times["quantile_cuts"]["ms"],
         "back_to_back_ms": times["quantile_cuts"]["back_to_back_ms"],
-        "compute_cuts_op_back_to_back_ms": back_to_back_ms(
+        "compute_cuts_op_back_to_back_ms": queued_ms(
             lambda: ops.compute_cuts_op(xt, MAX_BINS), launches=20),
-        "candidate_sort_back_to_back_ms": back_to_back_ms(
+        "candidate_sort_back_to_back_ms": queued_ms(
             lambda: torch.sort(cand, dim=-1)),
-        "empty_launch_back_to_back_ms": back_to_back_ms(empty_launch)}})
+        "empty_launch_back_to_back_ms": queued_ms(empty_launch)}})
     for rows_out, xs_ in ((deep, xte), (serving, xt)):
         for r in rows_out:
             nodes, x_ = r.pop("nodes"), xs_[:r["rows"]]
-            r["ms"] = time_ms(lambda: ensemble_margins_kernel(nodes, x_, r["classes"],
+            r["ms"] = event_ms(lambda: ensemble_margins_kernel(nodes, x_, r["classes"],
                                                               r["depth"]), iters=10)
             r["bound_ms"], r["bound_by"] = traversal_bound(nodes, x_, r["classes"],
                                                            r["depth"])
     emit({"phase": "time", "ensemble_traversal_routes": {
         "rows": HELD_OUT, "trees": ens.n_trees, "max_depth": DEPTH, "plan": list(main_plan),
         "wrapper_ms": times["ensemble_traversal"]["ms"],
-        **{f"{k}_ms": time_ms(lambda: traversal_at(ens.nodes, xte, ens.n_classes, DEPTH, v),
+        **{f"{k}_ms": event_ms(lambda: traversal_at(ens.nodes, xte, ens.n_classes, DEPTH, v),
                               iters=50) for k, v in route_plans.items()}},
         "ensemble_traversal_deep_and_wide": deep, "ensemble_traversal_serving": serving})
     emit({"phase": "time", "decompress_shapes": {"main": times["decompress"], **dec_rows}})
@@ -3834,18 +3892,18 @@ def main() -> int:
     pw_args = (rank_scores, d_rank.label, *rank_grouping)
     b_ms, b_by = bound(28 * d_rank.n_rows, pairs + 10 * differ)
     times["pairwise_grad"] = {
-        "ms": time_ms(lambda: pairwise_grad(*pw_args)),
-        "back_to_back_ms": back_to_back_ms(lambda: pairwise_grad(*pw_args), launches=20),
-        "plain_ms": time_ms(lambda: ref.pairwise_grad_ref(*pw_args), iters=2, warmup=1),
+        "ms": event_ms(lambda: pairwise_grad(*pw_args)),
+        "back_to_back_ms": queued_ms(lambda: pairwise_grad(*pw_args), launches=20),
+        "plain_ms": event_ms(lambda: ref.pairwise_grad_ref(*pw_args), iters=2, warmup=1),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "time", "pairwise_grad": {
         "rows": d_rank.n_rows, "queries": RANK_QUERIES, "pairs": pairs,
         "pairs_labels_differ": differ, **times["pairwise_grad"],
         "sfu_bound_ms": 2 * differ / SFU_OPS_PER_S * 1e3,
-        "query_groups_ms": time_ms(lambda: ops.query_groups(d_rank.group_ids)),
-        "query_groups_back_to_back_ms": back_to_back_ms(
+        "query_groups_ms": event_ms(lambda: ops.query_groups(d_rank.group_ids)),
+        "query_groups_back_to_back_ms": queued_ms(
             lambda: ops.query_groups(d_rank.group_ids), launches=20),
-        "group_sort_back_to_back_ms": back_to_back_ms(
+        "group_sort_back_to_back_ms": queued_ms(
             lambda: torch.sort(d_rank.group_ids, stable=True), launches=20)}})
     # The same at each of PAIR_GROUPS' shapes (the kernel's launches a call:
     # the query kernel and the spread kernel, counted as one).
@@ -3856,8 +3914,8 @@ def main() -> int:
         g_ms, g_by = bound(28 * sc.shape[0], g_pairs + 10 * g_differ)
         group_times[name_p] = {
             "rows": int(sc.shape[0]), "pairs": g_pairs, "pairs_labels_differ": g_differ,
-            "ms": time_ms(lambda: pairwise_grad(*args_p)),
-            "back_to_back_ms": back_to_back_ms(lambda: pairwise_grad(*args_p), launches=20),
+            "ms": event_ms(lambda: pairwise_grad(*args_p)),
+            "back_to_back_ms": queued_ms(lambda: pairwise_grad(*args_p), launches=20),
             "bound_ms": g_ms, "bound_by": g_by,
             "sfu_bound_ms": 2 * g_differ / SFU_OPS_PER_S * 1e3}
     emit({"phase": "time", "pairwise_grad_groups": group_times})

@@ -44,7 +44,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "rt_histogram_private": [_P] * 5 + [_I] * 12 + [_P],
     "rt_histogram_rows": [_P] * 6 + [_I] * 12 + [_P],
-    "rt_histogram_packed": [_P] * 5 + [_I] * 7 + [_P],
+    "rt_histogram_packed": [_P] * 5 + [_I] * 11 + [_P],
     "rt_histogram_dequantise": [_P] * 3 + [_L, _I, _P],
     "rt_fixed_exponent": [_P, _I, _P, _P, _L, _P],
     "rt_decompress": [_P] * 2 + [_I] * 4 + [_P],
@@ -53,7 +53,7 @@ SIGNATURES = {
     "rt_quantile_cuts": [_P, _P, _P, _I, _I, _I, _P],
     "rt_ensemble_margins": [_P] * 3 + [_I] * 10 + [_P],
     "rt_pairwise_grad": [_P] * 7 + [_I, _P],
-    "rt_histogram_occupancy": [_I] * 4 + [_P],
+    "rt_histogram_occupancy": [_I] * 5 + [_P],
     "rt_capture_begin": [_P],
     "rt_capture_kernels": [_P, _P, _I, _P],
     "rt_device_limits": [_I, _P],

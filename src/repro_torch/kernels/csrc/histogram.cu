@@ -5,10 +5,11 @@
 // fixed point (upstream XGBoost's GradientQuantiser; kernels/fixed.py): each
 // row's (g, h) is quantised to int64 round-half-even(v * 2^k) before any
 // addition, with the call's exponent k read from the device through a
-// pointer, and every add is an integer add into an int64 accumulator
-// (n_nodes, n_features, max_bins, 2). Integer adds commute, so the sums, and
-// the float32 histogram that histogram_dequantise_kernel converts from them
-// once at the end, are the same bits on every call, whatever the atomics'
+// pointer, and every add is an integer add. The two private kernels add into
+// an int64 accumulator (n_nodes, n_features, max_bins, 2) that
+// histogram_dequantise_kernel converts once at the end; the cluster kernel
+// converts its own sums as it stores them. Integer adds commute, so the
+// float32 histogram is the same bits on every call, whatever the atomics'
 // order, the launch plan or the chunk layout.
 //
 //  * histogram_private_kernel replaces the TPU kernel
@@ -21,11 +22,15 @@
 //    row buffer: slot i holds row row_ids[i]. It serves
 //    src/repro/core/histogram.py :: build_histograms_packed_rows, the
 //    subtraction trick's smaller-child histogram below the root.
-//  * histogram_global_kernel replaces the TPU kernel
+//  * histogram_cluster_kernel replaces the TPU kernel
 //    src/repro/kernels/histogram.py :: histogram_packed (_kernel), whose
-//    output block is its accumulator: no private histogram and no flush,
-//    every (row, feature) adds straight into the output with global
-//    atomics, which stays L2-resident at these sizes.
+//    grid walks the row blocks in order for each (node block, feature
+//    block) output tile, the tile its accumulator. On Hopper a
+//    thread-block cluster owns a tile: its blocks split the words, each
+//    adds into a private int64 tile in shared memory, and after a cluster
+//    barrier they sum the private tiles through distributed shared memory,
+//    convert and store float32 straight into the output. No global atomics,
+//    no accumulator in device memory, no conversion launch.
 //  * fixed_exponent_kernel computes the call's exponent k
 //    (kernels/fixed.py::exponent) and zeroes the accumulator in one launch,
 //    where the wrapper ran about seven small torch launches. It replaces no
@@ -35,8 +40,8 @@
 // (n_features * n_rows * bits / 8 bytes), gh (8 B/row) and pos (4 B/row),
 // and writes a small histogram: about 40 MB at 1M rows x 28 features, or
 // 12 us at 3.35 TB/s. The real limit is the rate of atomic updates: one
-// (g, h) pair per (row, feature), 28M per level at that size, in shared
-// memory for the private and row kernels, in L2 for the global one. An
+// (g, h) pair per (row, feature), 28M per level at that size, all of them
+// into shared memory. An
 // int64 to shared memory is two native 32-bit atomics and a carry
 // (add_shared_64): on sm_90a a 64-bit shared atomicAdd, like a float one, is
 // a compare-and-swap loop (ATOMS.CAST.SPIN.64), a 32-bit integer one is
@@ -125,13 +130,35 @@
 // hands a running one: the streamed pass adds chunk after chunk into one,
 // at one exponent).
 //
-// histogram_global_kernel: a thread takes one word and its SPW rows, and
-// the whole warp walks the features in step, so the lanes of a warp always
-// add into one feature's output slab; each warp starts at its own feature,
-// so the card's warps spread over all the slabs instead of all starting on
-// feature 0's few L2 lines. Per symbol, lanes whose (node, bin) agree are
-// summed with __match_any_sync and a shuffle tree, and one lane adds the
-// warp's sum with two 64-bit integer global atomicAdds.
+// histogram_cluster_kernel (kernels/histogram.py :: packed_plan): the grid
+// is (C, feature groups, node tiles), a cluster of C blocks (a portable
+// size, at most 8) on x, so a cluster is one (node tile, feature group)
+// output tile and each (node, feature) lies in exactly one. Block r of the
+// cluster takes stripe r of the words and keeps a private int64 tile of
+// feat_group x node_tile x max_bins (g, h) pairs in dynamic shared memory
+// (up to the opt-in 227 KB: 32 nodes at 256 bins is 128 KB a feature),
+// stored as four planes of 32-bit words [g lo | g hi | h lo | h hi], so
+// that lanes adding to different bins add on different banks (16-byte
+// pairs put every low word on one of 8 banks; the planes took 0.32 against
+// 0.40 ms at 32 nodes, PERF.md §6). Its loop is #1's: a thread takes a word
+// and its SPW rows, keeps their quantised (g, h) and nodes in registers
+// across the feature group, and adds with add_shared_64's arithmetic,
+// warp-aggregating equal (node, bin) keys where the warp shows repeats.
+// The missing bin is #1's too: no symbol of it is added; each lane sums
+// its run of rows at one node and adds the run to its warp's own node
+// totals where the node changes (at one node, never until the end; no two
+// warps share a total), and before the cluster barrier one warp a (feature,
+// node) writes the block's total less its other bins into the missing
+// entry. On skewed words (80% of symbols missing) that took 0.21-0.31 ms
+// where adding the missing bin as any bin took 0.36-0.54, whose hot keys
+// cost a match and a shuffle tree a symbol at one node and contend on 32
+// shared words at 32 nodes. After the barrier each block takes every C-th
+// run of its tile's pairs, sums the C blocks' copies with
+// ld.shared::cluster loads in rank order, converts them as
+// histogram_dequantise_kernel does and stores float2; a second barrier
+// keeps every block's shared memory alive until the last read. The plan
+// gives the tiles enough feature groups and a cluster size for about one
+// wave of the card's clusters.
 //
 // fixed_exponent_kernel: one cluster of 8 blocks (the portable size, which
 // every card places without a per-device attribute) of 1024 threads reads
@@ -277,13 +304,6 @@ __device__ __forceinline__ void add_shared_64(long long* slot, long long v) {
 __device__ __forceinline__ void add_pair_shared(long long* slot, longlong2 v) {
   add_shared_64(slot, v.x);
   add_shared_64(slot + 1, v.y);
-}
-
-// The same into the int64 accumulator in global memory.
-__device__ __forceinline__ void add_pair_global(long long* slot, longlong2 v) {
-  unsigned long long* p = reinterpret_cast<unsigned long long*>(slot);
-  atomicAdd(p, (unsigned long long)v.x);
-  atomicAdd(p + 1, (unsigned long long)v.y);
 }
 
 // --- the private histogram -------------------------------------------------
@@ -655,29 +675,87 @@ __global__ void __launch_bounds__(kExponentThreads) fixed_exponent_kernel(
   sync_cluster();  // no block leaves while block 0 reads its shared memory
 }
 
-template <int SPW>
-__global__ void histogram_global_kernel(
+// float32(float64(acc) * inv), rounding to nearest even twice, as
+// kernels/fixed.py::dequantise computes it (inv = 2^-k).
+__device__ __forceinline__ float dequantise(long long acc, double inv) {
+  return __double2float_rn(__ll2double_rn(acc) * inv);
+}
+
+// add_shared_64's arithmetic on an int64 whose two 32-bit halves lie
+// apart in shared memory: the low word at `lo`, the high one at lo + hi_off.
+__device__ __forceinline__ void add_shared_split(unsigned* lo, int hi_off, long long v) {
+  const unsigned x_lo = (unsigned)v;
+  const unsigned x_hi = (unsigned)((unsigned long long)v >> 32);
+  const unsigned old = atomicAdd(lo, x_lo);
+  atomicAdd(lo + hi_off, x_hi + (old > 0xffffffffu - x_lo ? 1u : 0u));
+}
+
+__device__ __forceinline__ long long join64(unsigned lo, unsigned hi) {
+  return (long long)(((unsigned long long)hi << 32) | lo);
+}
+
+// A 32-bit word of block `rank`'s shared memory at the offset of `addr` in
+// this block's (ld.shared::cluster).
+__device__ __forceinline__ unsigned load_in(uint32_t addr, unsigned rank) {
+  unsigned x;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(x) : "r"(in_block(addr, rank)) : "memory");
+  return x;
+}
+
+// Adds a lane's run (its rows' summed (g, h) at one tile-local node) to its
+// warp's node totals, planes [g lo | g hi | h lo | h hi][node] of nn words.
+__device__ __forceinline__ void add_run(unsigned* totals, int nn, const Run& run) {
+  add_shared_split(totals + run.node, nn, run.sum.x);
+  add_shared_split(totals + 2 * nn + run.node, nn, run.sum.y);
+}
+
+// Threads a block (MAX_THREADS) by symbols a word (cluster_threads): up to
+// four symbols (8 bits and wider), 1024 at 64 registers a thread, one block
+// an SM, as #1; up to ten, 512 (76-112 registers); 16 and 32 symbols, 256,
+// so that their rows' registers (up to 255 a thread) do not spill.
+template <int SPW, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS, 1) histogram_cluster_kernel(
     const uint32_t* __restrict__ packed,  // (n_features, n_words)
     const float2* __restrict__ gh,        // (n_rows,) (g, h)
     const int* __restrict__ pos,          // (n_rows,) node; n_nodes, -1 = inactive
-    long long* __restrict__ out,          // (n_nodes, n_features, max_bins, 2)
+    float2* __restrict__ out,             // (n_nodes, n_features, max_bins) (g, h)
     const int* __restrict__ kexp,         // the call's exponent k
     int n_rows, int n_features, int n_words, int n_nodes, int max_bins,
-    int bits) {
-  const uint32_t mask = symbol_mask(bits);
+    int bits, int node_tile, int feat_group, int words_per_block) {
+  // The private tile, four planes of `pairs` 32-bit words [g lo | g hi |
+  // h lo | h hi], pair ((fl * nn + node) * max_bins + bin); then each
+  // warp's node totals, [warp][4 planes][node].
+  extern __shared__ __align__(16) unsigned planes[];
+  const int f0 = blockIdx.y * feat_group;
+  const int nf = min(feat_group, n_features - f0);
+  const int n0 = blockIdx.z * node_tile;
+  const int nn = min(node_tile, n_nodes - n0);
+  const int pairs = nf * nn * max_bins;
+  const int warps = blockDim.x >> 5;
+  unsigned* totals = planes + 4 * pairs;
+  unsigned* mine = totals + (threadIdx.x >> 5) * 4 * nn;  // this warp's
+  for (int i = threadIdx.x; i < 4 * (pairs + warps * nn); i += blockDim.x) planes[i] = 0;
+  __syncthreads();
   const double scale = pow2(__ldg(kexp));
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // The warp steps through the words together (see histogram_rows_kernel).
-  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       w - (threadIdx.x & 31) < n_words; w += stride) {
+  const uint32_t mask = symbol_mask(bits);
+  const int missing = max_bins - 1;
+  const unsigned rank = cluster_rank();  // the block's stripe of the words
+  const long long w_begin = (long long)rank * words_per_block;
+  const long long w_end = min(w_begin + words_per_block, (long long)n_words);
+  Run run{-1, make_longlong2(0, 0)};
+  // The warp steps through its words together (a lane past the stripe's
+  // end carries no rows), so that the votes below have all 32 lanes.
+  for (long long w = w_begin + threadIdx.x; w - (threadIdx.x & 31) < w_end;
+       w += blockDim.x) {
     int node[SPW];
     longlong2 v[SPW];
     bool any = false;
 #pragma unroll
     for (int j = 0; j < SPW; ++j) {
       const long long row = w * SPW + j;
-      const int p = (w < n_words && row < n_rows) ? __ldg(pos + row) : -1;
-      node[j] = (p >= 0 && p < n_nodes) ? p : -1;
+      const int q = (w < w_end && row < n_rows) ? __ldg(pos + row) - n0 : -1;
+      node[j] = (q >= 0 && q < nn) ? q : -1;
       v[j] = make_longlong2(0, 0);
       if (node[j] >= 0) {
         v[j] = quantise_pair(__ldg(gh + row), scale);
@@ -685,25 +763,114 @@ __global__ void histogram_global_kernel(
       }
     }
     if (!__any_sync(kFullWarp, any)) continue;
-    // Each warp starts at its own feature, so the card's warps spread their
-    // adds over every feature's slab instead of queueing on one in L2.
-    const int start = (int)((w >> 5) % n_features);
-    for (int i = 0; i < n_features; ++i) {
-      const int f = i + start < n_features ? i + start : i + start - n_features;
-      const uint32_t word = any ? __ldg(packed + (long long)f * n_words + w) : 0u;
+    // The lane's run of rows at one node, added to its warp's totals where
+    // the node changes (at one node, only at the end).
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      if (node[j] < 0) continue;
+      if (node[j] == run.node) {
+        run.sum.x += v[j].x;
+        run.sum.y += v[j].y;
+      } else {
+        if (run.node >= 0) add_run(mine, nn, run);
+        run = Run{node[j], v[j]};
+      }
+    }
+    // Bit j: the xor-1 neighbour's j-th row is at this lane's j-th node;
+    // bit SPW + j: the xor-2 neighbour's.
+    unsigned long long same = 0;
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int a = __shfl_xor_sync(kFullWarp, node[j], 1);
+      const int b = __shfl_xor_sync(kFullWarp, node[j], 2);
+      same |= (unsigned long long)(node[j] >= 0 && a == node[j]) << j;
+      same |= (unsigned long long)(node[j] >= 0 && b == node[j]) << (SPW + j);
+    }
+    for (int fl = 0; fl < nf; ++fl) {
+      const uint32_t word = any ? __ldg(packed + (long long)(f0 + fl) * n_words + w) : 0u;
+      // Bits where the neighbours' words differ from this lane's.
+      const uint32_t d1 = word ^ __shfl_xor_sync(kFullWarp, word, 1);
+      const uint32_t d2 = word ^ __shfl_xor_sync(kFullWarp, word, 2);
+      unsigned* hf = planes + fl * nn * max_bins;
 #pragma unroll
       for (int j = 0; j < SPW; ++j) {
-        const int bin = (int)((word >> (j * bits)) & mask);
-        const int key = node[j] >= 0 ? node[j] * max_bins + bin : -1;
-        const unsigned peers = __match_any_sync(kFullWarp, key);
-        const longlong2 sum = reduce_peers(peers, v[j]);
-        if (node[j] >= 0 && leads(peers))
-          add_pair_global(
-              out + (((long long)node[j] * n_features + f) * max_bins + bin) * 2,
-              sum);
+        const int shift = j * bits;
+        const int bin = (int)((word >> shift) & mask);
+        const bool on = node[j] >= 0 && (unsigned)bin < (unsigned)missing;
+        const bool repeat =
+            on && ((((same >> j) & 1) && ((d1 >> shift) & mask) == 0) ||
+                   (((same >> (SPW + j)) & 1) && ((d2 >> shift) & mask) == 0));
+        const unsigned hot = __ballot_sync(kFullWarp, repeat);
+        longlong2 sum = v[j];
+        bool adds = on;
+        if (hot & (hot - 1)) {  // two or more lanes flagged: aggregate
+          const unsigned peers =
+              __match_any_sync(kFullWarp, on ? node[j] * max_bins + bin : -1);
+          sum = reduce_peers(peers, v[j]);
+          adds = adds && leads(peers);
+        }
+        if (adds) {
+          unsigned* at = hf + node[j] * max_bins + bin;
+          add_shared_split(at, pairs, sum.x);
+          add_shared_split(at + 2 * pairs, pairs, sum.y);
+        }
       }
     }
   }
+  if (run.node >= 0) add_run(mine, nn, run);
+  __syncthreads();
+  // The missing entry of each (feature, node), a warp each: the block's
+  // node total (its warps' summed) less the block's other bins.
+  const int lane = threadIdx.x & 31;
+  for (int u = threadIdx.x >> 5; u < nf * nn; u += warps) {
+    const int node = u % nn;  // u = fl * nn + node
+    unsigned* h = planes + u * max_bins;
+    long long g = 0, hh = 0;
+    for (int b = lane; b < missing; b += 32) {
+      g += join64(h[b], h[pairs + b]);
+      hh += join64(h[2 * pairs + b], h[3 * pairs + b]);
+    }
+    for (int wp = lane; wp < warps; wp += 32) {
+      const unsigned* t = totals + wp * 4 * nn;
+      g -= join64(t[node], t[nn + node]);
+      hh -= join64(t[2 * nn + node], t[3 * nn + node]);
+    }
+    for (int d = 16; d >= 1; d >>= 1) {
+      g += __shfl_xor_sync(kFullWarp, g, d);
+      hh += __shfl_xor_sync(kFullWarp, hh, d);
+    }
+    if (lane == 0) {
+      h[missing] = (unsigned)-g;
+      h[pairs + missing] = (unsigned)((unsigned long long)-g >> 32);
+      h[2 * pairs + missing] = (unsigned)-hh;
+      h[3 * pairs + missing] = (unsigned)((unsigned long long)-hh >> 32);
+    }
+  }
+  sync_cluster();  // every private tile of the cluster complete and visible
+  const int k = __ldg(kexp);
+  const double inv = k == kNonFinite ? 0.0 : pow2(-k);
+  const unsigned blocks = cluster_blocks();
+  const uint32_t base = shared_address(planes);
+  // Output of pair i: ((n0 + node) * n_features + f0 + fl) * max_bins + bin.
+  // Block r takes the runs of blockDim.x pairs whose index over blockDim.x
+  // is r mod C, and sums the C blocks' copies in rank order.
+  for (int i = rank * blockDim.x + threadIdx.x; i < pairs; i += blocks * blockDim.x) {
+    long long g = 0, hh = 0;
+    for (unsigned r = 0; r < blocks; ++r) {
+      g += join64(load_in(base + i * 4, r), load_in(base + (pairs + i) * 4, r));
+      hh += join64(load_in(base + (2 * pairs + i) * 4, r),
+                   load_in(base + (3 * pairs + i) * 4, r));
+    }
+    const int fn = i / max_bins;  // fl * nn + node
+    const int bin = i - fn * max_bins;
+    const int fl = fn / nn;
+    const int node = fn - fl * nn;
+    const float nan = __int_as_float(0x7fc00000);
+    out[((long long)(n0 + node) * n_features + f0 + fl) * max_bins + bin] =
+        k == kNonFinite ? make_float2(nan, nan)
+                        : make_float2(dequantise(g, inv), dequantise(hh, inv));
+  }
+  sync_cluster();  // no block leaves while another reads its shared memory
 }
 
 // The conversion pass: out[i] = float(double(acc[i]) * 2^-k), each rounding
@@ -718,8 +885,7 @@ __global__ void histogram_dequantise_kernel(const long long* __restrict__ acc,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    out[i] = k == kNonFinite ? __int_as_float(0x7fc00000)
-                             : __double2float_rn(__ll2double_rn(acc[i]) * inv);
+    out[i] = k == kNonFinite ? __int_as_float(0x7fc00000) : dequantise(acc[i], inv);
 }
 
 
@@ -798,17 +964,59 @@ cudaError_t launch_rows(const void* packed, const void* gh, const void* pos,
   return cudaGetLastError();
 }
 
+// The cluster kernel's threads a block and instance for SPW symbols a word
+// (kernels/histogram.py :: packed_threads).
+constexpr int cluster_threads(int spw) { return spw > 10 ? 256 : spw > 4 ? 512 : 1024; }
+
 template <int SPW>
-cudaError_t launch_global(const void* packed, const void* gh, const void* pos,
-                          void* out, const void* kexp, int n_rows,
-                          int n_features, int n_words, int n_nodes,
-                          int max_bins, int bits, int threads,
-                          cudaStream_t stream) {
-  const int blocks = (n_words + threads - 1) / threads;
-  histogram_global_kernel<SPW><<<blocks, threads, 0, stream>>>(
-      (const uint32_t*)packed, (const float2*)gh, (const int*)pos,
-      (long long*)out, (const int*)kexp, n_rows, n_features, n_words, n_nodes,
-      max_bins, bits);
+constexpr auto cluster_kernel() {
+  return histogram_cluster_kernel<SPW, cluster_threads(SPW)>;
+}
+
+// Bytes of a cluster block's shared memory: its private tile, feat_group x
+// node_tile x max_bins (g, h) pairs of int64, and each of its warps' node
+// totals, node_tile pairs (kernels/histogram.py :: packed_bytes).
+size_t cluster_tile_bytes(int node_tile, int feat_group, int max_bins, int threads) {
+  return ((size_t)feat_group * node_tile * max_bins + (size_t)(threads / 32) * node_tile) * 16;
+}
+
+// Grid (cluster, feature groups, node tiles), clusters of `cluster` blocks
+// on x; every word lies in one of the cluster's stripes.
+template <int SPW>
+cudaError_t launch_cluster(const void* packed, const void* gh, const void* pos,
+                           void* out, const void* kexp, int n_rows,
+                           int n_features, int n_words, int n_nodes,
+                           int max_bins, int bits, int node_tile,
+                           int feat_group, int cluster, int words_per_block,
+                           int threads, cudaStream_t stream) {
+  const auto kernel = cluster_kernel<SPW>();
+  if (node_tile < 1 || feat_group < 1 || cluster < 1 || cluster > 8 ||
+      words_per_block < 1 || max_bins < 1 || threads < 32 || threads % 32 ||
+      threads > cluster_threads(SPW) || (long long)words_per_block * cluster < n_words)
+    return cudaErrorInvalidValue;
+  const size_t smem = cluster_tile_bytes(node_tile, feat_group, max_bins, threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster, (n_features + feat_group - 1) / feat_group,
+                     (n_nodes + node_tile - 1) / node_tile);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)packed,
+                           (const float2*)gh, (const int*)pos, (float2*)out,
+                           (const int*)kexp, n_rows, n_features, n_words,
+                           n_nodes, max_bins, bits, node_tile, feat_group,
+                           words_per_block);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -824,7 +1032,7 @@ bool is_kernel(const void* func, const void* kernel) {
 }
 
 // 1 histogram_private_kernel, 2 histogram_rows_kernel, 3
-// histogram_global_kernel (any instance for SPW symbols a word), else -1.
+// histogram_cluster_kernel (any instance for SPW symbols a word), else -1.
 template <int SPW>
 int histogram_code(const void* func) {
   if (is_kernel(func, (const void*)private_kernel<SPW, false>()) ||
@@ -833,7 +1041,7 @@ int histogram_code(const void* func) {
   if (is_kernel(func, (const void*)histogram_rows_kernel<SPW, false>) ||
       is_kernel(func, (const void*)histogram_rows_kernel<SPW, true>))
     return 2;
-  return is_kernel(func, (const void*)histogram_global_kernel<SPW>) ? 3 : -1;
+  return is_kernel(func, (const void*)cluster_kernel<SPW>()) ? 3 : -1;
 }
 
 // 0 the exponent kernel, 1-3 the histogram kernels, 4 the conversion pass,
@@ -919,13 +1127,17 @@ extern "C" int rt_histogram_rows(
 #undef RT_CALL
 }
 
+// `out` is the float32 histogram (n_nodes, n_features, max_bins, 2), every
+// entry written; `kexp` points to the call's int32 exponent on the device.
 extern "C" int rt_histogram_packed(
     const void* packed, const void* gh, const void* pos, void* out,
     const void* kexp, int n_rows, int n_features, int n_words, int n_nodes,
-    int max_bins, int bits, int threads, void* stream) {
+    int max_bins, int bits, int node_tile, int feat_group, int cluster,
+    int words_per_block, int threads, void* stream) {
 #define RT_CALL(S)                                                          \
-  launch_global<S>(packed, gh, pos, out, kexp, n_rows, n_features, n_words, \
-                   n_nodes, max_bins, bits, threads, (cudaStream_t)stream)
+  launch_cluster<S>(packed, gh, pos, out, kexp, n_rows, n_features, n_words, \
+                    n_nodes, max_bins, bits, node_tile, feat_group, cluster, \
+                    words_per_block, threads, (cudaStream_t)stream)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }
@@ -968,24 +1180,40 @@ extern "C" int rt_histogram_dequantise(const void* acc, const void* kexp,
 }
 
 // Resident blocks per SM of one histogram kernel (0 private, 1 row-id,
-// 2 global) at `bits`, `threads` and `smem` bytes of dynamic shared memory.
+// 2 cluster) at `bits`, `threads` and `smem` bytes of dynamic shared
+// memory; for the cluster kernel with `cluster` > 0, the clusters of that
+// many blocks the whole card holds at once instead.
 template <int SPW>
-cudaError_t occupancy(int kernel, int threads, int smem, int* blocks) {
+cudaError_t occupancy(int kernel, int threads, int smem, int cluster, int* out) {
   const void* fn = kernel == 0   ? (const void*)private_kernel<SPW>()
                    : kernel == 1 ? (const void*)histogram_rows_kernel<SPW, false>
-                                 : (const void*)histogram_global_kernel<SPW>;
+                                 : (const void*)cluster_kernel<SPW>();
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads,
-                                                       (size_t)smem);
+  if (kernel != 2 || cluster == 0)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads,
+                                                         (size_t)smem);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
 
 extern "C" int rt_histogram_occupancy(int kernel, int bits, int threads,
-                                      int smem, void* out_blocks) {
-  if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
+                                      int smem, int cluster, void* out) {
+  if (kernel < 0 || kernel > 2 || cluster < 0 || cluster > 8)
+    return (int)cudaErrorInvalidValue;
 #define RT_CALL(S)                                                          \
-  occupancy<S>(kernel, threads, smem, (int*)out_blocks)
+  occupancy<S>(kernel, threads, smem, cluster, (int*)out)
   RT_SPW_SWITCH(bits, RT_CALL)
 #undef RT_CALL
 }

@@ -3,10 +3,9 @@
 All three compute the contract of `repro.core.histogram` (packed words,
 (g, h) pairs and level-local positions in, (n_nodes, F, max_bins, 2) out),
 in 64-bit fixed point (`kernels/fixed.py`): each row's (g, h) quantised at
-the call's exponent, integer atomics into an int64 accumulator, and one
-conversion pass (`dequantise_kernel`) to float32. The result is the same
-bits on every call and is `torch.equal` to the fixed-point plain versions
-(`kernels/ref.py`, `*_fixed_ref`):
+the call's exponent and added as integers, each sum converted once to
+float32. The result is the same bits on every call and is `torch.equal` to
+the fixed-point plain versions (`kernels/ref.py`, `*_fixed_ref`):
 
 * `build_histograms_packed_kernel`, counterpart of
   `repro.kernels.histogram.build_histograms_packed_kernel`: privatised
@@ -18,10 +17,15 @@ bits on every call and is `torch.equal` to the fixed-point plain versions
   loads in flight per slot: the kernel behind
   `core.histogram.build_histograms_packed_rows`, which the subtraction trick
   calls below the root.
-* `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`:
-  no private histogram, every (row, feature) adds straight into the
-  accumulator, lanes of a warp with the same (node, bin) summed first, each
-  warp starting at its own feature.
+* `histogram_packed`, counterpart of `repro.kernels.histogram.histogram_packed`,
+  whose TPU kernel owns each (node block, feature block) output tile over
+  all row blocks: here a thread-block cluster owns a tile (`packed_plan`),
+  its blocks splitting the words, each adding into a private int64 tile in
+  shared memory as #1 does (its missing bin too: node totals less the
+  other bins), then summing the cluster's tiles through distributed shared
+  memory and storing float32 into the output. No global atomics, no int64
+  accumulator, no conversion pass: a call is the exponent's launch and
+  this one.
 
 The two private kernels never add a symbol of the missing bin
 (`max_bins - 1`): each block adds minus the sum of its other bins into the
@@ -36,9 +40,10 @@ feature) in one node tile, every word read once.
 
 Each takes the call's exponent (`exponent=`, an int32 0-d tensor on the
 card, read by the kernel through a pointer) or computes it from its own gh
-with `fixed_exponent`, one launch that also zeroes the int64 accumulator: a
-call without `out=` is three launches (the exponent and the zeroing, the
-histogram, the conversion). Given `out=` (int64), the kernels add into the
+with `fixed_exponent`, one launch that also zeroes the private kernels'
+int64 accumulator: a private kernel's call without `out=` is three launches
+(the exponent and the zeroing, the histogram, the conversion pass
+`dequantise_kernel`). Given `out=` (int64), the private kernels add into the
 caller's accumulator as it stands, unconverted: the streamed
 external-memory path (`core/stream.py`) adds one chunk's launch after
 another into one running slab that way, at the pass's one exponent, and
@@ -69,8 +74,8 @@ MIN_WORDS_PER_BLOCK = 1024
 # one SM's shared memory: on spread-out bins, at one 224 KB block per SM the
 # row-id kernel took 2-2.5x its time at four 56 KB blocks (float bodies).
 MIN_BLOCKS_PER_SM = 3
-# Threads per block of the row-id and global kernels, and of #1 where a
-# word holds more than four symbols.
+# Threads per block of the row-id kernel, and of #1 where a word holds more
+# than four symbols (the cluster kernel: `packed_threads`).
 THREADS = 512
 # The privatised kernel's blocks where a word holds at most four symbols:
 # 1024 threads, one an SM (64 registers a thread fill its registers), so
@@ -91,6 +96,12 @@ FLUSH_ROWS = 2
 # Bytes a (g, h) bin takes in the kernels' private histograms: two int64.
 BIN_BYTES = 16
 DEQUANTISE_THREADS = 256  # threads per block of the conversion pass
+# The cluster kernel (`histogram_packed`): its cluster sizes (the portable
+# ones, no per-card attribute), and a row's own work (its position, (g, h)
+# and their quantisation), which every feature group of a tile repeats,
+# counted as a share of one feature's symbols in `packed_plan`'s cost.
+CLUSTER_SIZES = (1, 2, 4, 8)
+ROW_WORK = 0.5
 
 
 class HistogramPlan(NamedTuple):
@@ -174,6 +185,67 @@ def private_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int, bit
     return plan._replace(words_per_block=words)
 
 
+class PackedPlan(NamedTuple):
+    node_tile: int  # nodes a tile (grid z = ceil(n_nodes / node_tile))
+    feat_group: int  # features a tile (grid y)
+    cluster: int  # blocks a cluster, each a stripe of the words (grid x)
+    words_per_block: int  # a stripe: ceil(n_words / cluster)
+    smem_bytes: int  # a block's private tile and its warps' node totals
+    threads: int  # threads per block
+
+
+def packed_threads(bits: int) -> int:
+    """The cluster kernel's threads a block (csrc/histogram.cu
+    cluster_threads): 1024 up to four symbols a word, 512 up to ten, 256
+    for 16 and 32 (1- and 2-bit words), whose rows' registers would spill
+    at 128 a thread."""
+    spw = 32 // bits
+    return 256 if spw > 10 else THREADS if spw > 4 else PRIVATE_THREADS
+
+
+def packed_bytes(feat_group: int, node_tile: int, max_bins: int, threads: int) -> int:
+    """A cluster block's shared memory: its private tile, feat_group x
+    node_tile x max_bins (g, h) pairs of int64, and each of its warps' node
+    totals (csrc/histogram.cu cluster_tile_bytes)."""
+    return (feat_group * node_tile * max_bins + threads // 32 * node_tile) * BIN_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def packed_plan(n_words: int, n_features: int, n_nodes: int, max_bins: int, bits: int,
+                limits: B.DeviceLimits) -> PackedPlan:
+    """The cluster kernel's plan. Node tiles as few as the opt-in shared
+    memory allows, split evenly; then, of every feature group size that
+    fits beside them and every cluster size, the one whose blocks finish
+    first: waves of the card's clusters (an SM a block, a GPC's share of 8
+    SMs at a time: the SMs rounded down to a multiple of 8) times a
+    block's words times its features (plus ROW_WORK for the rows), ties to
+    fewer blocks. One node's bins that do not fit a block raise."""
+    threads = packed_threads(bits)
+    per_node = packed_bytes(1, 1, max_bins, threads)
+    if per_node > limits.smem_block:
+        raise ValueError(f"max_bins={max_bins} needs {per_node} B of shared memory per "
+                         f"node, more than the {limits.smem_block} B a block may use")
+    node_tiles = math.ceil(n_nodes / (limits.smem_block // per_node))
+    node_tile = math.ceil(n_nodes / node_tiles)
+    per_feature = packed_bytes(1, node_tile, max_bins, 0)  # its bins at the tile's nodes
+    room = limits.smem_block - packed_bytes(0, node_tile, max_bins, threads)
+    fit = max(1, min(n_features, room // per_feature))
+    slots = max(8, limits.n_sm // 8 * 8)
+    best = None
+    for most in range(fit, 0, -1):
+        groups = math.ceil(n_features / most)
+        feat_group = math.ceil(n_features / groups)
+        for cluster in CLUSTER_SIZES:
+            blocks = node_tiles * groups * cluster
+            words = max(1, math.ceil(n_words / cluster))
+            cost = math.ceil(blocks / slots) * words * (feat_group + ROW_WORK)
+            if best is None or (cost, blocks) < best[0]:
+                best = ((cost, blocks), feat_group, cluster, words)
+    _, feat_group, cluster, words = best
+    return PackedPlan(node_tile, feat_group, cluster, words,
+                      packed_bytes(feat_group, node_tile, max_bins, threads), threads)
+
+
 def _check_inputs(packed: torch.Tensor, gh: torch.Tensor, positions: torch.Tensor,
                   n_nodes: int, bits: int, chunk_rows: int | None = None) -> torch.Tensor:
     """Argument checks shared by the three wrappers; returns gh 8-byte
@@ -217,6 +289,13 @@ def fixed_exponent(gh: torch.Tensor, zero: torch.Tensor | None = None) -> torch.
     return k
 
 
+def _check_exponent(exponent: torch.Tensor | None, dev: torch.device) -> None:
+    if exponent is not None:
+        B.expect(exponent, "exponent", torch.int32, 0)
+        if exponent.device != dev:
+            raise ValueError(f"exponent must be on {dev}, got {exponent.device}")
+
+
 def _accumulator(out: torch.Tensor | None, exponent: torch.Tensor | None,
                  gh: torch.Tensor, n_nodes: int, f: int,
                  max_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -224,10 +303,7 @@ def _accumulator(out: torch.Tensor | None, exponent: torch.Tensor | None,
     the caller's `out` (checked, never zeroed) or a new one, zeroed in the
     exponent kernel's launch when the exponent is computed from gh."""
     dev = gh.device
-    if exponent is not None:
-        B.expect(exponent, "exponent", torch.int32, 0)
-        if exponent.device != dev:
-            raise ValueError(f"exponent must be on {dev}, got {exponent.device}")
+    _check_exponent(exponent, dev)
     if out is not None:
         B.expect(out, "out", torch.int64, 4)
         if tuple(out.shape) != (n_nodes, f, max_bins, 2) or out.device != dev:
@@ -350,40 +426,48 @@ def histogram_packed(
     bits: int,
     exponent: torch.Tensor | None = None,  # int32 0-d; None: from gh
 ) -> torch.Tensor:
-    """Histogram (n_nodes, F, max_bins, 2) float32 on the card, every add a
-    global integer atomic into the int64 accumulator, then converted."""
+    """Histogram (n_nodes, F, max_bins, 2) float32 on the card, each output
+    tile summed and converted by the thread-block cluster that owns it
+    (`packed_plan`); with `exponent`, in one launch. One node's max_bins
+    bins must fit a block's shared memory (`packed_plan` raises)."""
     gh = _check_inputs(packed, gh, positions, n_nodes, bits)
     f, w = packed.shape
     n = gh.shape[0]
     if w * (32 // bits) < n:
         raise ValueError(f"{w} words of {bits}-bit symbols hold fewer than {n} rows")
     dev = packed.device
-    acc, k = _accumulator(None, exponent, gh, n_nodes, f, max_bins)
-    if w > 0 and f > 0:
-        B.launch("rt_histogram_packed", dev,
-                 packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), acc.data_ptr(),
-                 k.data_ptr(), n, f, w, n_nodes, max_bins, bits, THREADS)
-        B.count(histogram_packed)
-    return dequantise_kernel(acc, k)
+    _check_exponent(exponent, dev)
+    out = torch.empty((n_nodes, f, max_bins, 2), dtype=torch.float32, device=dev)
+    if f == 0:
+        return out
+    plan = packed_plan(w, f, n_nodes, max_bins, bits, B.device_limits(dev.index))
+    k = exponent if exponent is not None else fixed_exponent(gh)
+    B.launch("rt_histogram_packed", dev,
+             packed.data_ptr(), gh.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             k.data_ptr(), n, f, w, n_nodes, max_bins, bits, plan.node_tile,
+             plan.feat_group, plan.cluster, plan.words_per_block, plan.threads)
+    B.count(histogram_packed)
+    return out
 
 
-def occupancy(kind: str, plan: HistogramPlan | None, bits: int) -> int:
+def occupancy(kind: str, plan: HistogramPlan | PackedPlan, bits: int,
+              clusters: bool = False) -> int:
     """Resident blocks per SM of one histogram kernel ("private", "rows" or
-    "packed") at `plan`'s shared memory on the current card, as the CUDA
-    runtime computes it; `histogram_packed` takes no plan."""
+    "packed") at `plan`'s threads and shared memory on the current card, as
+    the CUDA runtime computes it; with `clusters`, the cluster kernel's
+    clusters of `plan.cluster` blocks that the whole card holds at once."""
     kernel = ("private", "rows", "packed").index(kind)
-    smem = plan.smem_bytes if plan else 0
-    blocks = ctypes.c_int(0)
-    threads = plan.threads if plan else THREADS
-    B.check(B.lib().rt_histogram_occupancy(kernel, bits, threads, smem,
-                                           ctypes.addressof(blocks)),
+    out = ctypes.c_int(0)
+    B.check(B.lib().rt_histogram_occupancy(kernel, bits, plan.threads, plan.smem_bytes,
+                                           plan.cluster if clusters else 0,
+                                           ctypes.addressof(out)),
             "rt_histogram_occupancy")
-    return blocks.value
+    return out.value
 
 
 # The kernels `device_kernels` names, by the code the C side gives a node.
 KERNEL_NAMES = {0: "fixed_exponent_kernel", 1: "histogram_private_kernel",
-                2: "histogram_rows_kernel", 3: "histogram_global_kernel",
+                2: "histogram_rows_kernel", 3: "histogram_cluster_kernel",
                 4: "histogram_dequantise_kernel", -1: "another kernel",
                 -2: "not a kernel"}
 

@@ -88,9 +88,9 @@ def histogram_packed_op(packed: torch.Tensor, gh: torch.Tensor, positions: torch
                         n_nodes: int, max_bins: int, bits: int,
                         exponent: torch.Tensor | None = None) -> torch.Tensor:
     """(n_nodes, F, max_bins, 2) histogram from packed words through the
-    global-atomic kernel; positions n_nodes or -1 are inactive. In fixed
-    point at `exponent` (None: from gh) where `fixed_point_histograms`
-    holds."""
+    cluster kernel (each output tile owned by one thread-block cluster);
+    positions n_nodes or -1 are inactive. In fixed point at `exponent`
+    (None: from gh) where `fixed_point_histograms` holds."""
     if packed.is_cuda:
         return histogram_packed(packed, gh.contiguous(),
                                 positions.to(torch.int32).contiguous(),

@@ -87,18 +87,45 @@ def test_histogram_kernel_on_card(rng):
 
 @pytest.mark.cuda
 def test_histogram_packed_kernel_on_card(rng):
+    """The cluster kernel: exact on dyadic (g, h) against the float plain
+    version; on real-valued (g, h) `torch.equal` to the fixed-point plain
+    version and to a second call, on uniform, skewed (80% of the symbols in
+    the missing bin) and constant-feature words, at 1 to 64 nodes (two node
+    tiles at 64), with each symbols-a-word instantiation (bits 1, 2, 3, 4,
+    5, 6, 8, 10, 16, 32: 32 to 1 symbols a word); one NaN (g, h), an
+    inactive row's, makes it all NaN."""
     dev = _cuda()
-    for n, f, max_bins, n_nodes in [(1001, 5, 256, 1), (4096, 28, 256, 32),
-                                    (777, 3, 16, 3), (300, 2, 1024, 12)]:
-        packed, _, pos, bits = _hist_inputs(rng, n, f, max_bins, n_nodes)
-        pos[rng.random(n) < 0.1] = -1  # inactive as the reference pads: -1
-        gh = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
-                      axis=1).astype(np.float32)  # dyadic: exact in any order
-        args = (packed.to(dev), torch.from_numpy(gh).to(dev),
-                torch.from_numpy(pos).to(dev), n_nodes, max_bins, bits)
-        got = histogram_packed(*args)
-        want = ref.histogram_packed_ref(*args)
-        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    cases = [(1001, 5, 256, 1, 8), (4096, 28, 256, 32, 8), (777, 3, 16, 3, 4),
+             (300, 2, 1024, 12, 10), (5001, 4, 256, 64, 8)]
+    cases += [(2003, 3, min(2**b, 64), 5, b) for b in (1, 2, 3, 5, 6, 16, 32)]
+    for n, f, max_bins, n_nodes, bits in cases:
+        for data in ("uniform", "skewed", "constant"):
+            bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+            if data == "skewed":
+                bins[rng.random((n, f)) < 0.8] = max_bins - 1
+            elif data == "constant":
+                bins[:, 0] = max_bins // 3
+            packed = TC.pack(torch.from_numpy(bins), bits).to(dev)
+            pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)
+            pos[rng.random(n) < 0.1] = -1  # inactive as the reference pads: -1
+            pos = torch.from_numpy(pos).to(dev)
+            dyadic = np.stack([rng.integers(-8, 9, n) / 4, rng.integers(0, 5, n) / 4],
+                              axis=1).astype(np.float32)  # exact in any order
+            args = (packed, torch.from_numpy(dyadic).to(dev), pos, n_nodes, max_bins, bits)
+            np.testing.assert_array_equal(histogram_packed(*args).cpu().numpy(),
+                                          ref.histogram_packed_ref(*args).cpu().numpy())
+            real = torch.from_numpy(np.stack([rng.normal(size=n) * 3, rng.random(n)], 1)
+                                    .astype(np.float32)).to(dev)
+            args = (packed, real, pos, n_nodes, max_bins, bits)
+            got = histogram_packed(*args)
+            assert torch.equal(got, ref.histogram_packed_fixed_ref(*args)), (n, bits, data)
+            assert torch.equal(histogram_packed(*args), got), (n, bits, data)
+        bad = real.clone()
+        bad[7, 1] = float("nan")
+        pos_bad = pos.clone()
+        pos_bad[7] = -1
+        assert bool(torch.isnan(histogram_packed(packed, bad, pos_bad, n_nodes, max_bins,
+                                                 bits)).all())
 
 
 @pytest.mark.cuda
@@ -1675,11 +1702,12 @@ def test_fixed_exponent_kernel_on_card(rng, edge):
 
 @pytest.mark.cuda
 def test_histogram_call_is_three_launches_on_card(rng):
-    """A wrapper call without `out=`: the exponent kernel (which zeroes the
-    accumulator), the histogram kernel, the conversion pass, by the launch
-    counters (one each of the counted two) and by the device's own record
-    (the call captured into a CUDA graph: exactly those three kernel nodes,
-    in that order, and no other node)."""
+    """A private kernel's call without `out=`: the exponent kernel (which
+    zeroes the accumulator), the histogram kernel, the conversion pass; a
+    `histogram_packed` call: the exponent kernel and the cluster kernel.
+    By the launch counters (one each of the counted two) and by the
+    device's own record (the call captured into a CUDA graph: exactly
+    those kernel nodes, in that order, and no other node)."""
     from repro_torch.kernels.histogram import device_kernels, fixed_exponent
 
     dev = _cuda()
@@ -1694,8 +1722,8 @@ def test_histogram_call_is_three_launches_on_card(rng):
                  flat, gh, pos, 4, max_bins, bits),
              "histogram_rows_kernel": lambda: build_histograms_rows_kernel(
                  flat, gh_sel, pos_sel, rid, 4, max_bins, bits),
-             "histogram_global_kernel": lambda: histogram_packed(flat, gh, pos, 4, max_bins,
-                                                                 bits)}
+             "histogram_cluster_kernel": lambda: histogram_packed(flat, gh, pos, 4, max_bins,
+                                                                  bits)}
     for name, call in calls.items():
         call()
         torch.cuda.synchronize()
@@ -1703,8 +1731,11 @@ def test_histogram_call_is_three_launches_on_card(rng):
         call()
         torch.cuda.synchronize()
         assert sum(ops.launches().values()) == 2 and fixed_exponent.launches == 1, name
-        assert device_kernels(call, dev) == [
-            "fixed_exponent_kernel", name, "histogram_dequantise_kernel"], name
+        # The cluster kernel converts as it stores: no conversion pass.
+        want = ["fixed_exponent_kernel", name]
+        if name != "histogram_cluster_kernel":
+            want.append("histogram_dequantise_kernel")
+        assert device_kernels(call, dev) == want, name
 
 
 def _assert_same_fit(a, b) -> None:

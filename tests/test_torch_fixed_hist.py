@@ -28,7 +28,15 @@ from repro_torch.core.predict import ENSEMBLE_FIELDS
 from repro_torch.kernels import fixed as FX
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import DeviceLimits
-from repro_torch.kernels.histogram import BIN_BYTES, PRIVATE_BLOCKS_PER_SM, launch_plan
+from repro_torch.kernels.histogram import (
+    BIN_BYTES,
+    CLUSTER_SIZES,
+    PRIVATE_BLOCKS_PER_SM,
+    launch_plan,
+    packed_bytes,
+    packed_plan,
+    packed_threads,
+)
 
 from _torch_parity import EXPONENT_EDGES
 
@@ -493,6 +501,133 @@ def test_rows_kernel_missing_bin_is_totals_less_bins(rng, case, groups):
         assert bool(torch.isnan(FX.dequantise(got, k)).all() and torch.isnan(plain).all())
     else:
         assert torch.equal(FX.dequantise(got, k), plain)
+
+
+# --- the cluster kernel (`histogram_packed`): a cluster owns its output tile ------
+#
+# A thread-block cluster of C blocks owns each (node tile, feature group) of
+# `packed_plan`; its blocks take C stripes of whole words, each adds its
+# rows' quantised (g, h) into a private int64 tile, every bin but the
+# missing one, whose entry it sets to its rows' node totals (summed by its
+# warps) less its other bins; the tile's sum over the C blocks, taken in
+# rank order, is converted once: float32(float64(sum) * 2^-k), NaN under
+# NONFINITE. A plain-torch model of that arithmetic, with the stripes cut
+# at random words, must give `histogram_packed_fixed_ref` bit for bit.
+
+# (n, features, max_bins, n_nodes, bits, skew): rows not a multiple of the
+# symbols a word, positions -1 and n_nodes inactive.
+CLUSTER_CASES = {
+    "nodes_1": (2001, 5, 256, 1, 8, 0.0), "nodes_8": (2001, 5, 256, 8, 8, 0.0),
+    "nodes_32": (3001, 4, 256, 32, 8, 0.0), "nodes_64": (1501, 3, 256, 64, 8, 0.0),
+    "skewed_1": (2001, 5, 256, 1, 8, 0.8), "skewed_32": (3001, 4, 256, 32, 8, 0.8),
+    "bits_1": (1001, 3, 2, 4, 1, 0.0), "bits_4": (1003, 6, 16, 3, 4, 0.0),
+    "bits_16": (999, 3, 300, 5, 16, 0.0), "bits_32": (777, 2, 64, 8, 32, 0.0),
+    "nonfinite": (1001, 5, 32, 4, 5, 0.0),
+}
+
+
+def _cluster_tile(rng, words, q, node, n_nodes, max_bins, spw, cluster):
+    """One tile's int64 sums (n_nodes, f, max_bins, 2) before conversion:
+    its rows cut into `cluster` stripes at random whole words (some may be
+    empty), each stripe's private tile (its non-missing bins; its missing
+    entries its node totals, summed over 32 warps of rows, less those),
+    summed in rank order. Rows whose node lies outside [0, n_nodes) add
+    nothing."""
+    n, f = words.shape
+    w = -(-n // spw)
+    cuts = np.minimum(np.sort(np.concatenate([[0, w], rng.integers(0, w + 1, cluster - 1)]))
+                      * spw, n)
+    acc = torch.zeros((n_nodes, f, max_bins, 2), dtype=torch.int64)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        live = (node[lo:hi] >= 0) & (node[lo:hi] < n_nodes)
+        b, r, nd = words[lo:hi][live], q[lo:hi][live], node[lo:hi][live]
+        part = torch.zeros((n_nodes * f * max_bins, 2), dtype=torch.int64)
+        i, c = torch.nonzero(b < max_bins - 1, as_tuple=True)
+        part.index_add_(0, (nd[i] * f + c) * max_bins + b[i, c], r[i])
+        part = part.view(n_nodes, f, max_bins, 2)
+        warp = torch.arange(lo, hi)[live] // spw % 1024 // 32  # the row's warp
+        totals = torch.zeros((32, n_nodes, 2), dtype=torch.int64)
+        totals.view(-1, 2).index_add_(0, warp * n_nodes + nd, r)
+        part[:, :, -1] = totals.sum(0)[:, None] - part[:, :, :-1].sum(2)
+        acc += part
+    return acc
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_cluster_kernel_arithmetic_is_the_fixed_plain_version(rng, case):
+    """The cluster kernel's arithmetic under `packed_plan` on an H100's
+    limits: each (node, feature) written by exactly one tile, whose C blocks
+    split its words at random, their private tiles summed and converted;
+    `torch.equal` to `histogram_packed_fixed_ref`, NaN everywhere after a
+    non-finite row."""
+    n, f, max_bins, n_nodes, bits, skew = CLUSTER_CASES[case]
+    bins = rng.integers(0, max_bins, size=(n, f)).astype(np.int32)
+    bins[rng.random((n, f)) < skew] = max_bins - 1
+    gh = np.stack([rng.normal(size=n) * 3, rng.random(n)], axis=1).astype(np.float32)
+    pos = rng.integers(0, n_nodes + 1, size=n).astype(np.int32)
+    pos[rng.random(n) < 0.05] = -1
+    if case == "nonfinite":
+        gh[17, 0] = np.nan
+    ghT, posT, bins_t = torch.from_numpy(gh), torch.from_numpy(pos), torch.from_numpy(bins)
+    packed = _pack(bins, bits)
+    spw = 32 // bits
+    plan = packed_plan(packed.shape[1], f, n_nodes, max_bins, bits, H100)
+    k = FX.exponent(ghT)
+    q = FX.quantise(ghT, k)
+    got = torch.full((n_nodes, f, max_bins, 2), -1.0)
+    owners = torch.zeros((n_nodes, f), dtype=torch.int64)
+    for n0 in range(0, n_nodes, plan.node_tile):
+        for f0 in range(0, f, plan.feat_group):
+            nodes = slice(n0, min(n0 + plan.node_tile, n_nodes))
+            feats = slice(f0, min(f0 + plan.feat_group, f))
+            nn = nodes.stop - n0
+            acc = _cluster_tile(rng, bins_t[:, feats].long(), q, posT.long() - n0, nn,
+                                max_bins, spw, plan.cluster)
+            conv = (acc.double() * FX.pow2(torch.where(k == FX.NONFINITE, 0, -k))).float()
+            got[nodes, feats] = torch.where(k == FX.NONFINITE, float("nan"), conv)
+            owners[nodes, feats] += 1
+    assert bool((owners == 1).all())
+    want = ref.histogram_packed_fixed_ref(packed, ghT, posT, n_nodes, max_bins, bits)
+    if case == "nonfinite":
+        assert int(k) == FX.NONFINITE
+        assert bool(torch.isnan(got).all() and torch.isnan(want).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("max_bins", [2, 3, 16, 64, 255, 256])
+def test_packed_plan_fits_and_owns_every_tile_once(max_bins):
+    """`packed_plan` on an H100's limits over nodes 1-64 and features
+    1-200: every private tile within the opt-in shared memory, a portable
+    cluster (at most 8), the stripes cover every word, and the tiles own
+    every (node, feature) exactly once; at the main path's 28 features and
+    1 / 8 / 32 nodes the grid fills more than half of one wave of the
+    card's clusters and no more."""
+    bits = TC.bits_needed(max_bins - 1)
+    slots = H100.n_sm // 8 * 8
+    for n_nodes in (1, 2, 7, 8, 31, 32, 33, 64):
+        for f in (1, 5, 28, 200):
+            for n_words in (1, 3, 250_000):
+                plan = packed_plan(n_words, f, n_nodes, max_bins, bits, H100)
+                assert plan.smem_bytes == packed_bytes(plan.feat_group, plan.node_tile,
+                                                       max_bins, plan.threads)
+                assert plan.smem_bytes <= H100.smem_block
+                assert plan.cluster in CLUSTER_SIZES and plan.cluster <= 8
+                assert plan.words_per_block * plan.cluster >= n_words
+                assert plan.threads == packed_threads(bits)
+                owners = np.zeros((n_nodes, f), dtype=np.int64)
+                for n0 in range(0, n_nodes, plan.node_tile):
+                    for f0 in range(0, f, plan.feat_group):
+                        owners[n0:n0 + plan.node_tile, f0:f0 + plan.feat_group] += 1
+                assert (owners == 1).all()
+                if f == 28 and n_nodes in (1, 8, 32) and n_words == 250_000:
+                    blocks = (-(-n_nodes // plan.node_tile) * -(-f // plan.feat_group)
+                              * plan.cluster)
+                    assert slots // 2 < blocks <= slots, (n_nodes, plan)
+    assert [packed_threads(b) for b in (1, 2, 3, 4, 6, 8, 16, 32)] == [
+        256, 256, 512, 512, 512, 1024, 1024, 1024]
+    with pytest.raises(ValueError, match="shared memory"):
+        packed_plan(10, 1, 1, 20_000, 16, H100)
 
 
 def _exponent_by_bits(gh: torch.Tensor) -> int:
