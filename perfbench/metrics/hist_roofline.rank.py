@@ -1,0 +1,5 @@
+"""`hist_roofline` of the ranking cells, which report `rank_round_ms`: the same
+reader."""
+from perfbench.harness import load_metric
+
+read = load_metric("hist_roofline").read

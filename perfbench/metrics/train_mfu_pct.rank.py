@@ -1,0 +1,5 @@
+"""`train_mfu_pct` of the ranking cells, which report `rank_round_ms`: the same
+reader."""
+from perfbench.harness import load_metric
+
+read = load_metric("train_mfu_pct").read
